@@ -1,0 +1,10 @@
+"""Dispatch names for the attention kernels, as ``repro.kernels.ops``
+names them.  Each wrapper launches its Hopper kernel for CUDA tensors and
+runs its plain version for CPU tensors; the model calls these names."""
+from __future__ import annotations
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_prefill import flash_prefill
+
+flash_prefill_op = flash_prefill
+decode_attention_op = decode_attention

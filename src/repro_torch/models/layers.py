@@ -1,0 +1,141 @@
+"""Transformer building blocks of the dense GQA decoder, in PyTorch.
+
+Counterparts of ``repro.models.layers`` for the main serving path: plain
+functions over a params dict and tensors, in the JAX layouts ((B,T,H,D)
+activations, (B,S,Hkv,D) caches, ``wq`` stored as (d, Hq*D)).  Attention
+goes through the kernel dispatch names of ``repro_torch.kernels.ops``:
+``flash_prefill_op`` where JAX calls ``blockwise_attention`` and
+``decode_attention_op`` where it calls ``decode_attention_jnp``.
+
+Flavours outside this path (qk_norm, half/mrope rope, sliding-window,
+MoE, RG-LRU, RWKV6, encoders) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.kernels.ops import decode_attention_op, flash_prefill_op
+
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for every flavour the port does not implement yet."""
+    missing = []
+    if any(kind != ATTN for kind in cfg.block_pattern):
+        missing.append(f"block kinds {sorted(set(cfg.block_pattern) - {ATTN})}")
+    if cfg.is_encoder:
+        missing.append("encoder (bidirectional) models")
+    if cfg.is_moe:
+        missing.append("MoE")
+    if cfg.qk_norm:
+        missing.append("qk_norm")
+    if cfg.rope != "full":
+        missing.append(f"rope={cfg.rope!r}")
+    if cfg.modality != "text":
+        missing.append(f"modality={cfg.modality!r}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {', '.join(missing)}")
+
+
+# --------------------------------------------------------------------------- #
+# Small primitives
+# --------------------------------------------------------------------------- #
+def rms_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+# --------------------------------------------------------------------------- #
+# Rotary embeddings ("full": pairs-first half-split layout, not interleaved)
+# --------------------------------------------------------------------------- #
+def _rope_freqs(theta: float, n_freq: int, device) -> torch.Tensor:
+    exponent = torch.arange(0, n_freq, dtype=torch.float32,
+                            device=device) / n_freq
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, heads, head_dim); positions: (B, T)."""
+    if cfg.rope != "full":
+        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    n = x.shape[-1] // 2
+    freqs = _rope_freqs(cfg.rope_theta, n, x.device)
+    ang = (positions.float()[..., None] * freqs)[:, :, None, :]  # (B,T,1,n)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :n], x[..., n:2 * n]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Attention block (global, causal)
+# --------------------------------------------------------------------------- #
+def attention_block(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                        # (B, T, d)
+    positions: torch.Tensor,                # (B, T)
+    *,
+    layer_cache: Optional[Params],          # {"k","v"}: (B, S, Hkv, D)
+    cache_len: Optional[torch.Tensor],      # (B,) int tokens already cached
+    return_cache: bool,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Prefill (full sequence) or decode (T == 1 with a cache).  Decode
+    writes the new k/v into ``layer_cache`` IN PLACE at ring index
+    ``cache_len % S`` (JAX returns an updated copy; the port saves the
+    cache's memory) and returns the same dict."""
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm is not ported yet")
+    B, T, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = apply_rope(cfg, q.reshape(B, T, hq, hd), positions)
+    k = apply_rope(cfg, k.reshape(B, T, hkv, hd), positions)
+    v = v.reshape(B, T, hkv, hd)
+
+    new_cache = None
+    if layer_cache is not None and T == 1:
+        # ---- decode: scatter kv into the cache ring and attend over it ----
+        k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+        S = k_cache.shape[1]
+        idx = (cache_len % S).long()
+        bidx = torch.arange(B, device=x.device)
+        k_cache[bidx, idx] = k[:, 0]
+        v_cache[bidx, idx] = v[:, 0]
+        valid = torch.clamp(cache_len + 1, max=S).to(torch.int32)
+        out = decode_attention_op(q[:, 0], k_cache, v_cache, valid)
+        new_cache = layer_cache
+    else:
+        # ---- prefill: causal attention over this sequence ----
+        out = flash_prefill_op(q, k, v, causal=True)
+        if return_cache:
+            new_cache = {"k": k, "v": v}
+
+    out = out.reshape(B, T, hq * hd)
+    return out @ params["wo"], new_cache
+
+
+# --------------------------------------------------------------------------- #
+# Gated MLP (SwiGLU)
+# --------------------------------------------------------------------------- #
+def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]

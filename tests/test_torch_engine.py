@@ -1,0 +1,136 @@
+"""The port's ServingEngine against the JAX one on the CPU: with the same
+(bridged) weights both engines emit exactly the same greedy tokens, under
+the contracts of ``tests/test_serving_engine.py`` and when a slot is
+reused by a shorter prompt (the port writes prefill K/V in place and
+leaves the previous request's rows past T behind)."""
+import dataclasses
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
+from repro.core.request import Request as JRequest  # noqa: E402
+from repro.serving import engine as jeng  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.request import Request  # noqa: E402
+from repro_torch.params import params_from_jax  # noqa: E402
+from repro_torch.serving.engine import (H100_SXM, EngineConfig,  # noqa: E402
+                                        ServingEngine)
+
+
+def tiny_cfg(make=get_smoke_config):
+    cfg = make("llama3-8b")
+    return dataclasses.replace(cfg, num_layers=2, d_model=128, num_heads=2,
+                               num_kv_heads=1, head_dim=64, d_ff=256,
+                               vocab_size=300)
+
+
+def engines(seed, max_batch=2, max_seq_len=64):
+    """A JAX engine and a port engine on the JAX engine's weights."""
+    je = jeng.ServingEngine(
+        tiny_cfg(jax_smoke_config), seed=seed,
+        econf=jeng.EngineConfig(max_batch=max_batch,
+                                max_seq_len=max_seq_len, eos_token=-1))
+    cfg = tiny_cfg()
+    params = params_from_jax(jax.tree.map(np.asarray, je.params), cfg,
+                             device="cpu")
+    te = ServingEngine(cfg, params=params,
+                       econf=EngineConfig(max_batch=max_batch,
+                                          max_seq_len=max_seq_len,
+                                          eos_token=-1, device="cpu"))
+    return je, te
+
+
+def requests(rid, prompt, n_new):
+    kw = dict(rid=rid, arrival_time=0.0, prompt_len=len(prompt),
+              output_len=n_new, prompt_tokens=list(prompt))
+    return JRequest(**kw), Request(**kw)
+
+
+def test_engine_greedy_matches_jax():
+    """test_engine_matches_full_forward_greedy's protocol on both."""
+    je, te = engines(seed=3)
+    jr, tr = requests(0, [5, 9, 17, 4, 33], 6)
+    for eng, req in ((je, jr), (te, tr)):
+        eng.prefill(req)
+        while len(req.generated) < 6:
+            eng.decode_step()
+    assert tr.generated == jr.generated
+    assert len(tr.generated) == 6
+
+
+def test_engine_concurrent_requests_match_jax():
+    """test_engine_concurrent_requests_isolated's interleaving on both."""
+    je, te = engines(seed=4)
+    p1, p2 = [7, 3, 11], [21, 9, 2, 40, 8]
+    out = []
+    for side, eng in enumerate((je, te)):
+        r1, r2 = requests(1, p1, 5)[side], requests(2, p2, 5)[side]
+        eng.prefill(r1)
+        eng.decode_step()          # r1 advances alone
+        eng.prefill(r2)            # r2 joins mid-flight
+        for _ in range(6):
+            eng.decode_step()
+        out.append((r1.generated, r2.generated))
+    assert out[0] == out[1]
+
+
+def test_slot_reuse_by_shorter_prompt():
+    """A slot freed by a long request and reused by a shorter prompt still
+    gives the shorter prompt's solo-run tokens: decode attends over
+    min(len + 1, S) positions, never the stale rows past T."""
+    long_p = list(range(10, 50))
+    short_p = [7, 3, 11, 5]
+    je, te = engines(seed=6, max_batch=1)
+    _, solo = engines(seed=6, max_batch=1)
+    _, ts = requests(9, short_p, 6)
+    solo.prefill(ts)
+    while solo.slot_req[0] is not None:
+        solo.decode_step()
+
+    out = []
+    for side, eng in enumerate((je, te)):
+        ra, rb = requests(1, long_p, 8)[side], requests(2, short_p, 6)[side]
+        eng.prefill(ra)
+        while eng.slot_req[0] is not None:
+            eng.decode_step()
+        assert eng.free_slots() == [0]
+        eng.prefill(rb)
+        while eng.slot_req[0] is not None:
+            eng.decode_step()
+        out.append((ra.generated, rb.generated))
+    assert out[0] == out[1]
+    assert out[1][1] == ts.generated
+    # the stale rows of the long request are still there past T
+    assert bool(te.cache["k"][:, 0, len(short_p) + 6:len(long_p)].abs()
+                .sum() > 0)
+
+
+def test_engine_records_timings_and_frees_slots():
+    je, te = engines(seed=5)
+    _, req = requests(0, [5, 9, 17, 4], 3)
+    te.prefill(req)
+    assert te.free_slots() == [1]
+    while len(req.generated) < 3:
+        te.decode_step()
+    assert te.free_slots() == [0, 1]
+    assert te.executor.prefill_time([4]) > 0
+    assert te.executor.decode_time(2, ctx_sum=10) > 0
+    _, r2 = requests(1, [1, 2], 1)
+    te.prefill(r2)
+    te.release(r2)
+    assert te.free_slots() == [0, 1]
+
+
+def test_executor_seeded_from_h100_profile():
+    assert (H100_SXM.flops, H100_SXM.hbm_bw, H100_SXM.hbm_bytes) == (
+        989e12, 3.35e12, 80e9)
+    _, te = engines(seed=0)
+    assert te.econf.device == "cpu" and te.device.type == "cpu"

@@ -1,0 +1,183 @@
+"""The port's dense GQA decoder against ``repro.models`` on the CPU: the
+same weights (the JAX ``init_params`` pytree bridged with
+``params_from_jax``) and the same tokens give the same logits in f32, for
+prefill and for prefill -> decode."""
+import dataclasses
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+import repro.models as jm  # noqa: E402
+import repro_torch.models as tm  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs.base import ATTN  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.params import params_from_jax  # noqa: E402
+
+ATOL = 1e-4   # f32 logits; the two sides sum in another order
+
+
+def _configs():
+    llama = get_smoke_config("llama3-8b")
+    # qwen2-72b-shaped: qkv bias, GQA 4:1, rope theta 1e6
+    qwen = dataclasses.replace(
+        get_smoke_config("qwen2-72b"), num_heads=8, num_kv_heads=2,
+        head_dim=32, d_model=128, d_ff=256)
+    # G = 5 and a layers_tail: block_pattern of two ATTN over 3 layers
+    tail = dataclasses.replace(
+        llama, num_layers=3, block_pattern=(ATTN, ATTN), num_heads=10,
+        num_kv_heads=2, head_dim=16, d_model=160)
+    return {"llama3-8b-smoke": llama, "qwen2-72b-tiny": qwen,
+            "gqa5-tail": tail}
+
+
+CONFIGS = _configs()
+
+
+def _jax_params(cfg, seed):
+    """JAX weights as numpy, with non-zero norm scales and biases so that
+    every leaf matters."""
+    tree = jax.tree.map(np.asarray,
+                        jm.init_params(jax.random.key(seed), cfg))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name or "'b" in name:
+            return (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_prefill_logits_match_jax(name):
+    cfg = CONFIGS[name]
+    tree = _jax_params(cfg, 0)
+    params = params_from_jax(tree, cfg, device="cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 37))
+    want, _ = jm.forward(jax.tree.map(jnp.asarray, tree), cfg,
+                         {"tokens": jnp.asarray(toks, jnp.int32)})
+    got, _ = tm.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 37, cfg.vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_prefill_then_decode_matches_jax(name):
+    """Prefill T-1 tokens, write the cache into a longer slotted cache,
+    decode the last token: the logits match JAX's decode and JAX's full
+    forward (the contract of test_configs_smoke.py)."""
+    cfg = CONFIGS[name]
+    tree = _jax_params(cfg, 2)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_jax(tree, cfg, device="cpu")
+    B, T = 2, 24
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, T))
+
+    full, _ = jm.forward(jparams, cfg, {"tokens": jnp.asarray(toks)})
+    _, jcache = jm.forward(jparams, cfg, {"tokens": jnp.asarray(
+        toks[:, :-1])}, return_cache=True)
+    jcache = jm.grow_cache(cfg, jcache, T + 4)
+    want, _ = jm.forward(jparams, cfg, {"tokens": jnp.asarray(toks[:, -1:])},
+                         cache=jcache,
+                         cache_len=jnp.full((B,), T - 1, jnp.int32))
+
+    _, pc = tm.forward(params, cfg, {"tokens": torch.from_numpy(
+        toks[:, :-1])}, return_cache=True)
+    cache = tm.init_cache(cfg, B, T + 4, device="cpu")
+    cache["k"][:, :, :T - 1] = pc["k"]
+    cache["v"][:, :, :T - 1] = pc["v"]
+    got, cache2 = tm.forward(params, cfg,
+                             {"tokens": torch.from_numpy(toks[:, -1:])},
+                             cache=cache,
+                             cache_len=torch.full((B,), T - 1,
+                                                  dtype=torch.int32))
+    assert cache2 is cache                  # updated in place
+    np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want[:, 0]),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(full[:, -1]),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_params_from_jax_layer_order():
+    """Layer i of the port is JAX's layers_scan/pos{p}[c] with
+    i = c * plen + p, then the layers_tail tuple."""
+    cfg = CONFIGS["gqa5-tail"]
+    tree = _jax_params(cfg, 4)
+    params = params_from_jax(tree, cfg, device="cpu")
+    assert len(params["layers"]) == 3
+    scan = tree["layers_scan"]
+    np.testing.assert_array_equal(params["layers"][0]["core"]["wq"].numpy(),
+                                  scan["pos0"]["core"]["wq"][0])
+    np.testing.assert_array_equal(params["layers"][1]["core"]["wq"].numpy(),
+                                  scan["pos1"]["core"]["wq"][0])
+    np.testing.assert_array_equal(params["layers"][2]["core"]["wq"].numpy(),
+                                  tree["layers_tail"][0]["core"]["wq"])
+
+
+def test_init_params_shapes_and_distributions():
+    """Same leaves, shapes and distributions as repro.models.init_params:
+    normal*0.02 embedding and head, d**-0.5 projections, zero norms."""
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), d_model=128,
+                              d_ff=512, vocab_size=4096)
+    gen = torch.Generator().manual_seed(0)
+    p = tm.init_params(cfg, gen, torch.float32, "cpu")
+    ref = params_from_jax(_jax_params(cfg, 0), cfg, device="cpu")
+
+    def shapes(tree, path=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in shapes(v, f"{path}/{k}").items()}
+        if isinstance(tree, list):
+            return {k2: v2 for i, v in enumerate(tree)
+                    for k2, v2 in shapes(v, f"{path}/{i}").items()}
+        return {path: tuple(tree.shape)}
+    assert shapes(p) == shapes(ref)
+    assert abs(float(p["embed"].std()) - 0.02) < 1e-3
+    assert abs(float(p["lm_head"].std()) - 0.02) < 1e-3
+    blk = p["layers"][0]
+    assert abs(float(blk["core"]["wq"].std()) - 128 ** -0.5) < 5e-3
+    assert abs(float(blk["ffn"]["w_down"].std()) - 512 ** -0.5) < 5e-3
+    assert float(blk["norm1"]["scale"].abs().sum()) == 0.0
+
+
+def test_rope_and_norm_match_jax():
+    from repro.models import layers as JL
+    cfg = get_smoke_config("llama3-8b")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 7, 3, 64)).astype(np.float32)
+    pos = rng.integers(0, 4000, (2, 7))
+    want = JL.apply_rope(cfg, jnp.asarray(x), jnp.asarray(pos))
+    got = L.apply_rope(cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    scale = rng.standard_normal(64).astype(np.float32)
+    want = JL.rms_norm({"scale": jnp.asarray(scale)}, jnp.asarray(x), 1e-6)
+    got = L.rms_norm({"scale": torch.from_numpy(scale)},
+                     torch.from_numpy(x), 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    y = rng.standard_normal((4, 9)).astype(np.float32) * 50
+    np.testing.assert_allclose(
+        L.soft_cap(torch.from_numpy(y), 30.0).numpy(),
+        np.asarray(JL.soft_cap(jnp.asarray(y), 30.0)), atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "chatglm3-6b", "llama3-8b-sw",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "qwen2-vl-2b", "hubert-xlarge"])
+def test_unported_flavours_raise(arch):
+    """qk_norm, half/mrope rope, local attention, MoE, RG-LRU, RWKV6 and
+    the encoder are not approximated: they raise."""
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError):
+        tm.init_params(cfg, torch.Generator().manual_seed(0),
+                       torch.float32, "cpu")
