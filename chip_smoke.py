@@ -9,19 +9,25 @@ Phases, in order (all by default):
 2. ``build``: compile ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``
    into the git-ignored ``build/kernels/`` and load the library.
 3. ``kernels``: each hand-written kernel against its plain PyTorch version
-   on the card, in bf16 and f32, over ragged lengths, T and S that are not
-   multiples of the tiles, and GQA groups of 4 and 5; prints the error
-   against the tolerance and the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times beside the least time the card
-   could take (``bound_ms``).
-4. ``parity``: llama3-8b at full width, 2 layers, f32: one prompt and 8
-   greedy decode steps with the kernels on the card and with the plain
-   versions on the CPU; logits within a stated tolerance, tokens equal.
-5. ``serve``: the main path. ``PaDGServer(backend="real")`` serves 16
-   requests on two instances of full-depth bf16 llama3-8b (``max_batch``
-   8, ``max_seq_len`` 2048) on a wall clock; every request must finish
-   with its token count, no logit may be NaN or infinite, and both
-   kernels' launch counts (set to 0 just before the run) must be > 0.
+   on the card: the attention kernels in bf16 and f32, over ragged
+   lengths, T and S that are not multiples of the tiles, and GQA groups of
+   4 and 5; ``rwkv6_scan`` in f32 (o and final state) over ragged T, D 64
+   and 128, a carried-in state, and fast decays against a step-by-step
+   recurrence (there the plain chunked form overflows).  Prints the error
+   against the tolerance and the kernel's, the plain version's and (for
+   attention) ``scaled_dot_product_attention``'s times beside the least
+   time the card could take (``bound_ms``).
+4. ``parity``: llama3-8b and rwkv6-3b at full width, 2 layers, f32: one
+   prompt and 8 greedy decode steps with the kernels on the card and with
+   the plain versions on the CPU; logits within a stated tolerance,
+   tokens equal.
+5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
+   requests on two instances of full-depth bf16 llama3-8b, then of
+   full-depth bf16 rwkv6-3b (``max_batch`` 8, ``max_seq_len`` 2048), on a
+   wall clock; every request must finish with its token count, no logit
+   row may hold a NaN or an infinity, and the launch counts of the path's
+   kernels (all set to 0 just before each run, read just after it) must
+   be > 0.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -56,8 +63,14 @@ HBM_BYTES_PER_S = 3.35e12
 # max; up to another step on rows with few keys): two steps in all
 TOL = {"float32": dict(atol=2e-5, atol_rms=0.0, rtol=2e-5),
        "bfloat16": dict(atol=0.0, atol_rms=1e-2, rtol=2.0 ** -6)}
-# model parity, f32 logits: cuBLAS and the kernels sum 4096- to 14336-long
-# products in another order than the CPU
+# rwkv6_scan (f32) against its plain version: both sum T*D-term products in
+# f32, the kernel over 64-step chunks with its decays factored into terms
+# <= 1, the plain version over 128-step chunks as rwkv6_chunked_jnp; so the
+# error scales with the output's size (1e-4 of its rms), a tenth of the
+# reference tests' 1e-3 (tests/test_kernels.py) on outputs of about 1
+TOL["rwkv6"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
+# model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
+# products (and rwkv6_scan its T*D-term sums) in another order than the CPU
 PARITY_ATOL = 1e-3
 
 
@@ -93,9 +106,9 @@ def bound(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, got, want, dtype_name: str):
+def compare(torch, got, want, tol_name: str):
     """(ok, max |got - want|, largest share of its limit an element uses)."""
-    tol = TOL[dtype_name]
+    tol = TOL[tol_name]
     want = want.float()
     diff = (got.float() - want).abs()
     limit = (tol["atol"] + tol["atol_rms"] * want.square().mean().sqrt()
@@ -106,8 +119,8 @@ def compare(torch, got, want, dtype_name: str):
     return ok, max_abs, share
 
 
-def tol_text(dtype_name: str) -> str:
-    t = TOL[dtype_name]
+def tol_text(tol_name: str) -> str:
+    t = TOL[tol_name]
     return (f"tol {t['atol']:g} + {t['atol_rms']:g}*rms + "
             f"{t['rtol']:.4g}*|plain|")
 
@@ -247,22 +260,110 @@ def run_kernels(torch, rng, results):
                 results["decode_attention"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    all_ok &= run_rwkv6_kernel(torch, rng, results)
     if not all_ok:
         fail("a kernel disagrees with its plain version (lines above)")
+
+
+RWKV_CASES = [  # B, T, H, D, carried-in state, decay
+    (1, 1024, 40, 64, False, "slow"),           # rwkv6-3b prefill (main)
+    (1, 1000, 40, 64, False, "slow"),           # T not a chunk multiple
+    (1, 190, 40, 64, False, "slow"),            # a short ragged prompt
+    (2, 300, 8, 64, True, "slow"),              # s0 carried in
+    (1, 256, 8, 128, False, "slow"),            # D = 128
+    (1, 190, 4, 64, True, "fast"),              # plain form overflows
+]
+RWKV_KERNEL_CHUNK = 64      # chunk of csrc/rwkv6_scan.cu
+
+
+def rwkv6_ops(B, T, H, D) -> int:
+    """f32 operations of the chunked WKV6 at the kernel's chunk on these T
+    steps: per step and head 2 D^2 for the carried state's output and 2 D^2
+    for the state update; per causal (t, s) pair of a chunk, s <= t, 2 D
+    for the score and 2 D for A.V."""
+    c = RWKV_KERNEL_CHUNK
+    full, rest = divmod(T, c)
+    pairs = full * c * (c + 1) // 2 + rest * (rest + 1) // 2
+    return B * H * (4 * D * D * T + 4 * D * pairs)
+
+
+def wkv6_steps(torch, r, k, v, w, u, s0):
+    """The recurrence one step at a time (``repro.kernels.ref.rwkv6_ref``):
+    an oracle that stays finite at any decay."""
+    B, T, H, D = r.shape
+    S = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.clone())
+    outs = []
+    for t in range(T):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        o = (rt * u * kt).sum(-1, keepdim=True) * vt
+        outs.append(o + torch.einsum("bhd,bhde->bhe", rt, S))
+        S = S * w[:, t][..., None] + kt[..., None] * vt[..., None, :]
+    return torch.stack(outs, dim=1), S
+
+
+def run_rwkv6_kernel(torch, rng, results) -> bool:
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    dev = torch.device("cuda")
+
+    def arr(x):
+        return torch.from_numpy(x.astype("float32")).to(dev)
+
+    all_ok = True
+    for case in RWKV_CASES:
+        B, T, H, D, carried, decay = case
+        shape = (B, T, H, D)
+        # the inputs of tests/test_kernels.py's rwkv6 cases; "fast" decays
+        # put a 128-step chunk's log-decay sum near -500
+        r, k, v = (arr(rng.standard_normal(shape) * 0.5) for _ in range(3))
+        lo, hi = (0.6, 0.999) if decay == "slow" else (1e-3, 0.05)
+        w = arr(rng.uniform(lo, hi, shape))
+        u = arr(rng.standard_normal((H, D)) * 0.1)
+        s0 = arr(rng.standard_normal((B, H, D, D))) if carried else None
+        o, st = RS.rwkv6_scan(r, k, v, w, u, s0)
+        p_o, p_st = RS.rwkv6_scan_plain(r, k, v, w, u, s0)
+        if decay == "fast":
+            plain_finite = bool(torch.isfinite(p_o).all())
+            p_o, p_st = wkv6_steps(torch, r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        ok_o, err_o, share_o = compare(torch, o, p_o, "rwkv6")
+        ok_s, err_s, share_s = compare(torch, st, p_st, "rwkv6")
+        ms = cuda_ms(torch, lambda: RS.rwkv6_scan(r, k, v, w, u, s0))
+        plain_ms = cuda_ms(torch,
+                           lambda: RS.rwkv6_scan_plain(r, k, v, w, u, s0))
+        nbytes = 4 * (5 * B * T * H * D + H * D
+                      + (2 if carried else 1) * B * H * D * D)
+        b_ms, b_by = bound(nbytes, rwkv6_ops(B, T, H, D), "float32")
+        ok = ok_o and ok_s
+        all_ok &= ok
+        against = ("plain" if decay == "slow" else "step-by-step recurrence;"
+                   f" plain chunked form finite: {plain_finite}")
+        log(f"rwkv6_scan float32 B={B} T={T} H={H} D={D} s0={carried} "
+            f"decay={decay} (against {against}): o max_abs_err={err_o:.3e}"
+            f" (worst element at {share_o:.3f} of its limit), state "
+            f"max_abs_err={err_s:.3e} ({share_s:.3f}) ({tol_text('rwkv6')})"
+            f" {'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch "
+            f"call computes WKV6) bound_ms={b_ms:.4f} ({b_by})")
+        if case is RWKV_CASES[0]:
+            results["rwkv6_scan"] = dict(
+                max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return all_ok
 
 
 # --------------------------------------------------------------------- #
 # phase 4: model parity, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------- #
 def greedy(torch, params, cfg, prompt, n_new, device):
-    from repro_torch.models import forward, init_cache
+    from repro_torch.models import forward, init_cache, write_slot
 
     T = len(prompt)
     toks = torch.tensor([prompt], dtype=torch.long, device=device)
     logits, pc = forward(params, cfg, {"tokens": toks}, return_cache=True)
     cache = init_cache(cfg, 1, T + n_new + 1, torch.float32, device)
-    cache["k"][:, :, :T] = pc["k"]
-    cache["v"][:, :, :T] = pc["v"]
+    write_slot(cache, pc, 0, T)
     steps = [logits[0, -1].cpu()]
     tok = logits[:, -1].argmax(-1, keepdim=True)
     out = [int(tok)]
@@ -276,11 +377,17 @@ def greedy(torch, params, cfg, prompt, n_new, device):
     return out, torch.stack(steps)
 
 
-def run_parity(torch, rng, seed):
+# prompt lengths of the parity runs: llama3-8b as before; rwkv6-3b's is
+# ragged against both the kernel's 64-step and the plain form's 128-step
+# chunks
+PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190}
+
+
+def run_parity(torch, rng, seed, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, torch.float32, "cuda")
 
@@ -292,7 +399,8 @@ def run_parity(torch, rng, seed):
         return tree.cpu()
 
     p_cpu = to_cpu(p_gpu)
-    prompt = [int(x) for x in rng.integers(2, cfg.vocab_size - 1, 77)]
+    n = PARITY_PROMPT[arch]
+    prompt = [int(x) for x in rng.integers(2, cfg.vocab_size - 1, n)]
     t0 = time.perf_counter()
     tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda")
     t_gpu = time.perf_counter() - t0
@@ -300,15 +408,15 @@ def run_parity(torch, rng, seed):
     tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu")
     t_cpu = time.perf_counter() - t0
     err = float((lg_gpu - lg_cpu).abs().max())
-    log(f"parity llama3-8b width, 2 layers, f32, prompt 77 + 8 decode "
+    log(f"parity {arch} width, 2 layers, f32, prompt {n} + 8 decode "
         f"steps: max |logit diff| = {err:.3e} (tol {PARITY_ATOL}), "
         f"logit range [{float(lg_cpu.min()):.2f}, {float(lg_cpu.max()):.2f}]"
         f"; tokens card {tok_gpu} cpu {tok_cpu}; card {t_gpu:.2f} s, "
         f"cpu {t_cpu:.2f} s (host clock)")
     if not (torch.isfinite(lg_gpu).all() and err <= PARITY_ATOL):
-        fail(f"model parity: logits differ by {err:.3e} > {PARITY_ATOL}")
+        fail(f"{arch} parity: logits differ by {err:.3e} > {PARITY_ATOL}")
     if tok_gpu != tok_cpu:
-        fail("model parity: greedy tokens differ between card and CPU")
+        fail(f"{arch} parity: greedy tokens differ between card and CPU")
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -343,19 +451,32 @@ class StepLog:
                 f"({len(full)} steps) median {np.median(full):.2f} ms")
 
 
-def run_serve(torch, rng, seed):
+# the kernels each served architecture's path must launch
+PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
+                "rwkv6-3b": ("rwkv6_scan",)}
+
+
+def kernel_wrappers():
+    """name -> the wrapper that carries the kernel's launch count."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    return {"flash_prefill": flash_prefill,
+            "decode_attention": decode_attention,
+            "rwkv6_scan": rwkv6_scan}
+
+
+def run_serve(torch, rng, seed, arch):
     import numpy as np
 
     import repro_torch.serving.engine as engine_mod
     from repro_torch.configs import get_config
     from repro_torch.core.request import Request
     from repro_torch.core.slo import SLO
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_prefill as FP
     from repro_torch.serving.padg_server import PaDGServer
     from repro_torch.serving.replay import WallClock
 
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=2048,
                                     dtype=torch.bfloat16, eos_token=-1,
                                     device="cuda")
@@ -369,9 +490,10 @@ def run_serve(torch, rng, seed):
                            rng.integers(2, cfg.vocab_size - 1, plen)]))
         t += float(rng.exponential(1.0 / 4.0))
 
-    # count non-finite logits on the device, read once after the run; only
-    # the last position's row, the one the engine takes its argmax of (two
-    # small device ops per step beside the model's thousands)
+    # count non-finite logits on the device, read once after the run; the
+    # last position's row of every slot, the one the engine takes its
+    # argmax of (two small device ops per step beside the model's
+    # thousands)
     nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
     real_forward = engine_mod.forward
 
@@ -380,47 +502,53 @@ def run_serve(torch, rng, seed):
         nonfinite.add_((~torch.isfinite(logits[:, -1])).sum())
         return logits, cache
 
+    wrappers = kernel_wrappers()
     engine_mod.forward = checked_forward
     try:
         t0 = time.perf_counter()
+        gc.collect()          # an earlier serve's engines, cycles included
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         steps = StepLog()
         with PaDGServer(cfg, n_instances=2, slo=SLO(ttft=60.0, tpot=10.0),
                         econf=econf, seed=seed, recorder=steps) as server:
             t_init = time.perf_counter() - t0
-            FP.flash_prefill.launches = 0
-            DA.decode_attention.launches = 0
+            for fn in wrappers.values():
+                fn.launches = 0
             t0 = time.perf_counter()
             stats = server.serve(reqs, clock=WallClock(1.0))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"flash_prefill": FP.flash_prefill.launches,
-                        "decode_attention": DA.decode_attention.launches}
+            launches = {name: fn.launches for name, fn in wrappers.items()}
+        del server
     finally:
         engine_mod.forward = real_forward
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
     summary = stats.summary()
-    log(f"serve llama3-8b bf16, 2 instances, max_batch 8, max_seq_len "
-        f"2048: {len(reqs)} requests, prompts "
+    log(f"serve {arch} bf16, {cfg.num_layers} layers, "
+        f"{cfg.param_count() / 1e9:.2f}B parameters, 2 instances, max_batch"
+        f" 8, max_seq_len 2048: {len(reqs)} requests, prompts "
         f"{sum(r.prompt_len for r in reqs)} tokens, outputs "
         f"{sum(r.output_len for r in reqs)} tokens")
-    log(f"serve summary {json.dumps(summary)}")
-    log(f"serve wall_s={wall:.2f} (host clock) init_s={t_init:.2f} "
+    log(f"serve {arch} summary {json.dumps(summary)}")
+    log(f"serve {arch} wall_s={wall:.2f} (host clock) init_s={t_init:.2f} "
         f"peak_device_gb={peak_gb:.2f} launches={json.dumps(launches)}")
-    log(f"serve steps (host clock): {steps.summary(np)}")
+    log(f"serve {arch} steps (host clock): {steps.summary(np)}")
     n_bad = int(nonfinite)
     if n_bad:
-        fail(f"serve: {n_bad} non-finite logits")
+        fail(f"serve {arch}: {n_bad} non-finite logits")
     if summary["finished"] != len(reqs) or stats.rejected:
-        fail(f"serve: {summary['finished']} of {len(reqs)} finished")
+        fail(f"serve {arch}: {summary['finished']} of {len(reqs)} finished")
     short = [r.rid for r in stats.finished
              if len(r.generated) != r.output_len]
     if short:
-        fail(f"serve: requests {short} lack tokens")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"serve: kernel {name} was never launched on the main path")
-    return launches
+        fail(f"serve {arch}: requests {short} lack tokens")
+    for name in PATH_KERNELS[arch]:
+        if launches[name] <= 0:
+            fail(f"serve {arch}: kernel {name} was never launched on its "
+                 "path")
+    return {name: launches[name] for name in PATH_KERNELS[arch]}
 
 
 # --------------------------------------------------------------------- #
@@ -432,6 +560,9 @@ KERNEL_META = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:64"),
+    "rwkv6_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:71"),
 }
 
 
@@ -486,11 +617,14 @@ def main() -> None:
     launches = {name: None for name in KERNEL_META}   # measured by serve
     if "kernels" in phases:
         run_kernels(torch, np.random.default_rng(args.seed), results)
-    if "parity" in phases:
-        run_parity(torch, np.random.default_rng(args.seed), args.seed)
-    if "serve" in phases:
-        launches = run_serve(torch, np.random.default_rng(args.seed),
-                             args.seed)
+    for arch in PATH_KERNELS:
+        if "parity" in phases:
+            run_parity(torch, np.random.default_rng(args.seed), args.seed,
+                       arch)
+    for arch in PATH_KERNELS:
+        if "serve" in phases:
+            launches.update(run_serve(
+                torch, np.random.default_rng(args.seed), args.seed, arch))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [

@@ -2,4 +2,5 @@ from repro_torch.models.model import (  # noqa: F401
     forward,
     init_cache,
     init_params,
+    write_slot,
 )

@@ -1,14 +1,18 @@
-"""Transformer building blocks of the dense GQA decoder, in PyTorch.
+"""Building blocks of the port's decoders, in PyTorch.
 
-Counterparts of ``repro.models.layers`` for the main serving path: plain
+Counterparts of ``repro.models.layers`` for the served paths: plain
 functions over a params dict and tensors, in the JAX layouts ((B,T,H,D)
-activations, (B,S,Hkv,D) caches, ``wq`` stored as (d, Hq*D)).  Attention
-goes through the kernel dispatch names of ``repro_torch.kernels.ops``:
-``flash_prefill_op`` where JAX calls ``blockwise_attention`` and
-``decode_attention_op`` where it calls ``decode_attention_jnp``.
+activations, (B,S,Hkv,D) caches, weights stored as (in, out)).  The
+kernels are reached through the dispatch names of
+``repro_torch.kernels.ops``: ``flash_prefill_op`` where JAX calls
+``blockwise_attention``, ``decode_attention_op`` where it calls
+``decode_attention_jnp``, and ``rwkv6_scan_op`` where it calls
+``rwkv6_chunked_jnp``.
 
-Flavours outside this path (qk_norm, half/mrope rope, sliding-window,
-MoE, RG-LRU, RWKV6, encoders) raise ``NotImplementedError``.
+Blocks: global causal attention with SwiGLU (dense GQA decoders), and the
+RWKV-6 time mix with its squared-ReLU channel mix (rwkv6-3b).  Flavours
+outside these paths (qk_norm, half/mrope rope, sliding-window, MoE,
+RG-LRU, encoders) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,24 +21,28 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN, ModelConfig
-from repro_torch.kernels.ops import decode_attention_op, flash_prefill_op
+from repro_torch.configs.base import ATTN, RWKV6, ModelConfig
+from repro_torch.kernels.ops import (decode_attention_op, flash_prefill_op,
+                                     rwkv6_scan_op)
 
 Params = Dict[str, Any]
+
+DECAY_LORA = 64        # rank of the RWKV-6 decay LoRA (layers.py DECAY_LORA)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every flavour the port does not implement yet."""
     missing = []
-    if any(kind != ATTN for kind in cfg.block_pattern):
-        missing.append(f"block kinds {sorted(set(cfg.block_pattern) - {ATTN})}")
+    other = set(cfg.block_pattern) - {ATTN, RWKV6}
+    if other:
+        missing.append(f"block kinds {sorted(other)}")
     if cfg.is_encoder:
         missing.append("encoder (bidirectional) models")
     if cfg.is_moe:
         missing.append("MoE")
     if cfg.qk_norm:
         missing.append("qk_norm")
-    if cfg.rope != "full":
+    if cfg.rope not in ("full", "none"):
         missing.append(f"rope={cfg.rope!r}")
     if cfg.modality != "text":
         missing.append(f"modality={cfg.modality!r}")
@@ -69,6 +77,8 @@ def _rope_freqs(theta: float, n_freq: int, device) -> torch.Tensor:
 def apply_rope(cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """x: (B, T, heads, head_dim); positions: (B, T)."""
+    if cfg.rope == "none":
+        return x
     if cfg.rope != "full":
         raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
     n = x.shape[-1] // 2
@@ -139,3 +149,74 @@ def attention_block(
 def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# --------------------------------------------------------------------------- #
+# RWKV-6 (Finch) time mix with data-dependent decay
+# --------------------------------------------------------------------------- #
+def rwkv6_block(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                        # (B, T, d)
+    *,
+    layer_cache: Optional[Params],          # {"shift": (B,d), "state": (B,H,D,D)}
+    return_cache: bool,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Prefill (no cache: zero shift and state, as the engine's prefill
+    starts from an empty slot) or decode (T == 1 with a cache).  Decode
+    runs the one-step recurrence in plain tensor ops and updates
+    ``layer_cache`` IN PLACE (JAX returns a new one).  Casts and rounds
+    where ``repro.models.layers.rwkv6_block`` does: the token-shift mixes,
+    ``g`` and the decay LoRA in the model dtype, r/k/v in f32 after their
+    projections, the decay logit and the state in f32."""
+    B, T, d = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    decoding = layer_cache is not None and T == 1
+    if layer_cache is not None and not decoding:
+        raise NotImplementedError(
+            "rwkv6_block: a prefill from a carried state is not ported (the "
+            "reference prefill does not read the carried state either)")
+
+    if decoding:
+        x_prev = layer_cache["shift"][:, None]
+    else:
+        x_prev = torch.cat([x.new_zeros((B, 1, d)), x[:, :-1]], dim=1)
+
+    mu = params["mu"]
+
+    def mix(i):
+        return x * mu[i] + x_prev * (1.0 - mu[i])
+
+    r = (mix(0) @ params["w_r"]).reshape(B, T, H, D).float()
+    k = (mix(1) @ params["w_k"]).reshape(B, T, H, D).float()
+    v = (mix(2) @ params["w_v"]).reshape(B, T, H, D).float()
+    g = F.silu(mix(3) @ params["w_g"])
+
+    dd = (x @ params["decay_lora_a"]) @ params["decay_lora_b"]
+    logit = params["decay_base"].float() + dd.float()
+    w = torch.exp(-torch.exp(logit)).reshape(B, T, H, D)     # in (0, 1)
+    u = params["bonus_u"].float()
+
+    if decoding:
+        S = layer_cache["state"]
+        r0, k0, v0 = r[:, 0], k[:, 0], v[:, 0]
+        o = (r0 * u * k0).sum(-1, keepdim=True) * v0
+        o = (o + torch.einsum("bhd,bhde->bhe", r0, S))[:, None]
+        S.mul_(w[:, 0][..., None]).add_(k0[..., None] * v0[..., None, :])
+        layer_cache["shift"].copy_(x[:, -1])
+        new_cache = layer_cache
+    else:
+        o, state = rwkv6_scan_op(r, k, v, w, u)
+        new_cache = ({"shift": x[:, -1], "state": state} if return_cache
+                     else None)
+
+    o = o.reshape(B, T, d).to(x.dtype)
+    # the reference's simplification of RWKV's group norm: rms over all d
+    o = rms_norm({"scale": params["ln_out_scale"]}, o, cfg.norm_eps)
+    return (o * g) @ params["w_o"], new_cache
+
+
+def channel_mix(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """RWKV's FFN: squared ReLU."""
+    h = torch.square(F.relu(x @ params["w_in"]))
+    return h @ params["w_out"]

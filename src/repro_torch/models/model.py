@@ -1,29 +1,57 @@
-"""Dense GQA decoder: init / forward / cache, in PyTorch.
+"""The port's decoders: init / forward / cache, in PyTorch.
 
-Counterpart of ``repro.models.model`` for the main serving path.  The JAX
-package stacks layers per pattern position and scans over them; here
+Counterpart of ``repro.models.model`` for the served paths: dense GQA
+decoders (ATTN blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
+layers per pattern position and scans over them; here
 ``params["layers"]`` is a plain list in layer order (``params_from_jax``
-maps one onto the other) and the forward loops over it.
+maps one onto the other; layer ``i`` has kind
+``cfg.block_pattern[i % len(cfg.block_pattern)]``) and the forward loops
+over it.
 
-The cache is ``{"k": (L, B, S, Hkv, D), "v": ...}``: one preallocated
-tensor per side, so layer ``i``'s (B, S, Hkv, D) cache is the contiguous
-view ``cache["k"][i]`` and decode writes into it in place.
+The cache holds one preallocated tensor per key, stacking the layers of
+the kinds that use the key (``CACHE_KEYS``):
+
+* ATTN:  ``"k"``, ``"v"``: (L_attn, B, S, Hkv, D) in the model dtype;
+* RWKV6: ``"shift"``: (L_rwkv, B, d) in the model dtype, ``"state"``:
+  (L_rwkv, B, H, D, D) in f32.
+
+Layer ``i``'s cache is the view ``cache[key][j]``, ``j`` its index among
+the layers of its kind, and decode writes into it in place.  A new block
+kind adds its own keys; the keys of the others stay as they are.
 
 Forward modes:
-  * prefill: full sequence, ``return_cache=True`` returns this
-             sequence's k/v as ``{"k": (L, B, T, Hkv, D), "v": ...}``
-  * decode:  T == 1 step against ``cache`` / ``cache_len``
+  * prefill: full sequence, ``return_cache=True`` returns this sequence's
+             cache in the same layout (k/v with T rows);
+  * decode:  T == 1 step against ``cache`` / ``cache_len``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, RWKV6, ModelConfig
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+
+CACHE_KEYS = {ATTN: ("k", "v"), RWKV6: ("shift", "state")}
+SEQ_KEYS = ("k", "v")        # keys with a sequence axis after the batch
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    plen = len(cfg.block_pattern)
+    return [cfg.block_pattern[i % plen] for i in range(cfg.num_layers)]
+
+
+def _cache_index(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """(kind, index among the layers of that kind) of every layer."""
+    seen: Dict[str, int] = {}
+    out = []
+    for kind in layer_kinds(cfg):
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = seen.get(kind, 0) + 1
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -40,9 +68,14 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _init_block(cfg: ModelConfig, generator, dtype, device) -> Params:
-    d, hq, hkv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+def _uniform(generator: torch.Generator, shape, dtype,
+             device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, dtype=dtype,
+                      device=generator.device).to(device)
+
+
+def _init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = d ** -0.5
     core = {
         "wq": _normal(generator, (d, hq * hd), std, dtype, device),
@@ -54,11 +87,41 @@ def _init_block(cfg: ModelConfig, generator, dtype, device) -> Params:
         core["bq"] = _zeros((hq * hd,), dtype, device)
         core["bk"] = _zeros((hkv * hd,), dtype, device)
         core["bv"] = _zeros((hkv * hd,), dtype, device)
-    ffn = {
-        "w_gate": _normal(generator, (d, f), std, dtype, device),
-        "w_up": _normal(generator, (d, f), std, dtype, device),
-        "w_down": _normal(generator, (f, d), f ** -0.5, dtype, device),
-    }
+    return core
+
+
+def _init_rwkv6(cfg: ModelConfig, generator, dtype, device) -> Params:
+    """The distributions of ``repro.models.layers.init_rwkv6``."""
+    d, hd, r = cfg.d_model, cfg.head_dim, L.DECAY_LORA
+    std = d ** -0.5
+    core = {name: _normal(generator, (d, d), std, dtype, device)
+            for name in ("w_r", "w_k", "w_v", "w_g", "w_o")}
+    core["mu"] = _uniform(generator, (4, d), dtype, device)   # r,k,v,g
+    core["decay_base"] = torch.full((d,), -6.0, dtype=dtype, device=device)
+    core["decay_lora_a"] = _normal(generator, (d, r), std, dtype, device)
+    core["decay_lora_b"] = _normal(generator, (r, d), r ** -0.5, dtype,
+                                   device)
+    core["bonus_u"] = _normal(generator, (cfg.num_heads, hd), 0.1, dtype,
+                              device)
+    core["ln_out_scale"] = _zeros((d,), dtype, device)
+    return core
+
+
+def _init_block(cfg: ModelConfig, kind: str, generator, dtype,
+                device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if kind == RWKV6:
+        core = _init_rwkv6(cfg, generator, dtype, device)
+        ffn = {"w_in": _normal(generator, (d, f), d ** -0.5, dtype, device),
+               "w_out": _normal(generator, (f, d), f ** -0.5, dtype, device)}
+    else:
+        core = _init_attention(cfg, generator, dtype, device)
+        std = d ** -0.5
+        ffn = {
+            "w_gate": _normal(generator, (d, f), std, dtype, device),
+            "w_up": _normal(generator, (d, f), std, dtype, device),
+            "w_down": _normal(generator, (f, d), f ** -0.5, dtype, device),
+        }
     return {"norm1": {"scale": _zeros((d,), dtype, device)}, "core": core,
             "norm2": {"scale": _zeros((d,), dtype, device)}, "ffn": ffn}
 
@@ -77,8 +140,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
                                     0.02, dtype, device)
-    params["layers"] = [_init_block(cfg, generator, dtype, device)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_block(cfg, kind, generator, dtype, device)
+                        for kind in layer_kinds(cfg)]
     return params
 
 
@@ -88,24 +151,57 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Params:
     L.check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": _zeros(shape, dtype, device), "v": _zeros(shape, dtype, device)}
+    kinds = layer_kinds(cfg)
+    cache: Params = {}
+    n_attn, n_rwkv = kinds.count(ATTN), kinds.count(RWKV6)
+    if n_attn:
+        shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = _zeros(shape, dtype, device)
+        cache["v"] = _zeros(shape, dtype, device)
+    if n_rwkv:
+        H, D = cfg.num_heads, cfg.head_dim
+        cache["shift"] = _zeros((n_rwkv, batch, cfg.d_model), dtype, device)
+        cache["state"] = _zeros((n_rwkv, batch, H, D, D), torch.float32,
+                                device)
+    return cache
+
+
+def write_slot(cache: Params, pcache: Params, slot: int, T: int) -> None:
+    """Write a one-sequence prefill cache (``forward(..., return_cache=
+    True)`` on a batch of 1) into batch row ``slot`` of ``cache`` in place:
+    rows ``[:T]`` of the keys with a sequence axis (rows past T may hold a
+    previous request's k/v, which decode masks out), and the whole slot
+    row of the others (a previous request's shift and state are
+    overwritten).  The in-place counterpart of the JAX engine's
+    ``_merge_slot``."""
+    for key, val in pcache.items():
+        if key in SEQ_KEYS:
+            cache[key][:, slot, :T] = val[:, 0]
+        else:
+            cache[key][:, slot] = val[:, 0]
 
 
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
-def _apply_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer_cache: Optional[Params],
                  cache_len: Optional[torch.Tensor], return_cache: bool
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
     h = L.rms_norm(bp["norm1"], x, cfg.norm_eps)
-    core, new_cache = L.attention_block(
-        bp["core"], cfg, h, positions, layer_cache=layer_cache,
-        cache_len=cache_len, return_cache=return_cache)
+    if kind == RWKV6:
+        core, new_cache = L.rwkv6_block(
+            bp["core"], cfg, h, layer_cache=layer_cache,
+            return_cache=return_cache)
+    else:
+        core, new_cache = L.attention_block(
+            bp["core"], cfg, h, positions, layer_cache=layer_cache,
+            cache_len=cache_len, return_cache=return_cache)
     x = x + core
     h = L.rms_norm(bp["norm2"], x, cfg.norm_eps)
-    return x + L.mlp_block(bp["ffn"], h), new_cache
+    ffn = (L.channel_mix(bp["ffn"], h) if kind == RWKV6
+           else L.mlp_block(bp["ffn"], h))
+    return x + ffn, new_cache
 
 
 def forward(
@@ -136,14 +232,15 @@ def forward(
     else:
         positions = torch.arange(T, device=x.device).expand(B, T)
 
-    ks, vs = [], []
-    for i, bp in enumerate(params["layers"]):
-        lc = ({"k": cache["k"][i], "v": cache["v"][i]} if decoding else None)
-        x, nc = _apply_block(cfg, bp, x, positions, lc, cache_len,
+    new: Dict[str, list] = {}
+    for bp, (kind, j) in zip(params["layers"], _cache_index(cfg)):
+        keys = CACHE_KEYS[kind]
+        lc = {key: cache[key][j] for key in keys} if decoding else None
+        x, nc = _apply_block(cfg, kind, bp, x, positions, lc, cache_len,
                              return_cache)
         if return_cache and not decoding:
-            ks.append(nc["k"])
-            vs.append(nc["v"])
+            for key in keys:
+                new.setdefault(key, []).append(nc[key])
 
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -152,5 +249,5 @@ def forward(
     if decoding:
         return logits, cache
     if return_cache:
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, {key: torch.stack(vals) for key, vals in new.items()}
     return logits, None

@@ -1,8 +1,9 @@
 """Real-execution serving engine: continuous batching over the port's
 PyTorch model, on an NVIDIA GPU (or the CPU, when asked).
 
-One ``ServingEngine`` is one PaDG *instance*: it owns params, a slotted KV
-cache, and executes prefill/decode slots for the scheduling ``Instance`` it
+One ``ServingEngine`` is one PaDG *instance*: it owns params, a slotted
+cache (KV rows for attention layers, shift and state for RWKV-6 layers),
+and executes prefill/decode slots for the scheduling ``Instance`` it
 is attached to.  Counterpart of ``repro.serving.engine`` with the surface
 ``RealEngineBackend`` uses: ``prefill(req)``, ``decode_step()``,
 ``free_slots()``, ``release()``, ``econf``, ``executor``, ``recorder``,
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.request import Request
-from repro_torch.models import forward, init_cache, init_params
+from repro_torch.models import (forward, init_cache, init_params,
+                                 write_slot)
 from repro_torch.simulator.cost_model import HardwareProfile
 
 # H100 SXM datasheet figures (dense bf16 tensor-core peak, HBM3 rate and
@@ -159,10 +161,9 @@ class ServingEngine:
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
         logits, pcache = forward(self.params, self.cfg, {"tokens": toks},
                                  return_cache=True)
-        # the slot's rows [:T]; rows past T may hold a previous request's
-        # k/v, which decode masks out (it attends over min(len + 1, S))
-        self.cache["k"][:, slot, :T] = pcache["k"][:, 0]
-        self.cache["v"][:, slot, :T] = pcache["v"][:, 0]
+        # k/v rows [:T] (decode masks out a previous request's rows past
+        # T: it attends over min(len + 1, S)); shift and state whole
+        write_slot(self.cache, pcache, slot, T)
         self.tokens[slot, 0] = logits[0, -1].argmax()
         first = int(self.tokens[slot, 0])        # waits for the device
         dt = time.perf_counter() - t0

@@ -1,8 +1,10 @@
 """The port's ServingEngine against the JAX one on the CPU: with the same
-(bridged) weights both engines emit exactly the same greedy tokens, under
-the contracts of ``tests/test_serving_engine.py`` and when a slot is
-reused by a shorter prompt (the port writes prefill K/V in place and
-leaves the previous request's rows past T behind)."""
+(bridged) weights both engines emit exactly the same greedy tokens, for
+llama3-8b and rwkv6-3b, under the contracts of
+``tests/test_serving_engine.py`` and when a slot is reused by a shorter
+prompt (the port writes prefill K/V in place and leaves the previous
+request's rows past T behind; it overwrites an RWKV-6 slot's shift and
+state whole)."""
 import dataclasses
 import os
 
@@ -25,20 +27,23 @@ from repro_torch.serving.engine import (H100_SXM, EngineConfig,  # noqa: E402
                                         ServingEngine)
 
 
-def tiny_cfg(make=get_smoke_config):
-    cfg = make("llama3-8b")
+ARCHS = ["llama3-8b", "rwkv6-3b"]
+
+
+def tiny_cfg(make=get_smoke_config, arch="llama3-8b"):
+    cfg = make(arch)
     return dataclasses.replace(cfg, num_layers=2, d_model=128, num_heads=2,
                                num_kv_heads=1, head_dim=64, d_ff=256,
                                vocab_size=300)
 
 
-def engines(seed, max_batch=2, max_seq_len=64):
+def engines(seed, max_batch=2, max_seq_len=64, arch="llama3-8b"):
     """A JAX engine and a port engine on the JAX engine's weights."""
     je = jeng.ServingEngine(
-        tiny_cfg(jax_smoke_config), seed=seed,
+        tiny_cfg(jax_smoke_config, arch), seed=seed,
         econf=jeng.EngineConfig(max_batch=max_batch,
                                 max_seq_len=max_seq_len, eos_token=-1))
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(arch=arch)
     params = params_from_jax(jax.tree.map(np.asarray, je.params), cfg,
                              device="cpu")
     te = ServingEngine(cfg, params=params,
@@ -54,9 +59,10 @@ def requests(rid, prompt, n_new):
     return JRequest(**kw), Request(**kw)
 
 
-def test_engine_greedy_matches_jax():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_greedy_matches_jax(arch):
     """test_engine_matches_full_forward_greedy's protocol on both."""
-    je, te = engines(seed=3)
+    je, te = engines(seed=3, arch=arch)
     jr, tr = requests(0, [5, 9, 17, 4, 33], 6)
     for eng, req in ((je, jr), (te, tr)):
         eng.prefill(req)
@@ -66,9 +72,10 @@ def test_engine_greedy_matches_jax():
     assert len(tr.generated) == 6
 
 
-def test_engine_concurrent_requests_match_jax():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_concurrent_requests_match_jax(arch):
     """test_engine_concurrent_requests_isolated's interleaving on both."""
-    je, te = engines(seed=4)
+    je, te = engines(seed=4, arch=arch)
     p1, p2 = [7, 3, 11], [21, 9, 2, 40, 8]
     out = []
     for side, eng in enumerate((je, te)):
@@ -82,16 +89,19 @@ def test_engine_concurrent_requests_match_jax():
     assert out[0] == out[1]
 
 
-def test_slot_reuse_by_shorter_prompt():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_slot_reuse_by_shorter_prompt(arch):
     """A slot freed by a long request and reused by a shorter prompt still
     gives the shorter prompt's solo-run tokens: decode attends over
-    min(len + 1, S) positions, never the stale rows past T."""
+    min(len + 1, S) positions, never the stale rows past T, and an RWKV-6
+    prompt inherits nothing of the previous occupant's shift or state."""
     long_p = list(range(10, 50))
     short_p = [7, 3, 11, 5]
-    je, te = engines(seed=6, max_batch=1)
-    _, solo = engines(seed=6, max_batch=1)
+    je, te = engines(seed=6, max_batch=1, arch=arch)
+    _, solo = engines(seed=6, max_batch=1, arch=arch)
     _, ts = requests(9, short_p, 6)
     solo.prefill(ts)
+    solo_cache = {key: val.clone() for key, val in solo.cache.items()}
     while solo.slot_req[0] is not None:
         solo.decode_step()
 
@@ -103,14 +113,19 @@ def test_slot_reuse_by_shorter_prompt():
             eng.decode_step()
         assert eng.free_slots() == [0]
         eng.prefill(rb)
+        if eng is te and arch == "rwkv6-3b":
+            # the slot's shift and state are the short prompt's alone
+            for key in ("shift", "state"):
+                assert torch.equal(te.cache[key], solo_cache[key])
         while eng.slot_req[0] is not None:
             eng.decode_step()
         out.append((ra.generated, rb.generated))
     assert out[0] == out[1]
     assert out[1][1] == ts.generated
-    # the stale rows of the long request are still there past T
-    assert bool(te.cache["k"][:, 0, len(short_p) + 6:len(long_p)].abs()
-                .sum() > 0)
+    if arch == "llama3-8b":
+        # the stale rows of the long request are still there past T
+        assert bool(te.cache["k"][:, 0, len(short_p) + 6:len(long_p)]
+                    .abs().sum() > 0)
 
 
 def test_engine_records_timings_and_frees_slots():

@@ -43,13 +43,14 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
-        "print(len(names), bad)\n")
+        "print(len(names), 'repro_torch.kernels.rwkv6_scan' in names, "
+        "bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 30 and bad == "[]"
+    n, found, bad = out.stdout.strip().split(" ", 2)
+    assert int(n) >= 30 and found == "True" and bad == "[]"
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():

@@ -172,11 +172,12 @@ def test_rope_and_norm_match_jax():
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "chatglm3-6b", "llama3-8b-sw",
                                   "phi3.5-moe-42b-a6.6b",
-                                  "recurrentgemma-2b", "rwkv6-3b",
+                                  "recurrentgemma-2b",
                                   "qwen2-vl-2b", "hubert-xlarge"])
 def test_unported_flavours_raise(arch):
-    """qk_norm, half/mrope rope, local attention, MoE, RG-LRU, RWKV6 and
-    the encoder are not approximated: they raise."""
+    """qk_norm, half/mrope rope, local attention, MoE, RG-LRU and the
+    encoder are not approximated: they raise.  (RWKV6 is ported:
+    tests/test_torch_rwkv6.py.)"""
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError):
         tm.init_params(cfg, torch.Generator().manual_seed(0),

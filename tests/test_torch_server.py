@@ -7,7 +7,8 @@ decisions, and finishes each request at the same time, as the JAX
 (the port's engines generate real tokens meanwhile).
 
 Tokens: on the same (bridged) weights the port's real server emits the
-same tokens per request as the JAX real server.
+same tokens per request as the JAX real server, for llama3-8b and
+rwkv6-3b.
 """
 import dataclasses
 import os
@@ -49,8 +50,8 @@ MODEL_KW = dict(prefill_base=1e-3, prefill_per_token=1e-4, decode_base=5e-4,
                 kv_capacity=B * S)
 
 
-def tiny_cfg(make=get_smoke_config):
-    cfg = make("llama3-8b")
+def tiny_cfg(make=get_smoke_config, arch="llama3-8b"):
+    cfg = make(arch)
     return dataclasses.replace(cfg, num_layers=2, d_model=128, num_heads=2,
                                num_kv_heads=1, head_dim=64, d_ff=256,
                                vocab_size=VOCAB)
@@ -120,11 +121,12 @@ def test_real_server_decisions_match_jax_simulator(make_reqs):
         assert all(0 <= t < VOCAB for t in r.generated)
 
 
-def test_real_server_tokens_match_jax_real_server():
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
+def test_real_server_tokens_match_jax_real_server(arch):
     def reqs(make):
         return poisson_requests(make, n=8, seed=3, mean_gap=0.01)
 
-    jserver = JPaDGServer(tiny_cfg(jax_smoke_config), n_instances=2,
+    jserver = JPaDGServer(tiny_cfg(jax_smoke_config, arch), n_instances=2,
                           slo=JSLO(**SLO_KW),
                           econf=JEngineConfig(max_batch=B, max_seq_len=S,
                                               eos_token=-1),
@@ -136,7 +138,7 @@ def test_real_server_tokens_match_jax_real_server():
     finally:
         jserver.shutdown()
 
-    cfg = tiny_cfg()
+    cfg = tiny_cfg(arch=arch)
     bridged = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                               device="cpu")
     with PaDGServer(cfg, n_instances=2, slo=SLO(**SLO_KW),
