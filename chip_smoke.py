@@ -10,24 +10,30 @@ Phases, in order (all by default):
    into the git-ignored ``build/kernels/`` and load the library.
 3. ``kernels``: each hand-written kernel against its plain PyTorch version
    on the card: the attention kernels in bf16 and f32, over ragged
-   lengths, T and S that are not multiples of the tiles, and GQA groups of
-   4 and 5; ``rwkv6_scan`` in f32 (o and final state) over ragged T, D 64
-   and 128, a carried-in state, and fast decays against a step-by-step
-   recurrence (there the plain chunked form overflows).  Prints the error
+   lengths, T and S that are not multiples of the tiles, GQA groups of 4,
+   5 and 10, head_dim 64, 128 and 256 (recurrentgemma-2b's shapes, with a
+   windowed prefill past its window and a decode over a full ring);
+   ``rwkv6_scan`` in f32 (o and final state) over ragged T, D 64 and 128,
+   a carried-in state, and fast decays against a step-by-step recurrence
+   (there the plain chunked form overflows); ``rglru_scan`` in f32 over
+   ragged T and d, a carried-in h0 and strong decays.  Prints the error
    against the tolerance and the kernel's, the plain version's and (for
    attention) ``scaled_dot_product_attention``'s times beside the least
    time the card could take (``bound_ms``).
-4. ``parity``: llama3-8b and rwkv6-3b at full width, 2 layers, f32: one
-   prompt and 8 greedy decode steps with the kernels on the card and with
-   the plain versions on the CPU; logits within a stated tolerance,
-   tokens equal.
+4. ``parity``: llama3-8b and rwkv6-3b at full width, 2 layers, and
+   recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
+   attention cycle), f32: one prompt and 8 greedy decode steps with the
+   kernels on the card and with the plain versions on the CPU; logits
+   within a stated tolerance, tokens equal.  A second recurrentgemma-2b
+   run has its window reduced to 128 under a 190-token prompt, so that
+   the prefill's ring is rolled and decode wraps it.
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances of full-depth bf16 llama3-8b, then of
-   full-depth bf16 rwkv6-3b (``max_batch`` 8, ``max_seq_len`` 2048), on a
-   wall clock; every request must finish with its token count, no logit
-   row may hold a NaN or an infinity, and the launch counts of the path's
-   kernels (all set to 0 just before each run, read just after it) must
-   be > 0.
+   rwkv6-3b, then of recurrentgemma-2b (``max_batch`` 8, ``max_seq_len``
+   2048), on a wall clock; every request must finish with its token
+   count, no logit row may hold a NaN or an infinity, and the launch
+   counts of the path's kernels (all set to 0 just before each run, read
+   just after it) must be > 0.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -69,6 +75,10 @@ TOL = {"float32": dict(atol=2e-5, atol_rms=0.0, rtol=2e-5),
 # error scales with the output's size (1e-4 of its rms), a tenth of the
 # reference tests' 1e-3 (tests/test_kernels.py) on outputs of about 1
 TOL["rwkv6"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
+# rglru_scan (f32) against its plain version: both run the same step-by-step
+# recurrence with two roundings a step, so they differ only where the
+# card's expf and torch's exp differ; a tenth of the reference tests' 1e-4
+TOL["rglru"] = dict(atol=1e-5, atol_rms=0.0, rtol=1e-5)
 # model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
 # products (and rwkv6_scan its T*D-term sums) in another order than the CPU
 PARITY_ATOL = 1e-3
@@ -128,21 +138,32 @@ def tol_text(tol_name: str) -> str:
 # --------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------- #
-FLASH_CASES = [  # B, T, S, Hq, Hkv, D, causal, window, q_offset
-    (1, 1024, 1024, 32, 8, 128, True, 0, 0),    # llama3-8b prefill (main)
-    (1, 1000, 1000, 32, 8, 128, True, 0, 0),    # T, S not tile multiples
-    (2, 200, 200, 10, 2, 128, True, 0, 0),      # G = 5
-    (2, 128, 128, 8, 2, 64, True, 0, 0),        # D = 64
-    (1, 64, 190, 4, 2, 64, True, 0, 126),       # chunked prefill offset
-    (1, 160, 160, 4, 2, 64, True, 32, 0),       # sliding window
-    (1, 128, 100, 4, 4, 64, False, 0, 0),       # bidirectional, S != T
+# The first element names the served path whose main shape the case is (its
+# bf16 line goes into the kernel table), or is None.
+FLASH_CASES = [  # path, B, T, S, Hq, Hkv, D, causal, window, q_offset
+    ("llama3-8b", 1, 1024, 1024, 32, 8, 128, True, 0, 0),
+    (None, 1, 1000, 1000, 32, 8, 128, True, 0, 0),  # T, S not tile multiples
+    (None, 2, 200, 200, 10, 2, 128, True, 0, 0),    # G = 5
+    (None, 2, 128, 128, 8, 2, 64, True, 0, 0),      # D = 64
+    (None, 1, 64, 190, 4, 2, 64, True, 0, 126),     # chunked prefill offset
+    (None, 1, 160, 160, 4, 2, 64, True, 32, 0),     # sliding window
+    (None, 1, 128, 100, 4, 4, 64, False, 0, 0),     # bidirectional, S != T
+    # recurrentgemma-2b's local attention: G = 10, D = 256, its 2048 window
+    # (inactive below 2048 tokens), then a prefill past a 128 window
+    ("recurrentgemma-2b", 1, 1024, 1024, 10, 1, 256, True, 2048, 0),
+    (None, 1, 1000, 1000, 10, 1, 256, True, 128, 0),
 ]
-DECODE_CASES = [  # B, S, Hq, Hkv, D, lengths ("ragged" or a fixed count)
-    (8, 2048, 32, 8, 128, 1024),                # llama3-8b decode (main)
-    (8, 2048, 32, 8, 128, "ragged"),
-    (4, 1000, 4, 4, 128, "ragged"),             # S not a tile multiple
-    (1, 512, 10, 2, 64, "ragged"),              # G = 5
-    (2, 256, 8, 2, 64, "ragged"),
+DECODE_CASES = [  # path, B, S, Hq, Hkv, D, lengths ("ragged" or a count)
+    ("llama3-8b", 8, 2048, 32, 8, 128, 1024),
+    (None, 8, 2048, 32, 8, 128, "ragged"),
+    (None, 4, 1000, 4, 4, 128, "ragged"),           # S not a tile multiple
+    (None, 1, 512, 10, 2, 64, "ragged"),            # G = 5
+    (None, 2, 256, 8, 2, 64, "ragged"),
+    # recurrentgemma-2b: a W = 2048 ring half full, then full (every slot
+    # valid, as after a wrap), then ragged
+    ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 1024),
+    (None, 8, 2048, 10, 1, 256, 2048),
+    (None, 4, 1000, 10, 1, 256, "ragged"),
 ]
 
 
@@ -168,6 +189,12 @@ def sdpa_mask(torch, T, S, causal, window, q_offset, device):
     return m
 
 
+def record(results, name, path, **numbers):
+    """Keep a kernel's numbers at a served path's main shape."""
+    if path is not None:
+        results.setdefault(name, {})[path] = numbers
+
+
 def run_kernels(torch, rng, results):
     import torch.nn.functional as F
 
@@ -185,7 +212,7 @@ def run_kernels(torch, rng, results):
         dn = str(dtype).split(".")[-1]
         esize = torch.finfo(dtype).bits // 8
         for case in FLASH_CASES:
-            B, T, S, Hq, Hkv, D, causal, window, off = case
+            path, B, T, S, Hq, Hkv, D, causal, window, off = case
             q = randn((B, T, Hq, D), dtype)
             k = randn((B, S, Hkv, D), dtype)
             v = randn((B, S, Hkv, D), dtype)
@@ -198,7 +225,9 @@ def run_kernels(torch, rng, results):
             plain_ms = cuda_ms(
                 torch, lambda: FP.flash_prefill_plain(q, k, v, **kw))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if causal and not window and not off and S == T:
+            # (a window that no query position reaches masks nothing)
+            if causal and not off and S == T and (not window
+                                                  or window >= T):
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, is_causal=True, enable_gqa=True)
             else:
@@ -217,12 +246,12 @@ def run_kernels(torch, rng, results):
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by})")
-            if case is FLASH_CASES[0] and dtype == torch.bfloat16:
-                results["flash_prefill"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if dtype == torch.bfloat16:
+                record(results, "flash_prefill", path, max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
         for case in DECODE_CASES:
-            B, S, Hq, Hkv, D, lens = case
+            path, B, S, Hq, Hkv, D, lens = case
             q = randn((B, Hq, D), dtype)
             kc = randn((B, S, Hkv, D), dtype)
             vc = randn((B, S, Hkv, D), dtype)
@@ -256,11 +285,12 @@ def run_kernels(torch, rng, results):
                 f"limit) {'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({b_by})")
-            if case is DECODE_CASES[0] and dtype == torch.bfloat16:
-                results["decode_attention"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if dtype == torch.bfloat16:
+                record(results, "decode_attention", path, max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
     all_ok &= run_rwkv6_kernel(torch, rng, results)
+    all_ok &= run_rglru_kernel(torch, rng, results)
     if not all_ok:
         fail("a kernel disagrees with its plain version (lines above)")
 
@@ -347,9 +377,68 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
             f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch "
             f"call computes WKV6) bound_ms={b_ms:.4f} ({b_by})")
         if case is RWKV_CASES[0]:
-            results["rwkv6_scan"] = dict(
-                max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            record(results, "rwkv6_scan", "rwkv6-3b",
+                   max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return all_ok
+
+
+RGLRU_CASES = [  # B, T, d, carried-in h0, decay
+    (1, 1024, 2560, False, "model"),    # recurrentgemma-2b prefill (main)
+    (1, 1000, 2560, False, "model"),    # T not a multiple of the kernel's 16
+    (1, 190, 2560, False, "model"),     # a short ragged prompt
+    (1, 256, 96, False, "model"),       # d not a multiple of a block's 64
+    (2, 300, 2560, True, "model"),      # h0 carried in
+    (1, 190, 2560, True, "strong"),     # log_a near -10: h is almost b
+]
+
+
+def run_rglru_kernel(torch, rng, results) -> bool:
+    import numpy as np
+
+    from repro_torch.kernels import rglru_scan as RG
+
+    dev = torch.device("cuda")
+
+    def arr(x):
+        return torch.from_numpy(x.astype("float32")).to(dev)
+
+    all_ok = True
+    for case in RGLRU_CASES:
+        B, T, d, carried, decay = case
+        shape = (B, T, d)
+        if decay == "model":
+            # the model's range: log_a = -8 softplus(1) sigmoid(.) in
+            # (-10.5, 0), b = sqrt(1 - a^2) times a gated input
+            gate = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+            log_a = -8.0 * np.log1p(np.e) * gate
+        else:
+            log_a = rng.uniform(-10.5, -9.5, shape)
+        b = (np.sqrt(np.maximum(1.0 - np.exp(2.0 * log_a), 1e-12))
+             * rng.standard_normal(shape))
+        la, bb = arr(log_a), arr(b)
+        h0 = arr(rng.standard_normal((B, d))) if carried else None
+        got = RG.rglru_scan(la, bb, h0)
+        want = RG.rglru_scan_plain(la, bb, h0)
+        torch.cuda.synchronize()
+        ok, err, share = compare(torch, got, want, "rglru")
+        ms = cuda_ms(torch, lambda: RG.rglru_scan(la, bb, h0))
+        plain_ms = cuda_ms(torch, lambda: RG.rglru_scan_plain(la, bb, h0),
+                           iters=3, warmup=1)
+        nbytes = 4 * (3 * B * T * d + (B * d if carried else 0))
+        # per element: one exp, one product, one sum
+        b_ms, b_by = bound(nbytes, 3 * B * T * d, "float32")
+        all_ok &= ok
+        log(f"rglru_scan float32 B={B} T={T} d={d} h0={carried} "
+            f"decay={decay}: max_abs_err={err:.3e} ({tol_text('rglru')}; "
+            f"worst element at {share:.3f} of its limit) "
+            f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch "
+            f"call computes this scan) bound_ms={b_ms:.4f} ({b_by})")
+        if case is RGLRU_CASES[0]:
+            record(results, "rglru_scan", "recurrentgemma-2b",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
     return all_ok
 
 
@@ -379,15 +468,27 @@ def greedy(torch, params, cfg, prompt, n_new, device):
 
 # prompt lengths of the parity runs: llama3-8b as before; rwkv6-3b's is
 # ragged against both the kernel's 64-step and the plain form's 128-step
-# chunks
-PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190}
+# chunks, recurrentgemma-2b's against rglru_scan's 16-step chunks and
+# flash_prefill's 6-position query tiles
+PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190}
+# layers of the parity runs: 2, or recurrentgemma-2b's one full (RG-LRU,
+# RG-LRU, local attention) cycle
+PARITY_LAYERS = {"recurrentgemma-2b": 3}
+# (arch, reduced sliding window or None): the second recurrentgemma-2b run
+# cuts the window to 128 under its 190-token prompt, so the prefill rolls
+# the ring and decode wraps it on the card
+PARITY_RUNS = [("llama3-8b", None), ("rwkv6-3b", None),
+               ("recurrentgemma-2b", None), ("recurrentgemma-2b", 128)]
 
 
-def run_parity(torch, rng, seed, arch):
+def run_parity(torch, rng, seed, arch, window=None):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    n_layers = PARITY_LAYERS.get(arch, 2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, torch.float32, "cuda")
 
@@ -408,8 +509,11 @@ def run_parity(torch, rng, seed, arch):
     tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu")
     t_cpu = time.perf_counter() - t0
     err = float((lg_gpu - lg_cpu).abs().max())
-    log(f"parity {arch} width, 2 layers, f32, prompt {n} + 8 decode "
-        f"steps: max |logit diff| = {err:.3e} (tol {PARITY_ATOL}), "
+    reduced = (f", window reduced to {window} (reduced run)" if window
+               else "")
+    log(f"parity {arch} width, {n_layers} layers{reduced}, f32, prompt {n} "
+        f"+ 8 decode steps: max |logit diff| = {err:.3e} (tol "
+        f"{PARITY_ATOL}), "
         f"logit range [{float(lg_cpu.min()):.2f}, {float(lg_cpu.max()):.2f}]"
         f"; tokens card {tok_gpu} cpu {tok_cpu}; card {t_gpu:.2f} s, "
         f"cpu {t_cpu:.2f} s (host clock)")
@@ -453,17 +557,20 @@ class StepLog:
 
 # the kernels each served architecture's path must launch
 PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
-                "rwkv6-3b": ("rwkv6_scan",)}
+                "rwkv6-3b": ("rwkv6_scan",),
+                "recurrentgemma-2b": ("rglru_scan", "flash_prefill",
+                                      "decode_attention")}
 
 
 def kernel_wrappers():
     """name -> the wrapper that carries the kernel's launch count."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     return {"flash_prefill": flash_prefill,
             "decode_attention": decode_attention,
-            "rwkv6_scan": rwkv6_scan}
+            "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan}
 
 
 def run_serve(torch, rng, seed, arch):
@@ -480,15 +587,17 @@ def run_serve(torch, rng, seed, arch):
     econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=2048,
                                     dtype=torch.bfloat16, eos_token=-1,
                                     device="cuda")
-    reqs, t = [], 0.0
+    # arrivals and lengths first, so that every path serves the same trace
+    # (how many draws the tokens take depends on the vocabulary's size)
+    shape, t = [], 0.0
     for i in range(16):
-        plen = int(rng.integers(128, 1025))
-        reqs.append(Request(
-            rid=i, arrival_time=t, prompt_len=plen,
-            output_len=int(rng.integers(16, 65)),
-            prompt_tokens=[int(x) for x in
-                           rng.integers(2, cfg.vocab_size - 1, plen)]))
+        shape.append((t, int(rng.integers(128, 1025)),
+                      int(rng.integers(16, 65))))
         t += float(rng.exponential(1.0 / 4.0))
+    reqs = [Request(rid=i, arrival_time=t, prompt_len=plen, output_len=out,
+                    prompt_tokens=[int(x) for x in
+                                   rng.integers(2, cfg.vocab_size - 1, plen)])
+            for i, (t, plen, out) in enumerate(shape)]
 
     # count non-finite logits on the device, read once after the run; the
     # last position's row of every slot, the one the engine takes its
@@ -563,7 +672,26 @@ KERNEL_META = {
     "rwkv6_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:71"),
+    "rglru_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:47"),
 }
+NUMBER_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def kernel_row(name, numbers, counts):
+    """One kernel's entry of the table: the numbers at the main shape of
+    the first served path that runs it, launches summed over the serves
+    (None when no serve ran), and each path's own numbers and launches
+    under ``paths``."""
+    paths = [arch for arch, names in PATH_KERNELS.items() if name in names]
+    first = numbers.get(paths[0], dict.fromkeys(NUMBER_KEYS))
+    return {"name": name, **KERNEL_META[name],
+            "launches": sum(counts.values()) if counts else None, **first,
+            "paths": {arch: {**numbers.get(arch, {}),
+                             "launches": counts.get(arch)}
+                      for arch in paths}}
 
 
 def main() -> None:
@@ -608,28 +736,29 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if _build.BuildInfo.seconds is not None else " (already built)"))
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) \
+                or line.startswith("=="):
             log(f"  {line.strip()}")
 
-    results = {name: dict(max_abs_err=None, ms=None, plain_ms=None,
-                          bound_ms=None, bound_by=None, library_ms=None)
-               for name in KERNEL_META}
-    launches = {name: None for name in KERNEL_META}   # measured by serve
+    results = {}     # kernel -> served path -> numbers at its main shape
+    launches = {}    # kernel -> served path -> launches in its serve
     if "kernels" in phases:
         run_kernels(torch, np.random.default_rng(args.seed), results)
-    for arch in PATH_KERNELS:
-        if "parity" in phases:
+    if "parity" in phases:
+        for arch, window in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
-                       arch)
-    for arch in PATH_KERNELS:
-        if "serve" in phases:
-            launches.update(run_serve(
-                torch, np.random.default_rng(args.seed), args.seed, arch))
+                       arch, window)
+    if "serve" in phases:
+        for arch in PATH_KERNELS:
+            counts = run_serve(torch, np.random.default_rng(args.seed),
+                               args.seed, arch)
+            for name, n in counts.items():
+                launches.setdefault(name, {})[arch] = n
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [
-        {"name": name, **KERNEL_META[name], "launches": launches[name],
-         **results[name]} for name in KERNEL_META]}
+        kernel_row(name, results.get(name, {}), launches.get(name, {}))
+        for name in KERNEL_META]}
     log(json.dumps(table))
     if set(phases) != set(PHASES):
         log(f"partial run ({','.join(phases)}): no result line")

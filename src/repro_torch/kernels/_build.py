@@ -35,6 +35,7 @@ SIGNATURES = {
     "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                 _I, _P),
     "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rglru_scan_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

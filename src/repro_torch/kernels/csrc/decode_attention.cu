@@ -20,8 +20,11 @@
 // a time, so this version reaches a fraction of that rate; a split-S pass
 // plus a reduction (flash-decoding) is the later fix.
 //
-// Threads: 128 (4 warps).  Scores: lane j holds key j of the tile, warp w
-// the heads w, w+4, ...; P.V: thread (head group, d) owns column d.
+// Threads: max(128, D), so that every column has a thread in P.V (4 warps
+// at D 64 and 128, 8 at D 256).  Scores: lane j holds key j of the tile,
+// warp w the heads w, w + warps, ...; P.V: thread (head group, d) owns
+// column d.  At recurrentgemma-2b's decode (Hkv 1, B 8) the grid is 8
+// blocks: under a tenth of the SMs, which a split-S pass addresses.
 #include <math.h>
 #include <stdint.h>
 
@@ -30,11 +33,13 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kGMax = 16;                    // query heads per kv head
 constexpr int kBS = 32;                      // keys per tile, one per lane
-constexpr int kHeadsPerWarp = kGMax / kWarps;
+
+template <int D>
+constexpr int threads() {
+  return D > 128 ? D : 128;
+}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -45,7 +50,7 @@ constexpr size_t smem_floats() {
          + 2 * kGMax;       // alpha, l
 }
 
-template <typename T, int D>
+template <typename T, int D, int kThreads>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc,
@@ -60,6 +65,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* l_s = alpha_s + kGMax;
 
   constexpr int V = vec_width<T>();
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kHeadsPerWarp = kGMax / kWarps;
   constexpr int kRG = kThreads / D;        // head groups in the P.V stage
   constexpr int kAccRows = kGMax / kRG;
 
@@ -165,13 +172,14 @@ template <typename T, int D>
 int launch(const void* q, const void* kc, const void* vc, const void* lengths,
            void* out, int B, int S, int Hq, int Hkv, float scale,
            cudaStream_t stream) {
+  constexpr int kThreads = threads<D>();
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err =
-      allow_dynamic_smem(decode_attention_kernel<T, D>, smem, smem_set);
+  cudaError_t err = allow_dynamic_smem(decode_attention_kernel<T, D, kThreads>,
+                                       smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Hkv, B);
-  decode_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  decode_attention_kernel<T, D, kThreads><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const int*>(lengths),
       static_cast<T*>(out), S, Hq, Hkv, Hq / Hkv, scale);
@@ -183,7 +191,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* lengths,
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // q (B,Hq,D), caches (B,S,Hkv,D) contiguous, lengths (B,) int32 on the
-// device; D is 64 or 128; Hq/Hkv <= 16.  Returns the launch's cudaError_t.
+// device; D is 64, 128 or 256; Hq/Hkv <= 16.  Returns the launch's cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* k_cache,
                                        const void* v_cache,
                                        const void* lengths, void* out, int B,
@@ -201,5 +209,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k_cache,
     return launch<__nv_bfloat16, 64>(q, k_cache, v_cache, lengths, out, B, S, Hq, Hkv, scale, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k_cache, v_cache, lengths, out, B, S, Hq, Hkv, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k_cache, v_cache, lengths, out, B, S, Hq, Hkv, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k_cache, v_cache, lengths, out, B, S, Hq, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }

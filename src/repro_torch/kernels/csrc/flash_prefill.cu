@@ -25,6 +25,9 @@
 // Threads: 256 (8 warps).  Scores: lane j holds key j of the tile and warp
 // w the rows w, w+8, ...; each warp does its rows' softmax update with
 // shuffles.  P.V: thread (row group, d) owns column d of 64/(256/D) rows.
+// At D=256 (recurrentgemma-2b: Hq 10, Hkv 1, so G=10 and block_q = 6, 60 of
+// the 64 rows used) the tiles take 140 KB of shared memory (one block per
+// SM) and each thread holds the accumulator of one column over all 64 rows.
 #include <math.h>
 #include <stdint.h>
 
@@ -213,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Tensors are contiguous in the JAX layouts; D is 64 or 128; Hq/Hkv <= 64.
+// Tensors are contiguous in the JAX layouts; D is 64, 128 or 256; Hq/Hkv <= 64.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int T,
@@ -232,5 +235,9 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return launch<__nv_bfloat16, 64>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,7 +21,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill import rounded_softmax_pv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 16            # query heads per kv head served by one block
 
 

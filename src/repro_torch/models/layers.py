@@ -6,13 +6,15 @@ activations, (B,S,Hkv,D) caches, weights stored as (in, out)).  The
 kernels are reached through the dispatch names of
 ``repro_torch.kernels.ops``: ``flash_prefill_op`` where JAX calls
 ``blockwise_attention``, ``decode_attention_op`` where it calls
-``decode_attention_jnp``, and ``rwkv6_scan_op`` where it calls
+``decode_attention_jnp``, ``rglru_scan_op`` where it calls
+``rglru_scan_jnp``, and ``rwkv6_scan_op`` where it calls
 ``rwkv6_chunked_jnp``.
 
-Blocks: global causal attention with SwiGLU (dense GQA decoders), and the
-RWKV-6 time mix with its squared-ReLU channel mix (rwkv6-3b).  Flavours
-outside these paths (qk_norm, half/mrope rope, sliding-window, MoE,
-RG-LRU, encoders) raise ``NotImplementedError``.
+Blocks: global and sliding-window causal attention with SwiGLU (dense GQA
+decoders, and the local attention of Griffin), the RG-LRU recurrent block
+(recurrentgemma-2b), and the RWKV-6 time mix with its squared-ReLU channel
+mix (rwkv6-3b).  Flavours outside these paths (qk_norm, half/mrope rope,
+MoE, encoders) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,19 +23,22 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN, RWKV6, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
+                                      ModelConfig)
 from repro_torch.kernels.ops import (decode_attention_op, flash_prefill_op,
-                                     rwkv6_scan_op)
+                                     rglru_scan_op, rwkv6_scan_op)
 
 Params = Dict[str, Any]
 
 DECAY_LORA = 64        # rank of the RWKV-6 decay LoRA (layers.py DECAY_LORA)
+CONV_WIDTH = 4         # RG-LRU temporal conv (layers.py CONV_WIDTH)
+RGLRU_C = 8.0          # RG-LRU decay scale (layers.py RGLRU_C)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every flavour the port does not implement yet."""
     missing = []
-    other = set(cfg.block_pattern) - {ATTN, RWKV6}
+    other = set(cfg.block_pattern) - {ATTN, LOCAL_ATTN, RGLRU, RWKV6}
     if other:
         missing.append(f"block kinds {sorted(other)}")
     if cfg.is_encoder:
@@ -91,14 +96,29 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# Attention block (global, causal)
+# Attention block (global or sliding-window, causal)
 # --------------------------------------------------------------------------- #
+def _ring(x: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's (B, T, ...) k or v as a ``window``-row ring buffer with
+    position p at row p % window (``repro.models.layers.attention_block``):
+    the trailing window rolled by T % window when window < T; T rows and
+    zeros after them when window > T."""
+    T = x.shape[1]
+    if window < T:
+        return torch.roll(x[:, T - window:], T % window, dims=1)
+    if window > T:
+        pad = x.new_zeros((x.shape[0], window - T) + tuple(x.shape[2:]))
+        return torch.cat([x, pad], dim=1)
+    return x
+
+
 def attention_block(
     params: Params,
     cfg: ModelConfig,
     x: torch.Tensor,                        # (B, T, d)
     positions: torch.Tensor,                # (B, T)
     *,
+    window: int = 0,                        # 0 for global
     layer_cache: Optional[Params],          # {"k","v"}: (B, S, Hkv, D)
     cache_len: Optional[torch.Tensor],      # (B,) int tokens already cached
     return_cache: bool,
@@ -106,7 +126,9 @@ def attention_block(
     """Prefill (full sequence) or decode (T == 1 with a cache).  Decode
     writes the new k/v into ``layer_cache`` IN PLACE at ring index
     ``cache_len % S`` (JAX returns an updated copy; the port saves the
-    cache's memory) and returns the same dict."""
+    cache's memory) and returns the same dict.  With a ``window`` the
+    prefill attends over it and returns its k/v ring-ordered in ``window``
+    rows, the size of a sliding-window layer's cache (S == window)."""
     if cfg.qk_norm:
         raise NotImplementedError("qk_norm is not ported yet")
     B, T, _ = x.shape
@@ -135,9 +157,10 @@ def attention_block(
         new_cache = layer_cache
     else:
         # ---- prefill: causal attention over this sequence ----
-        out = flash_prefill_op(q, k, v, causal=True)
+        out = flash_prefill_op(q, k, v, causal=True, window=window)
         if return_cache:
-            new_cache = {"k": k, "v": v}
+            new_cache = ({"k": _ring(k, window), "v": _ring(v, window)}
+                         if window else {"k": k, "v": v})
 
     out = out.reshape(B, T, hq * hd)
     return out @ params["wo"], new_cache
@@ -149,6 +172,74 @@ def attention_block(
 def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# --------------------------------------------------------------------------- #
+def _rglru_coeffs(params: Params, u: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u: (..., d) conv output.  Returns (log_a, gated input b) in f32."""
+    i_gate = torch.sigmoid((u @ params["w_in_gate"]).float())
+    r_gate = torch.sigmoid((u @ params["w_rec_gate"]).float())
+    log_a = -RGLRU_C * r_gate * F.softplus(params["lambda"].float())
+    a2 = torch.exp(2.0 * log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * i_gate * u.float()
+    return log_a, b
+
+
+def rglru_block(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                        # (B, T, d)
+    *,
+    layer_cache: Optional[Params],          # {"conv": (B,3,d), "h": (B,d)}
+    return_cache: bool,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Prefill (no cache: zero conv history and h, as the engine's prefill
+    starts from an empty slot) or decode (T == 1 with a cache).  Decode
+    runs the one-step recurrence in plain tensor ops and updates
+    ``layer_cache`` IN PLACE (JAX returns a new one).  Casts and rounds
+    where ``repro.models.layers.rglru_block`` does: the gate and input
+    projections and the conv in the model dtype (the conv summed in f32),
+    the gates, ``lambda``'s softplus and the scan in f32, the scan's output
+    rounded to the model dtype before the gate product; the cached conv
+    history and h are in the model dtype."""
+    B, T, d = x.shape
+    decoding = layer_cache is not None and T == 1
+    if layer_cache is not None and not decoding:
+        raise NotImplementedError(
+            "rglru_block: a prefill from a carried state is not ported (the "
+            "reference prefill reads the carried h but not the carried conv "
+            "history)")
+    gate = F.gelu(x @ params["w_gate"], approximate="tanh")   # jax's default
+    xin = x @ params["w_x"]
+    conv_w = params["conv_w"].float()
+
+    # temporal conv (width 4, causal) over the history and this input
+    if decoding:
+        hist = torch.cat([layer_cache["conv"], xin], dim=1)    # (B, 4, d)
+        u = (hist.float() * conv_w).sum(1, keepdim=True).to(x.dtype)
+    else:
+        hist = torch.cat([xin.new_zeros((B, CONV_WIDTH - 1, d)), xin], dim=1)
+        u = sum(hist[:, i:i + T].float() * conv_w[i]
+                for i in range(CONV_WIDTH)).to(x.dtype)
+
+    log_a, b = _rglru_coeffs(params, u)
+    if decoding:
+        h = torch.exp(log_a[:, 0]) * layer_cache["h"].float() + b[:, 0]
+        y = h[:, None]
+        # hist is a new tensor, so its rows 1.. can be copied over the
+        # history it was built from
+        layer_cache["conv"].copy_(hist[:, 1:])
+        layer_cache["h"].copy_(h)
+        new_cache = layer_cache
+    else:
+        y = rglru_scan_op(log_a, b)
+        new_cache = ({"conv": hist[:, -(CONV_WIDTH - 1):],
+                      "h": y[:, -1].to(x.dtype)} if return_cache else None)
+    out = (y.to(x.dtype) * gate) @ params["w_out"]
+    return out, new_cache
 
 
 # --------------------------------------------------------------------------- #

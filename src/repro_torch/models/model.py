@@ -1,7 +1,8 @@
 """The port's decoders: init / forward / cache, in PyTorch.
 
 Counterpart of ``repro.models.model`` for the served paths: dense GQA
-decoders (ATTN blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
+decoders (ATTN or LOCAL_ATTN blocks), Griffin (RGLRU and LOCAL_ATTN
+blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
 layers per pattern position and scans over them; here
 ``params["layers"]`` is a plain list in layer order (``params_from_jax``
 maps one onto the other; layer ``i`` has kind
@@ -9,9 +10,14 @@ maps one onto the other; layer ``i`` has kind
 over it.
 
 The cache holds one preallocated tensor per key, stacking the layers of
-the kinds that use the key (``CACHE_KEYS``):
+the kind that uses the key (``CACHE_KEYS``):
 
 * ATTN:  ``"k"``, ``"v"``: (L_attn, B, S, Hkv, D) in the model dtype;
+* LOCAL_ATTN: ``"local_k"``, ``"local_v"``: (L_local, B, W, Hkv, D) in the
+  model dtype, W the sliding window whatever S is, ring-ordered (position
+  p at row p % W);
+* RGLRU: ``"conv"``: (L_rglru, B, 3, d) and ``"h"``: (L_rglru, B, d), both
+  in the model dtype;
 * RWKV6: ``"shift"``: (L_rwkv, B, d) in the model dtype, ``"state"``:
   (L_rwkv, B, H, D, D) in f32.
 
@@ -21,7 +27,8 @@ kind adds its own keys; the keys of the others stay as they are.
 
 Forward modes:
   * prefill: full sequence, ``return_cache=True`` returns this sequence's
-             cache in the same layout (k/v with T rows);
+             cache in the same layout (global k/v with T rows, local k/v
+             ring-ordered in W rows);
   * decode:  T == 1 step against ``cache`` / ``cache_len``.
 """
 from __future__ import annotations
@@ -30,13 +37,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, RWKV6, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
-CACHE_KEYS = {ATTN: ("k", "v"), RWKV6: ("shift", "state")}
-SEQ_KEYS = ("k", "v")        # keys with a sequence axis after the batch
+# block kind -> {key of the block's layer cache: key of the model's cache}
+CACHE_KEYS = {ATTN: {"k": "k", "v": "v"},
+              LOCAL_ATTN: {"k": "local_k", "v": "local_v"},
+              RGLRU: {"conv": "conv", "h": "h"},
+              RWKV6: {"shift": "shift", "state": "state"}}
+SEQ_KEYS = ("k", "v")        # keys whose prefill fills only rows [:T]
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -107,6 +119,20 @@ def _init_rwkv6(cfg: ModelConfig, generator, dtype, device) -> Params:
     return core
 
 
+def _init_rglru(cfg: ModelConfig, generator, dtype, device) -> Params:
+    """The distributions of ``repro.models.layers.init_rglru``."""
+    d = cfg.d_model
+    std = d ** -0.5
+    core = {name: _normal(generator, (d, d), std, dtype, device)
+            for name in ("w_x", "w_gate", "w_out")}
+    core["conv_w"] = _normal(generator, (L.CONV_WIDTH, d), 0.1, dtype,
+                             device)
+    for name in ("w_in_gate", "w_rec_gate"):
+        core[name] = _normal(generator, (d, d), std, dtype, device)
+    core["lambda"] = torch.full((d,), 1.0, dtype=dtype, device=device)
+    return core
+
+
 def _init_block(cfg: ModelConfig, kind: str, generator, dtype,
                 device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
@@ -115,7 +141,8 @@ def _init_block(cfg: ModelConfig, kind: str, generator, dtype,
         ffn = {"w_in": _normal(generator, (d, f), d ** -0.5, dtype, device),
                "w_out": _normal(generator, (f, d), f ** -0.5, dtype, device)}
     else:
-        core = _init_attention(cfg, generator, dtype, device)
+        core = (_init_rglru if kind == RGLRU else _init_attention)(
+            cfg, generator, dtype, device)
         std = d ** -0.5
         ffn = {
             "w_gate": _normal(generator, (d, f), std, dtype, device),
@@ -148,32 +175,46 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # --------------------------------------------------------------------------- #
 # Cache
 # --------------------------------------------------------------------------- #
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """(shape, dtype) of one layer's cache per block cache key, as
+    ``repro.models.model._block_cache``."""
+    d, H, D = cfg.d_model, cfg.num_heads, cfg.head_dim
+    if kind in (ATTN, LOCAL_ATTN):
+        rows = cfg.sliding_window if kind == LOCAL_ATTN else max_len
+        shape = (batch, rows, cfg.num_kv_heads, D)
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    if kind == RGLRU:
+        return {"conv": ((batch, L.CONV_WIDTH - 1, d), dtype),
+                "h": ((batch, d), dtype)}
+    return {"shift": ((batch, d), dtype),
+            "state": ((batch, H, D, D), torch.float32)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Params:
     L.check_supported(cfg)
     kinds = layer_kinds(cfg)
     cache: Params = {}
-    n_attn, n_rwkv = kinds.count(ATTN), kinds.count(RWKV6)
-    if n_attn:
-        shape = (n_attn, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        cache["k"] = _zeros(shape, dtype, device)
-        cache["v"] = _zeros(shape, dtype, device)
-    if n_rwkv:
-        H, D = cfg.num_heads, cfg.head_dim
-        cache["shift"] = _zeros((n_rwkv, batch, cfg.d_model), dtype, device)
-        cache["state"] = _zeros((n_rwkv, batch, H, D, D), torch.float32,
-                                device)
+    for kind in CACHE_KEYS:
+        n = kinds.count(kind)
+        if not n:
+            continue
+        for key, (shape, dt) in _block_cache(cfg, kind, batch, max_len,
+                                             dtype).items():
+            cache[CACHE_KEYS[kind][key]] = _zeros((n,) + shape, dt, device)
     return cache
 
 
 def write_slot(cache: Params, pcache: Params, slot: int, T: int) -> None:
     """Write a one-sequence prefill cache (``forward(..., return_cache=
     True)`` on a batch of 1) into batch row ``slot`` of ``cache`` in place:
-    rows ``[:T]`` of the keys with a sequence axis (rows past T may hold a
-    previous request's k/v, which decode masks out), and the whole slot
-    row of the others (a previous request's shift and state are
-    overwritten).  The in-place counterpart of the JAX engine's
-    ``_merge_slot``."""
+    rows ``[:T]`` of the global k/v (rows past T may hold a previous
+    request's k/v, which decode masks out), and the whole slot row of the
+    others: the local k/v's W ring-ordered rows (zeros past T when T < W,
+    as the reference's), and the conv history, h, shift and state (a
+    previous request's are overwritten).  The in-place counterpart of the
+    JAX engine's ``_merge_slot``."""
     for key, val in pcache.items():
         if key in SEQ_KEYS:
             cache[key][:, slot, :T] = val[:, 0]
@@ -193,10 +234,16 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
         core, new_cache = L.rwkv6_block(
             bp["core"], cfg, h, layer_cache=layer_cache,
             return_cache=return_cache)
+    elif kind == RGLRU:
+        core, new_cache = L.rglru_block(
+            bp["core"], cfg, h, layer_cache=layer_cache,
+            return_cache=return_cache)
     else:
+        window = cfg.sliding_window if kind == LOCAL_ATTN else 0
         core, new_cache = L.attention_block(
-            bp["core"], cfg, h, positions, layer_cache=layer_cache,
-            cache_len=cache_len, return_cache=return_cache)
+            bp["core"], cfg, h, positions, window=window,
+            layer_cache=layer_cache, cache_len=cache_len,
+            return_cache=return_cache)
     x = x + core
     h = L.rms_norm(bp["norm2"], x, cfg.norm_eps)
     ffn = (L.channel_mix(bp["ffn"], h) if kind == RWKV6
@@ -235,12 +282,13 @@ def forward(
     new: Dict[str, list] = {}
     for bp, (kind, j) in zip(params["layers"], _cache_index(cfg)):
         keys = CACHE_KEYS[kind]
-        lc = {key: cache[key][j] for key in keys} if decoding else None
+        lc = ({bk: cache[ck][j] for bk, ck in keys.items()} if decoding
+              else None)
         x, nc = _apply_block(cfg, kind, bp, x, positions, lc, cache_len,
                              return_cache)
         if return_cache and not decoding:
-            for key in keys:
-                new.setdefault(key, []).append(nc[key])
+            for bk, ck in keys.items():
+                new.setdefault(ck, []).append(nc[bk])
 
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -2,8 +2,9 @@
 PyTorch model, on an NVIDIA GPU (or the CPU, when asked).
 
 One ``ServingEngine`` is one PaDG *instance*: it owns params, a slotted
-cache (KV rows for attention layers, shift and state for RWKV-6 layers),
-and executes prefill/decode slots for the scheduling ``Instance`` it
+cache (KV rows for attention layers, a ring of window rows for
+sliding-window ones, conv history and h for RG-LRU layers, shift and
+state for RWKV-6 layers), and executes prefill/decode slots for the scheduling ``Instance`` it
 is attached to.  Counterpart of ``repro.serving.engine`` with the surface
 ``RealEngineBackend`` uses: ``prefill(req)``, ``decode_step()``,
 ``free_slots()``, ``release()``, ``econf``, ``executor``, ``recorder``,
@@ -161,8 +162,9 @@ class ServingEngine:
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
         logits, pcache = forward(self.params, self.cfg, {"tokens": toks},
                                  return_cache=True)
-        # k/v rows [:T] (decode masks out a previous request's rows past
-        # T: it attends over min(len + 1, S)); shift and state whole
+        # global k/v rows [:T] (decode masks out a previous request's rows
+        # past T: it attends over min(len + 1, S)); the rest of the slot
+        # whole (models.write_slot)
         write_slot(self.cache, pcache, slot, T)
         self.tokens[slot, 0] = logits[0, -1].argmax()
         first = int(self.tokens[slot, 0])        # waits for the device

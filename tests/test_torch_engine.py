@@ -1,10 +1,11 @@
 """The port's ServingEngine against the JAX one on the CPU: with the same
 (bridged) weights both engines emit exactly the same greedy tokens, for
-llama3-8b and rwkv6-3b, under the contracts of
+llama3-8b, rwkv6-3b and recurrentgemma-2b, under the contracts of
 ``tests/test_serving_engine.py`` and when a slot is reused by a shorter
 prompt (the port writes prefill K/V in place and leaves the previous
 request's rows past T behind; it overwrites an RWKV-6 slot's shift and
-state whole)."""
+state, and a Griffin slot's local k/v ring, conv history and h,
+whole)."""
 import dataclasses
 import os
 
@@ -27,14 +28,20 @@ from repro_torch.serving.engine import (H100_SXM, EngineConfig,  # noqa: E402
                                         ServingEngine)
 
 
-ARCHS = ["llama3-8b", "rwkv6-3b"]
+ARCHS = ["llama3-8b", "rwkv6-3b", "recurrentgemma-2b"]
+# recurrentgemma-2b: one full (RG-LRU, RG-LRU, local) cycle, and a window
+# that prompt + output overrun, so the local k/v ring wraps
+ARCH_KW = {"recurrentgemma-2b": dict(num_layers=3, sliding_window=8)}
+# cache keys whose slot row a prefill overwrites whole
+WHOLE_SLOT_KEYS = {"rwkv6-3b": ("shift", "state"),
+                   "recurrentgemma-2b": ("local_k", "local_v", "conv", "h")}
 
 
 def tiny_cfg(make=get_smoke_config, arch="llama3-8b"):
     cfg = make(arch)
-    return dataclasses.replace(cfg, num_layers=2, d_model=128, num_heads=2,
-                               num_kv_heads=1, head_dim=64, d_ff=256,
-                               vocab_size=300)
+    kw = dict(num_layers=2, d_model=128, num_heads=2, num_kv_heads=1,
+              head_dim=64, d_ff=256, vocab_size=300)
+    return dataclasses.replace(cfg, **{**kw, **ARCH_KW.get(arch, {})})
 
 
 def engines(seed, max_batch=2, max_seq_len=64, arch="llama3-8b"):
@@ -94,7 +101,8 @@ def test_slot_reuse_by_shorter_prompt(arch):
     """A slot freed by a long request and reused by a shorter prompt still
     gives the shorter prompt's solo-run tokens: decode attends over
     min(len + 1, S) positions, never the stale rows past T, and an RWKV-6
-    prompt inherits nothing of the previous occupant's shift or state."""
+    or Griffin prompt inherits nothing of the previous occupant's shift and
+    state, or local k/v, conv history and h."""
     long_p = list(range(10, 50))
     short_p = [7, 3, 11, 5]
     je, te = engines(seed=6, max_batch=1, arch=arch)
@@ -113,9 +121,10 @@ def test_slot_reuse_by_shorter_prompt(arch):
             eng.decode_step()
         assert eng.free_slots() == [0]
         eng.prefill(rb)
-        if eng is te and arch == "rwkv6-3b":
-            # the slot's shift and state are the short prompt's alone
-            for key in ("shift", "state"):
+        if eng is te:
+            # the slot's recurrent (and local k/v) cache is the short
+            # prompt's alone
+            for key in WHOLE_SLOT_KEYS.get(arch, ()):
                 assert torch.equal(te.cache[key], solo_cache[key])
         while eng.slot_req[0] is not None:
             eng.decode_step()

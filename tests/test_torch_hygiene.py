@@ -43,8 +43,8 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
-        "print(len(names), 'repro_torch.kernels.rwkv6_scan' in names, "
-        "bad)\n")
+        "print(len(names), {'repro_torch.kernels.rwkv6_scan', "
+        "'repro_torch.kernels.rglru_scan'} <= set(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=120)

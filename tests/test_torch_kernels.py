@@ -51,6 +51,7 @@ def _close(got: torch.Tensor, want, dtype: str) -> None:
     (2, 128, 128, 8, 2, 64),       # GQA 4:1
     (1, 96, 96, 4, 1, 128),        # MQA, non-multiple T
     (2, 256, 256, 10, 2, 128),     # G=5 odd grouping
+    (1, 80, 80, 10, 1, 256),       # recurrentgemma-2b: G=10, D=256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_prefill_plain_matches_pallas(B, T, S, Hq, Hkv, D, dtype):
@@ -91,6 +92,7 @@ def test_flash_prefill_plain_masks_match_pallas(causal, window, q_offset,
     (2, 256, 8, 2, 64, 64),
     (4, 1000, 4, 4, 128, 256),     # ragged, non-multiple S
     (1, 512, 10, 2, 64, 128),
+    (2, 300, 10, 1, 256, 128),     # recurrentgemma-2b: G=10, D=256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_plain_matches_pallas(B, S, Hq, Hkv, D, block_s,

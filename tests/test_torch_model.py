@@ -170,15 +170,63 @@ def test_rope_and_norm_match_jax():
         np.asarray(JL.soft_cap(jnp.asarray(y), 30.0)), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "chatglm3-6b", "llama3-8b-sw",
+@pytest.mark.parametrize("arch", ["qwen3-4b", "chatglm3-6b",
                                   "phi3.5-moe-42b-a6.6b",
-                                  "recurrentgemma-2b",
                                   "qwen2-vl-2b", "hubert-xlarge"])
 def test_unported_flavours_raise(arch):
-    """qk_norm, half/mrope rope, local attention, MoE, RG-LRU and the
-    encoder are not approximated: they raise.  (RWKV6 is ported:
-    tests/test_torch_rwkv6.py.)"""
+    """qk_norm, half/mrope rope, MoE and the encoder are not approximated:
+    they raise.  (RWKV6, RG-LRU and local attention are ported:
+    tests/test_torch_rwkv6.py, tests/test_torch_rglru.py and the two tests
+    below.)"""
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError):
         tm.init_params(cfg, torch.Generator().manual_seed(0),
                        torch.float32, "cpu")
+
+
+def test_sliding_window_ring_buffer_decode_matches_jax():
+    """llama3-8b-sw (every block LOCAL_ATTN): test_configs_smoke.py's
+    test_long_context_ring_buffer_decode on both packages and the same
+    weights: decode far beyond the window gives JAX's logits, finite, and
+    the ring holds exactly JAX's trailing window."""
+    cfg = get_smoke_config("llama3-8b-sw")
+    tree = _jax_params(cfg, 4)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    params = params_from_jax(tree, cfg, device="cpu")
+    B, W = 1, cfg.sliding_window
+    jcache = jm.init_cache(cfg, B, max_len=4 * W)
+    cache = tm.init_cache(cfg, B, 4 * W, device="cpu")
+    assert cache["local_k"].shape == (cfg.num_layers, B, W,
+                                      cfg.num_kv_heads, cfg.head_dim)
+    for pos in range(0, 3 * W, W // 2):
+        want, jcache = jm.forward(jparams, cfg,
+                                  {"tokens": jnp.ones((B, 1), jnp.int32)},
+                                  cache=jcache,
+                                  cache_len=jnp.full((B,), pos, jnp.int32))
+        got, cache = tm.forward(params, cfg,
+                                {"tokens": torch.ones((B, 1),
+                                                      dtype=torch.long)},
+                                cache=cache,
+                                cache_len=torch.full((B,), pos,
+                                                     dtype=torch.int32))
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL, rtol=0)
+    for key, jkey in (("local_k", "k"), ("local_v", "v")):
+        np.testing.assert_allclose(
+            cache[key].numpy(),
+            np.asarray(jcache["scan"]["pos0"][jkey]), atol=ATOL, rtol=0)
+
+
+def test_recurrentgemma_init_params():
+    """recurrentgemma-2b's smoke config (RG-LRU and local attention) now
+    initialises: one dict per layer, in the pattern's kinds."""
+    cfg = get_smoke_config("recurrentgemma-2b")
+    p = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                       torch.float32, "cpu")
+    assert len(p["layers"]) == cfg.num_layers == 3
+    assert "lambda" in p["layers"][0]["core"]
+    assert "lambda" in p["layers"][1]["core"]
+    assert "wq" in p["layers"][2]["core"]
+    assert all(torch.isfinite(t).all() for blk in p["layers"]
+               for part in blk.values() for t in part.values())

@@ -7,8 +7,9 @@ decisions, and finishes each request at the same time, as the JAX
 (the port's engines generate real tokens meanwhile).
 
 Tokens: on the same (bridged) weights the port's real server emits the
-same tokens per request as the JAX real server, for llama3-8b and
-rwkv6-3b.
+same tokens per request as the JAX real server, for llama3-8b, rwkv6-3b
+and recurrentgemma-2b (one full cycle, with a window that the longer
+prompts and their outputs overrun, so the local k/v ring wraps).
 """
 import dataclasses
 import os
@@ -50,11 +51,14 @@ MODEL_KW = dict(prefill_base=1e-3, prefill_per_token=1e-4, decode_base=5e-4,
                 kv_capacity=B * S)
 
 
+ARCH_KW = {"recurrentgemma-2b": dict(num_layers=3, sliding_window=16)}
+
+
 def tiny_cfg(make=get_smoke_config, arch="llama3-8b"):
     cfg = make(arch)
-    return dataclasses.replace(cfg, num_layers=2, d_model=128, num_heads=2,
-                               num_kv_heads=1, head_dim=64, d_ff=256,
-                               vocab_size=VOCAB)
+    kw = dict(num_layers=2, d_model=128, num_heads=2, num_kv_heads=1,
+              head_dim=64, d_ff=256, vocab_size=VOCAB)
+    return dataclasses.replace(cfg, **{**kw, **ARCH_KW.get(arch, {})})
 
 
 def poisson_requests(make, n=30, seed=7, mean_gap=0.02):
@@ -121,7 +125,8 @@ def test_real_server_decisions_match_jax_simulator(make_reqs):
         assert all(0 <= t < VOCAB for t in r.generated)
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-3b",
+                                  "recurrentgemma-2b"])
 def test_real_server_tokens_match_jax_real_server(arch):
     def reqs(make):
         return poisson_requests(make, n=8, seed=3, mean_gap=0.01)
