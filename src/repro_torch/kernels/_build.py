@@ -32,8 +32,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_prefill_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _P),
-    "decode_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                _I, _P),
+    "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _F, _I, _P),
     "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rglru_scan_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
 }

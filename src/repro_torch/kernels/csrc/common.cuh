@@ -1,7 +1,10 @@
 // Shared helpers for the attention kernels: f32 <-> storage-type
-// conversion, 16-byte vector loads, warp reductions, and the one-time
-// shared-memory opt-in of a kernel.
+// conversion, 16-byte vector loads, asynchronous 16-byte copies
+// (cp.async), bf16 tensor-core fragments (ldmatrix, mma.sync), warp
+// reductions, and the one-time shared-memory opt-in of a kernel.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,6 +42,60 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float* dst) 
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < V; ++i) dst[i] = to_f32<T>(e[i]);
+}
+
+// Asynchronous 16-byte copy global -> shared (cp.async, L2 only).  With
+// `full` false nothing is read and the 16 bytes are zero-filled, so a
+// tile's rows past the end need no second pass.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the row address
+// of matrix l/8, row l%8.  `trans` loads each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16x16 bf16, row-major) * b (16x8 bf16, column-major), f32 sums.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (nearest even), `lo` in the low half: the
+// element order of an mma fragment register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float warp_max(float x) {

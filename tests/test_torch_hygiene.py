@@ -1,7 +1,8 @@
-"""Boundaries of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, the copied host modules equal their
-sources up to the import prefix, and an engine asked for the default
-device on a machine without CUDA raises instead of running on the CPU."""
+"""Boundaries of the port: ``repro_torch``, ``chip_smoke.py`` and
+``profile_port.py`` import neither JAX nor the JAX package, the copied
+host modules equal their sources up to the import prefix, and an engine
+asked for the default device on a machine without CUDA raises instead of
+running on the CPU (and both scripts fail there)."""
 import ast
 import pathlib
 import subprocess
@@ -53,15 +54,25 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(n) >= 30 and found == "True" and bad == "[]"
 
 
-def test_chip_smoke_imports_neither_jax_nor_repro():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _top_level_imports(script: str) -> set:
+    tree = ast.parse((ROOT / script).read_text())
     mods = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module or "")
-    tops = {m.split(".")[0] for m in mods}
+    return {m.split(".")[0] for m in mods}
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    tops = _top_level_imports("chip_smoke.py")
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro"}
+
+
+def test_profile_port_imports_neither_jax_nor_repro():
+    tops = _top_level_imports("profile_port.py")
     assert "repro_torch" in tops
     assert not tops & {"jax", "jaxlib", "repro"}
 
@@ -88,3 +99,12 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_profile_port_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "profile_port.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "flash_prefill" not in out.stdout
