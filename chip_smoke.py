@@ -16,10 +16,15 @@ Phases, in order (all by default):
    the split-S decode also against its own algorithm in plain PyTorch
    (``decode_attention_split_plain``), at lengths 0, 1, on a split
    boundary and one either side of it, and with S off the split size;
-   ``rwkv6_scan`` in f32 (o and final state) over ragged T, D 64 and 128,
-   a carried-in state, and fast decays against a step-by-step recurrence
-   (there the plain chunked form overflows); ``rglru_scan`` in f32 over
-   ragged T and d, a carried-in h0 and strong decays.  Prints the error
+   ``rwkv6_scan`` in f32 (o and final state) over ragged T (1, one
+   either side of the kernel's 64-step chunk, up to ``max_seq_len``),
+   B 8, D 64 and 128, a carried-in state, and fast decays against a
+   step-by-step recurrence (there the plain chunked form overflows, at D
+   64 and 128); ``rglru_scan`` in f32 over ragged T (the same lengths) and
+   d (off the 4-channel vector too), a carried-in h0, strong decays and
+   slow ones (where the carry between time chunks matters).
+   Both scans are also called twice per case and must give the same bits
+   (o and state).  Prints the error
    against the tolerance and the kernel's, the plain version's and (for
    attention) ``scaled_dot_product_attention``'s times beside the least
    time the card could take (``bound_ms``).  ``ms``, ``plain_ms`` and
@@ -66,8 +71,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "parity", "serve")
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them
-# (the kernels do f32 products as IEEE FMAs, never TF32), HBM3 rate.
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them,
+# HBM3 rate.  f32 work is counted at the f32 rate: rwkv6_scan's 3xTF32
+# products on the tensor cores cost three TF32 products (495 TFLOP/s) each.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # |kernel - plain| <= atol + atol_rms * rms(plain) + rtol * |plain| per
@@ -394,11 +400,16 @@ RWKV_CASES = [  # B, T, H, D, carried-in state, decay
     (1, 1024, 40, 64, False, "slow"),           # rwkv6-3b prefill (main)
     (1, 1000, 40, 64, False, "slow"),           # T not a chunk multiple
     (1, 190, 40, 64, False, "slow"),            # a short ragged prompt
+    (1, 1, 40, 64, False, "slow"),              # T = 1
+    (1, 63, 40, 64, False, "slow"),             # one below the chunk
+    (1, 65, 40, 64, False, "slow"),             # one above it
+    (1, 2048, 40, 64, False, "slow"),           # max_seq_len
+    (8, 256, 40, 64, True, "slow"),             # B = 8, s0 carried in
     (2, 300, 8, 64, True, "slow"),              # s0 carried in
     (1, 256, 8, 128, False, "slow"),            # D = 128
     (1, 190, 4, 64, True, "fast"),              # plain form overflows
+    (1, 190, 4, 128, True, "fast"),             # the same at D = 128
 ]
-RWKV_KERNEL_CHUNK = 64      # chunk of csrc/rwkv6_scan.cu
 
 
 def rwkv6_ops(B, T, H, D) -> int:
@@ -406,10 +417,27 @@ def rwkv6_ops(B, T, H, D) -> int:
     steps: per step and head 2 D^2 for the carried state's output and 2 D^2
     for the state update; per causal (t, s) pair of a chunk, s <= t, 2 D
     for the score and 2 D for A.V."""
-    c = RWKV_KERNEL_CHUNK
+    from repro_torch.kernels.rwkv6_scan import KERNEL_CHUNK as c
     full, rest = divmod(T, c)
     pairs = full * c * (c + 1) // 2 + rest * (rest + 1) // 2
     return B * H * (4 * D * D * T + 4 * D * pairs)
+
+
+def rwkv6_form_bytes(B, T, H, D, carried) -> int:
+    """Bytes the kernel's three passes move at these shapes, scratch
+    included, each pass's reads and writes counted once: (a) k, w and v in
+    (k and w once per 64-column block), deltas and decays out; (b) deltas,
+    decays and s0 in, states entering each chunk and the final state out;
+    (c) r, k, w (per column block), v, u and the entering states in, o
+    out."""
+    from repro_torch.kernels.rwkv6_scan import KERNEL_CHUNK
+    n, blocks = -(-T // KERNEL_CHUNK), D // 64
+    x, states, decays = B * T * H * D, B * H * n * D * D, B * H * n * D
+    state = B * H * D * D
+    floats = ((2 * blocks + 1) * x + states + decays
+              + states + decays + (state if carried else 0) + states + state
+              + (3 * blocks + 1) * x + H * D + states + x)
+    return 4 * floats
 
 
 def wkv6_steps(torch, r, k, v, w, u, s0):
@@ -447,6 +475,8 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
         u = arr(rng.standard_normal((H, D)) * 0.1)
         s0 = arr(rng.standard_normal((B, H, D, D))) if carried else None
         o, st = RS.rwkv6_scan(r, k, v, w, u, s0)
+        o2, st2 = RS.rwkv6_scan(r, k, v, w, u, s0)
+        same = bool(torch.equal(o, o2) and torch.equal(st, st2))
         p_o, p_st = RS.rwkv6_scan_plain(r, k, v, w, u, s0)
         if decay == "fast":
             plain_finite = bool(torch.isfinite(p_o).all())
@@ -461,7 +491,7 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
         nbytes = 4 * (5 * B * T * H * D + H * D
                       + (2 if carried else 1) * B * H * D * D)
         b_ms, b_by = bound(nbytes, rwkv6_ops(B, T, H, D), "float32")
-        ok = ok_o and ok_s
+        ok = ok_o and ok_s and same
         all_ok &= ok
         against = ("plain" if decay == "slow" else "step-by-step recurrence;"
                    f" plain chunked form finite: {plain_finite}")
@@ -469,10 +499,12 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
             f"decay={decay} (against {against}): o max_abs_err={err_o:.3e}"
             f" (worst element at {share_o:.3f} of its limit), state "
             f"max_abs_err={err_s:.3e} ({share_s:.3f}) ({tol_text('rwkv6')})"
-            f" {'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
-            f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} library_ms=null (no "
-            f"single PyTorch call computes WKV6) bound_ms={b_ms:.4f} "
-            f"({b_by})")
+            f", two calls bit-identical: {same} {'ok' if ok else 'MISMATCH'}"
+            f" kernel_ms={ms:.4f} (device {dev_ms:.4f}) plain_ms="
+            f"{plain_ms:.4f} library_ms=null (no single PyTorch call "
+            f"computes WKV6) bound_ms={b_ms:.4f} ({b_by}; the kernel's "
+            f"passes move {rwkv6_form_bytes(B, T, H, D, carried) / 1e6:.1f}"
+            f" MB)")
         if case is RWKV_CASES[0]:
             record(results, "rwkv6_scan", "rwkv6-3b",
                    max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
@@ -483,12 +515,33 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
 
 RGLRU_CASES = [  # B, T, d, carried-in h0, decay
     (1, 1024, 2560, False, "model"),    # recurrentgemma-2b prefill (main)
-    (1, 1000, 2560, False, "model"),    # T not a multiple of the kernel's 16
+    (1, 1000, 2560, False, "model"),    # T not a multiple of the chunk
     (1, 190, 2560, False, "model"),     # a short ragged prompt
-    (1, 256, 96, False, "model"),       # d not a multiple of a block's 64
+    (1, 1, 2560, False, "model"),       # T = 1
+    (1, 31, 2560, False, "model"),      # one below the kernel's time chunk
+    (1, 33, 2560, False, "model"),      # one above it
+    (1, 2048, 2560, False, "model"),    # max_seq_len
+    (1, 256, 96, False, "model"),       # d not a multiple of a block's 256
+    (1, 300, 98, True, "model"),        # d off the 4-channel vector
     (2, 300, 2560, True, "model"),      # h0 carried in
     (1, 190, 2560, True, "strong"),     # log_a near -10: h is almost b
+    # tests/test_kernels.py's log_a = -|N(0,1)| / 10: a chunk keeps a
+    # share of its carried h (in the model's range the product underflows)
+    (1, 1024, 2560, False, "slow"),
+    (2, 300, 2560, True, "slow"),
 ]
+
+
+def rglru_form_bytes(B, T, d, carried) -> int:
+    """Bytes the kernel's two passes move at these shapes, scratch
+    included: pass 1 reads log_a and b of every chunk but the last and
+    writes their aggregates; pass 2 reads h0, every chunk's predecessors'
+    aggregates, log_a and b, and writes h."""
+    from repro_torch.kernels.rglru_scan import time_chunk
+    n = -(-T // time_chunk(T))
+    before = min(T, (n - 1) * time_chunk(T))
+    return 4 * B * d * (2 * before + 2 * (n - 1) + (1 if carried else 0)
+                        + n * (n - 1) + 3 * T)
 
 
 def run_rglru_kernel(torch, rng, results) -> bool:
@@ -510,6 +563,8 @@ def run_rglru_kernel(torch, rng, results) -> bool:
             # (-10.5, 0), b = sqrt(1 - a^2) times a gated input
             gate = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
             log_a = -8.0 * np.log1p(np.e) * gate
+        elif decay == "slow":
+            log_a = -np.abs(rng.standard_normal(shape)) * 0.1
         else:
             log_a = rng.uniform(-10.5, -9.5, shape)
         b = (np.sqrt(np.maximum(1.0 - np.exp(2.0 * log_a), 1e-12))
@@ -517,9 +572,11 @@ def run_rglru_kernel(torch, rng, results) -> bool:
         la, bb = arr(log_a), arr(b)
         h0 = arr(rng.standard_normal((B, d))) if carried else None
         got = RG.rglru_scan(la, bb, h0)
+        same = bool(torch.equal(got, RG.rglru_scan(la, bb, h0)))
         want = RG.rglru_scan_plain(la, bb, h0)
         torch.cuda.synchronize()
         ok, err, share = compare(torch, got, want, "rglru")
+        ok &= same
         kern = lambda: RG.rglru_scan(la, bb, h0)  # noqa: E731
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
         plain_ms = cuda_ms(torch, lambda: RG.rglru_scan_plain(la, bb, h0),
@@ -530,11 +587,12 @@ def run_rglru_kernel(torch, rng, results) -> bool:
         all_ok &= ok
         log(f"rglru_scan float32 B={B} T={T} d={d} h0={carried} "
             f"decay={decay}: max_abs_err={err:.3e} ({tol_text('rglru')}; "
-            f"worst element at {share:.3f} of its limit) "
-            f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
-            f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} library_ms=null (no "
-            f"single PyTorch call computes this scan) bound_ms={b_ms:.4f} "
-            f"({b_by})")
+            f"worst element at {share:.3f} of its limit), two calls "
+            f"bit-identical: {same} {'ok' if ok else 'MISMATCH'} kernel_ms="
+            f"{ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"library_ms=null (no single PyTorch call computes this scan) "
+            f"bound_ms={b_ms:.4f} ({b_by}; the kernel's passes move "
+            f"{rglru_form_bytes(B, T, d, carried) / 1e6:.1f} MB)")
         if case is RGLRU_CASES[0]:
             record(results, "rglru_scan", "recurrentgemma-2b",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,

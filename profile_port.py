@@ -8,18 +8,23 @@ recurrentgemma-2b's decode shapes, half-full and full, for every split size
 in ``SPLIT_SIZES`` beside the one ``split_rows`` picks: device time
 (``chip_smoke.cuda_ms`` behind a GPU spin, so no host time is in it), the
 error against the plain version, and each of the picked size's two passes'
-device time from ``torch.profiler``.  ``chip_smoke.py`` phase 3 times the
-kernels against their plain versions and ``scaled_dot_product_attention``.
+device time from ``torch.profiler``.  Then the scans at their main shapes:
+``rglru_scan`` (recurrentgemma-2b's prefill) at every time chunk in
+``RGLRU_CHUNKS`` beside the one ``time_chunk`` picks, through
+``rglru_scan.run_kernel``, and ``rwkv6_scan`` (rwkv6-3b's prefill) at its
+one compiled chunk, each with its passes' device times.
+``chip_smoke.py`` phase 3 times the kernels against their plain versions
+and ``scaled_dot_product_attention``.
 
-``steps``: one full-depth bf16 ``ServingEngine`` per attention path
-(llama3-8b, recurrentgemma-2b), random weights from ``--seed``: a
-1024-token prefill, then decode steps at batch 8 with 1024-token contexts,
-each under ``torch.profiler``.  Prints the host-clock time of the step
-(ending in the engine's own device read), the summed device time of its
-kernels, their share of the step (the rest is the device idle, waiting on
-the host), and the kernels that take the most device time.  It uses only
-the engine's public calls, so it also runs against an older tree's
-``src/`` (copy the script there).
+``steps``: one full-depth bf16 ``ServingEngine`` per served path
+(llama3-8b, rwkv6-3b, recurrentgemma-2b), random weights from ``--seed``:
+a 1024-token prefill, then decode steps at batch 8 with 1024-token
+contexts, each under ``torch.profiler``.  Prints the host-clock time of the
+step (ending in the engine's own device read), the summed device time of
+its kernels, their share of the step (the rest is the device idle, waiting
+on the host), the kernels that take the most device time, and the port's
+own kernels' device time.  It uses only the engine's public calls, so it
+also runs against an older tree's ``src/`` (copy the script there).
 
 Imports neither ``jax`` nor the JAX package.  Exits non-zero without a
 CUDA device.
@@ -36,6 +41,7 @@ from chip_smoke import cuda_ms, log
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SPLIT_SIZES = (64, 128, 256, 512)
+RGLRU_CHUNKS = (16, 32, 64, 128)
 
 
 def kernel_times(prof, n: int):
@@ -105,6 +111,50 @@ def run_sweep(torch, seed: int) -> None:
             f"Hkv={Hkv} D={D}, device ms by split size (rows): "
             + "; ".join(sweep) + f"; picked {picked}, passes: "
             + ", ".join(f"{short(n)} {t:.4f} ms" for n, t in passes))
+    sweep_scans(torch, gen)
+
+
+def sweep_scans(torch, gen) -> None:
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    # recurrentgemma-2b's prefill, log_a and b in the model's range
+    B, T, d = 1, 1024, 2560
+    log_a = -8.0 * torch.log1p(torch.tensor(torch.e)) * torch.sigmoid(
+        randn(B, T, d))
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * randn(B, T, d)
+    want = RG.rglru_scan_plain(log_a, b)
+    picked = RG.time_chunk(T)
+    sweep = []
+    for chunk in sorted(set(RGLRU_CHUNKS) | {picked}):
+        def at(chunk=chunk):
+            return RG.run_kernel(log_a, b, None, chunk)
+        err = float((at() - want).abs().max())
+        _, passes = profiled(torch, at, n=10)
+        sweep.append(f"{chunk}: {cuda_ms(torch, at, spin=True):.4f} ms "
+                     f"(max |err| {err:.1e}; passes "
+                     + ", ".join(f"{short(n)} {t:.4f}" for n, t in passes)
+                     + ")")
+    log(f"rglru_scan f32 recurrentgemma-2b B={B} T={T} d={d}, device ms by "
+        f"time chunk (steps): " + "; ".join(sweep) + f"; picked {picked}")
+
+    # rwkv6-3b's prefill
+    B, T, H, D = 1, 1024, 40, 64
+    r, k, v = (0.5 * randn(B, T, H, D) for _ in range(3))
+    w = 0.6 + 0.399 * torch.rand(B, T, H, D, generator=gen, device="cuda")
+    u = 0.1 * randn(H, D)
+
+    def call():
+        return RS.rwkv6_scan(r, k, v, w, u)
+    _, passes = profiled(torch, call, n=10)
+    log(f"rwkv6_scan f32 rwkv6-3b B={B} T={T} H={H} D={D}, chunk "
+        f"{RS.KERNEL_CHUNK} (the one compiled): "
+        f"{cuda_ms(torch, call, spin=True):.4f} ms; passes: "
+        + ", ".join(f"{short(n)} {t:.4f} ms" for n, t in passes))
 
 
 def run_steps(torch, seed: int) -> None:
@@ -115,7 +165,7 @@ def run_steps(torch, seed: int) -> None:
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     rng = np.random.default_rng(seed)
-    for arch in ("llama3-8b", "recurrentgemma-2b"):
+    for arch in ("llama3-8b", "rwkv6-3b", "recurrentgemma-2b"):
         cfg = get_config(arch)
         econf = EngineConfig(max_batch=8, max_seq_len=2048,
                              dtype=torch.bfloat16, eos_token=-1,
@@ -149,9 +199,12 @@ def run_steps(torch, seed: int) -> None:
 def report(arch, what, wall, kernels) -> None:
     busy = sum(t for _, t in kernels)
     top = ", ".join(f"{short(n)} {t:.3f}" for n, t in kernels[:6])
+    own = ", ".join(f"{short(n)} {t:.3f}" for n, t in kernels
+                    if "repro_torch::" in n) or "none"
     log(f"step {arch} {what}: {wall:.2f} ms on the host clock, device busy "
         f"{busy:.2f} ms ({100 * busy / wall:.0f}%, idle "
-        f"{100 * (1 - busy / wall):.0f}%); top kernels (ms): {top}")
+        f"{100 * (1 - busy / wall):.0f}%); top kernels (ms): {top}; the "
+        f"port's kernels (ms): {own}")
 
 
 PHASES = {"sweep": run_sweep, "steps": run_steps}

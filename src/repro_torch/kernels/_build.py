@@ -34,8 +34,9 @@ SIGNATURES = {
                              _I, _F, _I, _P),
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _I, _P),
-    "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "rglru_scan_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P),
+    "rglru_scan_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,24 +5,33 @@
 // `_rglru_kernel`).  Same function: log_a, b (B,T,d) f32, optional h0 (B,d)
 // f32 (zeros when absent); every h_t is written, in f32.
 //
-// Layout.  The Pallas grid (B, d_blocks, t_blocks) carries h in VMEM across
-// its sequential time blocks.  Here the channel axis lies across threads, one
-// thread per (channel, batch row), so the 32 lanes of a warp read 32
-// neighbouring channels of one step (d is contiguous: one 128-byte load per
-// warp and step), and the time axis is a loop inside the thread with h in a
-// register.  The loop runs in chunks of kChunk steps: the chunk's log_a and b
-// are loaded first (they do not depend on h, so the loads are all in flight
-// together), then the kChunk dependent steps run out of registers.  Steps
-// past T in the last chunk are identity steps (log_a = 0, b = 0) and are not
-// written; channels past d have no thread.
-//
 // What bounds it on the H100: bytes.  Per element it reads log_a and b once
 // and writes h once (12 bytes) against one exp and two flops: at B=1, T=1024,
-// d=2560 that is 31.5 MB, ~9.4 us at 3.35 TB/s.  This first version has only
-// B*d threads (2560 at B=1: 40 blocks of 64) walking T dependent steps each,
-// so it keeps far too few loads in flight to reach that rate; a split-T pass
-// (local scans per time chunk with decays formed as exp(later sum - earlier
-// sum) <= 1, then a carry fix-up) is the later fix.
+// d=2560 that is 31.5 MB, ~9.4 us at 3.35 TB/s.  The Pallas grid (B,
+// d_blocks, t_blocks) carries h in VMEM across its sequential time blocks; a
+// thread per channel walking all T steps gives the card only B*d threads
+// (2560 at B=1), too few loads in flight for that rate.  So time is split as
+// well as channels, in two launches on one stream:
+//
+// Pass 1, grid (channel block, time chunk, batch) over every chunk but the
+// last: each thread scans its channels over its chunk of `len` steps from
+// h = 0, and writes the chunk's aggregate: the product P of its exp(log_a)
+// (<= 1, rounded step by step) and the local h.
+//
+// Pass 2, grid (channel block, time chunk, batch) over every chunk: each
+// thread composes the h entering its chunk from h0 (or 0) and the aggregates
+// of the chunks before it, in chunk order (h = P_j h + h_j), then rescans
+// its chunk from that h with the plain version's step, two roundings and no
+// FMA (__fmul_rn(expf(la), h) + b), writing every h.  Within a chunk the
+// steps are the plain version's; only the carried h differs from it, by the
+// rounding of the composed products (a few ulp of |h|).
+//
+// Loads: neighbouring threads take neighbouring channels (d is contiguous),
+// 16 bytes (4 channels) a thread when d is a multiple of 4 and the pointers
+// are 16-byte aligned, else 4; each thread loads 16 (32) steps of log_a
+// and b before the dependent steps that use them, so those loads are all in
+// flight together, and the carry's aggregates a batch at a time likewise.  Steps past T are identity steps (log_a = 0, b = 0) and
+// are not written.  Deterministic: no atomics, the carry in chunk order.
 #include <math.h>
 #include <stdint.h>
 
@@ -31,50 +40,179 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 64;   // channels per block
-constexpr int kChunk = 16;     // time steps loaded ahead of their use
+constexpr int kThreads = 64;   // channel groups per block
 
-__global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
-                  const float* __restrict__ h0, float* __restrict__ out,
-                  int T, int d) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const int bi = blockIdx.y;
-  if (c >= d) return;
-  const size_t base = (size_t)bi * T * d + c;
-  float h = h0 != nullptr ? h0[(size_t)bi * d + c] : 0.f;
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    float la[kChunk], bb[kChunk];
+// Steps (and carried chunks) whose loads are issued together, before the
+// dependent steps that use them: 32 float4 or 32 floats a thread.
+template <int V> __host__ __device__ constexpr int ahead() {
+  return V == 4 ? 16 : 32;
+}
+
+template <int V> struct Vec;
+template <> struct Vec<4> {
+  static __device__ __forceinline__ void get(const float* p, float (&x)[4]) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  static __device__ __forceinline__ void put(float* p, const float (&x)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+template <> struct Vec<1> {
+  static __device__ __forceinline__ void get(const float* p, float (&x)[1]) {
+    x[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void put(float* p, const float (&x)[1]) {
+    p[0] = x[0];
+  }
+};
+
+// N steps of V channels from h: loads first, then the dependent steps, two
+// roundings each (no FMA), as the plain version's exp(la) * h + b.  With
+// kAgg, also the product P of the decays; else every h is written.
+template <int V, int N, bool kAgg>
+__device__ __forceinline__ void steps(const float* la_p, const float* b_p,
+                                      float* out, size_t d, int n,
+                                      float (&h)[V], float (&P)[V]) {
+  float la[N][V], bb[N][V];
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const bool ok = t0 + i < T;
-      const size_t off = base + (size_t)(t0 + i) * d;
-      la[i] = ok ? __ldg(log_a + off) : 0.f;
-      bb[i] = ok ? __ldg(b + off) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      // two roundings (no FMA), as the plain version's exp(la) * h + b
-      h = __fmul_rn(expf(la[i]), h) + bb[i];
-      if (t0 + i < T) out[base + (size_t)(t0 + i) * d] = h;
+  for (int i = 0; i < N; ++i) {
+    if (i < n) {
+      Vec<V>::get(la_p + i * d, la[i]);
+      Vec<V>::get(b_p + i * d, bb[i]);
     }
   }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const float a = expf(la[i][c]);
+        h[c] = __fmul_rn(a, h[c]) + bb[i][c];
+        if (kAgg) P[c] = __fmul_rn(a, P[c]);
+      }
+      if (!kAgg) Vec<V>::put(out + i * d, h);
+    }
+  }
+}
+
+// Steps [t0, t1): whole batches of ahead<V>() steps, then the rest.
+template <int V, bool kAgg>
+__device__ __forceinline__ void scan(const float* la_p, const float* b_p,
+                                     float* out, size_t d, int t0, int t1,
+                                     float (&h)[V], float (&P)[V]) {
+  constexpr int N = ahead<V>();
+  int t = t0;
+  for (; t + N <= t1; t += N)
+    steps<V, N, kAgg>(la_p + t * d, b_p + t * d, out + t * d, d, N, h, P);
+  if (t < t1)
+    steps<V, N, kAgg>(la_p + t * d, b_p + t * d, out + t * d, d, t1 - t, h, P);
+}
+
+// Pass 1: the aggregates (P, local h) of chunks 0 .. n-2, each (B, n-1, d).
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+rglru_chunk_agg(const float* __restrict__ log_a, const float* __restrict__ b,
+                float* __restrict__ agg_p, float* __restrict__ agg_h, int T,
+                int d, int len) {
+  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (c0 >= d) return;
+  const int chunk = blockIdx.y, bi = blockIdx.z, n1 = gridDim.y;
+  const size_t base = (size_t)bi * T * d + c0;
+  float h[V], P[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) h[c] = 0.f, P[c] = 1.f;
+  const int t0 = chunk * len;
+  scan<V, true>(log_a + base, b + base, nullptr, d, t0, min(T, t0 + len), h,
+                P);
+  const size_t a = ((size_t)bi * n1 + chunk) * d + c0;
+  Vec<V>::put(agg_p + a, P);
+  Vec<V>::put(agg_h + a, h);
+}
+
+// Pass 2: the carry into each chunk (the aggregates before it, loaded a
+// batch at a time, composed in chunk order), then its h.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+rglru_chunk_scan(const float* __restrict__ log_a, const float* __restrict__ b,
+                 const float* __restrict__ h0,
+                 const float* __restrict__ agg_p,
+                 const float* __restrict__ agg_h, float* __restrict__ out,
+                 int T, int d, int len) {
+  constexpr int N = ahead<V>() / 2;
+  const int c0 = (blockIdx.x * kThreads + threadIdx.x) * V;
+  if (c0 >= d) return;
+  const int chunk = blockIdx.y, bi = blockIdx.z, n1 = gridDim.y - 1;
+  float h[V];
+  if (h0 != nullptr) {
+    Vec<V>::get(h0 + (size_t)bi * d + c0, h);
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) h[c] = 0.f;
+  }
+  const size_t agg = (size_t)bi * n1 * d + c0;
+  for (int j0 = 0; j0 < chunk; j0 += N) {
+    float P[N][V], hl[N][V];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j0 + j < chunk) {
+        Vec<V>::get(agg_p + agg + (size_t)(j0 + j) * d, P[j]);
+        Vec<V>::get(agg_h + agg + (size_t)(j0 + j) * d, hl[j]);
+      }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j0 + j < chunk) {
+#pragma unroll
+        for (int c = 0; c < V; ++c) h[c] = __fmul_rn(P[j][c], h[c]) + hl[j][c];
+      }
+  }
+  const size_t base = (size_t)bi * T * d + c0;
+  const int t0 = chunk * len;
+  float unused[V];
+  scan<V, false>(log_a + base, b + base, out + base, d, t0, min(T, t0 + len),
+                 h, unused);
+}
+
+template <int V>
+int launch(const float* log_a, const float* b, const float* h0, float* out,
+           float* scratch, int B, int T, int d, int len, cudaStream_t stream) {
+  const int n = (T + len - 1) / len;
+  const int blocks = (d + kThreads * V - 1) / (kThreads * V);
+  float* agg_p = scratch;                              // (B, n-1, d)
+  float* agg_h = scratch + (size_t)B * (n - 1) * d;    // (B, n-1, d)
+  if (n > 1) {
+    rglru_chunk_agg<V><<<dim3(blocks, n - 1, B), kThreads, 0, stream>>>(
+        log_a, b, agg_p, agg_h, T, d, len);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  rglru_chunk_scan<V><<<dim3(blocks, n, B), kThreads, 0, stream>>>(
+      log_a, b, h0, agg_p, agg_h, out, T, d, len);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  log_a, b, out (B,T,d) and h0 (B,d)
-// or null: contiguous float32 on the device.  Returns the launch's
-// cudaError_t (0 on success).
+// or null: contiguous float32 on the device; scratch holds 2*B*(n-1)*d
+// floats, n = ceil(T / len), len > 0 the steps of a time chunk.  Returns the
+// first failing launch's cudaError_t (0 on success).
 extern "C" int rglru_scan_launch(const void* log_a, const void* b,
-                                 const void* h0, void* out, int B, int T,
-                                 int d, void* stream) {
+                                 const void* h0, void* out, void* scratch,
+                                 int B, int T, int d, int len, void* stream) {
   using namespace repro_torch;
   if (B == 0 || T == 0 || d == 0) return 0;
-  const dim3 grid((d + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(log_a), static_cast<const float*>(b),
-      static_cast<const float*>(h0), static_cast<float*>(out), T, d);
-  return (int)cudaGetLastError();
+  if (len <= 0) return (int)cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const bool vec4 = d % 4 == 0 && aligned16(log_a) && aligned16(b) &&
+                    aligned16(h0) && aligned16(out) && aligned16(scratch);
+  return (vec4 ? &launch<4> : &launch<1>)(
+      f(log_a), f(b), f(h0), static_cast<float*>(out),
+      static_cast<float*>(scratch), B, T, d, len,
+      static_cast<cudaStream_t>(stream));
 }

@@ -8,31 +8,57 @@
 //     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 //
 // Inputs r, k, v, w are read in the model's (B, T, H, D) f32 layout in
-// place; the kernel forms log(max(w, 1e-12)) itself and writes o
+// place; the kernel forms log2(max(w, 1e-12)) itself and writes o
 // (B, T, H, D) and the final state (B, H, D, D), starting from s0 or zero.
 // Steps past T are identity steps (w = 1, r = k = v = 0): nothing is padded.
 //
-// Layout.  The TPU grid (B, H, t_blocks) carries the state across its
-// sequential time axis in VMEM.  Here the loop over time chunks runs inside
-// one block, which keeps its slice of the state in shared memory.  Column e
-// of S depends only on v[:, e], so one block per (16 state columns, head,
-// batch) owns S[:, e0:e0+16]: at rwkv6-3b's H = 40, D = 64 that is 160
-// blocks on 132 SMs, two resident per SM (96.5 KB of shared memory each).
-// The price is that every column block recomputes the chunk's (c x c)
-// score tile.
+// What bounds it on the H100: bytes, narrowly.  At B=1, T=1024, H=40, D=64
+// the function moves ~53 MB (r, k, v, w in, o and the state out: ~16 us at
+// 3.35 TB/s) against ~1.0 GFLOP of products at c = 64 (~15 us at the f32
+// CUDA-core peak of 67 TFLOP/s).  The TPU grid (B, H, t_blocks) carries the
+// state across its sequential time axis; a block that walks every chunk in
+// turn leaves the card with 160 blocks and 16 dependent chunk steps each.
+// So the time axis is cut into chunks of c = 64 steps, and the form is the
+// chunked one of FlashLinearAttention, in three launches on one stream:
 //
-// Per chunk of c = 64 steps, split into four sub-blocks of 16:
-//   (a) load r, k, log w (c x D) and v (c x 16);
-//   (b) inclusive (C) and exclusive (E = C shifted by one step) sums of
-//       log w per channel, from the chunk start;
-//   (c) score entries inside a sub-block, s < t:
-//           A[t,s] = sum_d r_t k_s exp(E_t - C_s),  A[t,t] = sum_d r_t u k_t;
-//   (d) r^ = r exp(E - E[sub-block start]), r_dec = r exp(E),
-//       k^ = k exp(C[sub-block end] - C), k_end = k exp(C[chunk end] - C);
-//   (e) score entries across sub-blocks j < i:
-//           A[t,s] = sum_d r^_t exp(E[start of i] - C[end of j]) k^_s;
-//   (f) o_t = r_dec,t S + sum_{s<=t} A[t,s] v_s;
-//   (g) S = diag(exp(C[chunk end])) S + k_end^T v.
+//   (a) rwkv6_chunk_state, one block per (chunk, 64 state columns, head,
+//       batch): the chunk's decay exp(C_end) (C: inclusive sums of log w
+//       from the chunk start) and its state delta dS = k_end^T v, with
+//       k_end = k exp(C_end - C), into scratch (B, H, n, D, D) + (B, H, n, D);
+//   (b) rwkv6_state_scan, one thread per (4 state entries, head, batch):
+//       walks the n chunks in order from s0 or zero, S_in[c] = S,
+//       S = diag(dec_c) S + dS_c, storing S_in[c] over dS_c and the last S
+//       as the state output.  The only sequential part: n elementwise steps;
+//   (c) rwkv6_chunk_out, one block per (chunk, 64 output columns, head,
+//       batch): o = (A o causal) v + r_dec S_in[c], r_dec = r exp(E) (E: the
+//       exclusive sums), A the chunk's score tile with u on its diagonal.
+//
+// At rwkv6-3b's shape (a) and (c) are 640 blocks each, five (38 KB of
+// shared memory) and three (73 KB) resident per SM; v, and S_in in (c),
+// take the places of tiles that are read no more.  The three passes move
+// ~127 MB (the inputs twice, the chunk states three times), much of it
+// through the 50 MB L2.  On an H100 (700 W) they take ~25, ~7 and ~52 us;
+// removing any one stage of (c) removes its time, so (c) is bound by its
+// instruction issue (the per-entry exps of the sub-blocks, the 3xTF32
+// operand splits) as much as by bytes, and more resident blocks gave
+// nothing.  The products (k_end^T v, the cross-sub-block scores, A v and
+// r_dec S_in) run on the tensor cores as mma.sync m16n8k8 TF32 in the
+// 3xTF32 split: x = big + small with big = tf32(x), small = tf32(x - big),
+// and small*big + big*small + big*big summed in f32, which keeps ~22 bits
+// of each operand.  One TF32 pass keeps 11, about 1e-3 of each product:
+// more than the port's 1e-4 of the output's rms.  Operands are read out of
+// shared memory into fragments with pitches chosen so that the 32 lanes of
+// a fragment load hit 32 banks.
+//
+// The score tile, per chunk split into four sub-blocks of 16 steps:
+//   inside a sub-block, s < t:  A[t,s] = sum_d r_t k_s exp(E_t - C_s), one
+//                               exp per (t, s, d) on the CUDA cores, two
+//                               of the 480 entries a thread;
+//                        s = t: A[t,t] = sum_d r_t u k_t;
+//   sub-block j before t's:     A[t,s] = sum_d (r_t exp(E_t - Y_j))
+//                                            (k_s exp(Y_j - C_s)),
+//                               Y_j = C at the end of sub-block j: a product
+//                               on the tensor cores.
 //
 // Overflow.  The reference (rwkv6_chunked_jnp, layers.py, and the Pallas
 // body) forms k exp(-cum) over a 128-step chunk, which overflows f32 once a
@@ -41,20 +67,11 @@
 // difference of cumulative sums over a later minus an earlier step, so it
 // is <= 0 and each factor is <= 1: the kernel is finite wherever its inputs
 // are, and equals the reference wherever the reference is finite.  The
-// price is the per-entry exp inside sub-blocks (step c).
+// sums are taken in log2 and raised with ex2.approx (relative error ~2^-22,
+// denormal results flushed to zero, which a factor below 2^-126 is).
 //
-// What bounds it on the H100: bytes, narrowly.  At B=1, T=1024, H=40, D=64
-// the function moves ~53 MB (r, k, v, w in, o and the state out: ~16 us at
-// 3.35 TB/s) and needs ~1.0 GFLOP of f32 work at c = 64 (per step and head
-// 4 D^2 for the state in and out, per causal (t, s) pair 4 D for the score
-// and A.V: ~15 us at 67 TFLOP/s).  This first version does its products as
-// f32 FMAs (never TF32) on the CUDA cores out of shared memory, recomputes
-// the score tile in each of the D/16 column blocks, and spends an accurate
-// expf per score entry inside sub-blocks; tensor cores are the later fix.
-//
-// Threads: 256.  Step (c): 64 threads per sub-block, each 4 entries of one
-// row; (e): thread (t, s) of a 16 x 16 sub-block pair, all six pairs; (f)
-// and (g): thread (row group, state column) with 4 rows each (D/16 in g).
+// Deterministic: no atomics, every sum in a fixed order; two calls on the
+// same inputs give the same bits.
 #include <math.h>
 #include <stdint.h>
 
@@ -63,281 +80,517 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                  // 8 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;                     // time steps per chunk
 constexpr int kSub = 16;                       // steps per sub-block
 constexpr int kNSub = kChunk / kSub;           // 4
 constexpr int kPairs = kNSub * (kNSub - 1) / 2;  // sub-block pairs j < i
-constexpr int kDV = 16;                        // state columns per block
-constexpr int kAP = kChunk + 1;                // pitch of the score tile
-static_assert(kThreads == kNSub * 64, "step (c): 64 threads per sub-block");
-static_assert(kThreads == kSub * kSub, "step (e): one thread per (t, s)");
-static_assert(kThreads == kDV * kSub, "step (f): 16 row groups x 16 columns");
+constexpr int kDV = 64;                        // state columns per block
+constexpr int kPB = kDV + 8;                   // pitch of v and S tiles
+constexpr int kPS = kChunk + 4;                // pitch of the score tile
+constexpr int kScanThreads = 256;              // pass (b)
+constexpr int kScanAhead = 8;                  // pass (b): chunks loaded ahead
+static_assert(kPairs <= kWarps, "cross scores: one warp per pair");
+static_assert(kWarps == (kChunk / 16) * (kDV / 32), "(c): one tile a warp");
 
-// Shared-memory layout, in floats.  The (c x D) tiles are padded to an odd
-// pitch so that threads reading one column of different rows hit
-// different banks.
+// ---------------------------------------------------------------- 3xTF32 --
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// An m16n8k8 A fragment (rows g, g+8; columns q, q+4; g = lane / 4,
+// q = lane % 4) and a B fragment (rows q, q+4; column g), each element split
+// into big + small TF32 parts.
+struct FragA { uint32_t big[4], small[4]; };
+struct FragB { uint32_t big[2], small[2]; };
+
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));   // x - big is exact
+}
+
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.big[0], f.small[0]);
+  split(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+// d += a (16x8, row-major) * b (8x8, column-major), TF32 in, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[n] += a * b[n] in 3xTF32: the two small cross terms, then big*big
+template <int N>
+__device__ __forceinline__ void mma3(float (&acc)[N][4], const FragA& a,
+                                     const FragB (&b)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.small, b[n].big);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.big, b[n].small);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.big, b[n].big);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Pair p of the score entries s < t inside the chunk's sub-blocks, row by
+// row: sub-block p / 120, then (1,0), (2,0), (2,1), (3,0), ...
+__device__ __forceinline__ void pair(int p, int& t, int& s) {
+  constexpr int kTri = kSub * (kSub - 1) / 2;
+  const int q = p / kTri, l = p % kTri;
+  // tl (tl - 1) / 2 <= l < tl (tl + 1) / 2; sqrtf is exact on the squares
+  const int tl = (int)((1.f + sqrtf(1.f + 8.f * l)) * 0.5f);
+  t = q * kSub + tl;
+  s = q * kSub + l - tl * (tl - 1) / 2;
+}
+
+// Rows t < tv of a (kChunk x cols) tile of a (B, T, H, cols-wide) tensor,
+// 16 bytes a thread, into shared memory at `pitch`; rows past tv read
+// nothing and are zero-filled.
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const float* src, size_t step,
+                                          int cols, int tv, int tid) {
+  const int c4 = cols / 4;
+  for (int i = tid; i < kChunk * c4; i += kThreads) {
+    const int t = i / c4, c = (i % c4) * 4;
+    const bool ok = t < tv;
+    cp_async16(dst + t * pitch + c, src + (ok ? (size_t)t * step + c : 0), ok);
+  }
+}
+
+// -------------------------------------------------- (a) chunk state deltas --
+// v takes the place of w once the sums are done: 38 KB at D 64, five
+// blocks a SM.
 template <int D>
-struct Smem {
-  static constexpr int P = D + 1;
-  static constexpr int R = 0;                  // r, then r^
-  static constexpr int K = R + kChunk * P;     // k, then k^
-  static constexpr int E = K + kChunk * P;     // exclusive sums, then r_dec
-  static constexpr int C = E + kChunk * P;     // log w, inclusive sums, k_end
-  static constexpr int V = C + kChunk * P;     // v[:, e0:e0+16]
-  static constexpr int A = V + kChunk * kDV;   // scores, upper triangle 0
-  static constexpr int S = A + kChunk * kAP;   // state columns (D x 16)
-  static constexpr int U = S + D * kDV;        // bonus u[h]
-  static constexpr int TOT = U + D;            // per-sub-block sums
-  static constexpr int X = TOT + kNSub * D;    // E at each sub-block start
-  static constexpr int Y = X + kNSub * D;      // C at each sub-block end
-  static constexpr int M = Y + kNSub * D;      // exp(X_i - Y_j), j < i
-  static constexpr int DCL = M + kPairs * D;   // exp(C at the chunk end)
-  static constexpr int kFloats = DCL + D;
+struct StateSmem {
+  static constexpr int PK = D + 8;             // k read as a transposed A
+  static constexpr int K = 0;                  // k, then k_end
+  static constexpr int W = K + kChunk * PK;    // w, partial sums, then v
+  static constexpr int TOT = W + (D > kPB ? kChunk * D : kChunk * kPB);
+  static constexpr int kFloats = TOT + kThreads;   // each part's total
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, const float* __restrict__ s0,
-                  float* __restrict__ o, float* __restrict__ s_out, int T,
-                  int H) {
-  using L = Smem<D>;
-  constexpr int P = L::P;
-  constexpr int V4 = D / 4;
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 5)
+rwkv6_chunk_state(const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ w, float* __restrict__ dstate,
+                  float* __restrict__ ddec, int T, int H, int n) {
+  using L = StateSmem<D>;
+  constexpr int PK = L::PK;
+  constexpr int NE = D / kDV;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem + L::K;
+  float* Ws = smem + L::W;
+  float* Vs = smem + L::W;
+  float* Tot = smem + L::TOT;
+
+  const int chunk = blockIdx.x / NE, e0 = (blockIdx.x % NE) * kDV;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q4 = lane % 4;
+  const int t0 = chunk * kChunk, tv = min(kChunk, T - t0);
+  const size_t step = (size_t)H * D;
+  const size_t base = (((size_t)b * T + t0) * H + h) * D;   // (b, t0, h, 0)
+
+  load_rows(Ks, PK, k + base, step, D, tv, tid);
+  load_rows(Ws, D, w + base, step, D, tv, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // G[s] = sum over t > s of log2 w_t, in Q parts of the chunk, then
+  // k_end = k 2^G and the chunk's decay 2^(sum of all)
+  {
+    constexpr int Q = kThreads / D, LEN = kChunk / Q;
+    const int d = tid % D, q = tid / D;
+    float run = 0.f;
+    for (int i = LEN - 1; i >= 0; --i) {
+      const int t = q * LEN + i;
+      const float lw = t < tv ? log2f(fmaxf(Ws[t * D + d], 1e-12f)) : 0.f;
+      Ws[t * D + d] = run;
+      run += lw;
+    }
+    Tot[q * D + d] = run;
+    __syncthreads();
+    float off = 0.f;
+    for (int p = Q - 1; p > q; --p) off += Tot[p * D + d];
+    for (int i = 0; i < LEN; ++i) {
+      const int t = q * LEN + i;
+      Ks[t * PK + d] *= exp2_ftz(Ws[t * D + d] + off);
+    }
+    if (q == 0 && e0 == 0)
+      ddec[(((size_t)b * H + h) * n + chunk) * D + d] = exp2_ftz(off + run);
+  }
+  __syncthreads();                             // the sums are read no more
+  load_rows(Vs, kPB, v + base + e0, step, kDV, tv, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // dS[d, e] = sum_s k_end[s, d] v[s, e]: 16-row x 32-column tiles of dS
+  const int s_steps = (tv + 7) / 8;
+  float* out = dstate + (((size_t)b * H + h) * n + chunk) * D * D + e0;
+  for (int job = warp; job < (D / 16) * (kDV / 32); job += kWarps) {
+    const int dr = (job / (kDV / 32)) * 16 + g, nc = (job % (kDV / 32)) * 32;
+    float acc[4][4] = {};
+    for (int ks = 0; ks < s_steps; ++ks) {
+      const int sa = ks * 8 + q4, sb = sa + 4;
+      const FragA a = frag_a(Ks[sa * PK + dr], Ks[sa * PK + dr + 8],
+                             Ks[sb * PK + dr], Ks[sb * PK + dr + 8]);
+      FragB bf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = nc + j * 8 + g;
+        bf[j] = frag_b(Vs[sa * kPB + e], Vs[sb * kPB + e]);
+      }
+      mma3(acc, a, bf);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = nc + j * 8 + 2 * q4;
+      *reinterpret_cast<float2*>(out + (size_t)dr * D + e) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(dr + 8) * D + e) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// ------------------------------------------------- (b) the carried states --
+__global__ void __launch_bounds__(kScanThreads)
+rwkv6_state_scan(float* __restrict__ dstate, const float* __restrict__ ddec,
+                 const float* __restrict__ s0, float* __restrict__ s_out,
+                 int BH, int D, int n) {
+  const int dd4 = D * D / 4;
+  const size_t i = (size_t)blockIdx.x * kScanThreads + threadIdx.x;
+  if (i >= (size_t)BH * dd4) return;
+  const size_t bh = i / dd4;
+  const int r = (int)(i % dd4), d = r / (D / 4);
+  float4 S = s0 != nullptr ? reinterpret_cast<const float4*>(s0)[i]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* st = reinterpret_cast<float4*>(dstate) + bh * n * dd4 + r;
+  const float* dc = ddec + bh * n * D + d;
+  for (int c0 = 0; c0 < n; c0 += kScanAhead) {
+    float4 ds[kScanAhead];
+    float de[kScanAhead];
+#pragma unroll
+    for (int j = 0; j < kScanAhead; ++j)
+      if (c0 + j < n) {
+        ds[j] = st[(size_t)(c0 + j) * dd4];
+        de[j] = dc[(size_t)(c0 + j) * D];
+      }
+#pragma unroll
+    for (int j = 0; j < kScanAhead; ++j)
+      if (c0 + j < n) {
+        st[(size_t)(c0 + j) * dd4] = S;          // S_in of chunk c0 + j
+        S.x = fmaf(de[j], S.x, ds[j].x);
+        S.y = fmaf(de[j], S.y, ds[j].y);
+        S.z = fmaf(de[j], S.z, ds[j].z);
+        S.w = fmaf(de[j], S.w, ds[j].w);
+      }
+  }
+  reinterpret_cast<float4*>(s_out)[i] = S;
+}
+
+// --------------------------------------------------------- (c) the output --
+// v and S_in take the places of k and the sums once the scores are done,
+// which keeps a block at 73 KB at D 64: three blocks a SM.
+template <int D>
+struct OutSmem {
+  static constexpr int PA = D + 4;             // rows read along d
+  static constexpr int R = 0;                  // r, then r_dec
+  static constexpr int K = R + kChunk * PA;    // k, then v (pitch kPB)
+  static constexpr int CX =                    // row t: E_t; row t + 1: C_t;
+      K + (PA > kPB ? kChunk * PA : kChunk * kPB);   // then S_in[:, e0:e0+64]
+  static constexpr int A =                     // the score tile
+      CX + ((kChunk + 1) * PA > D * kPB ? (kChunk + 1) * PA : D * kPB);
+  static constexpr int U = A + kChunk * kPS;
+  static constexpr int TOT = U + D;            // each scan part's total
+  static constexpr int kFloats = TOT + kThreads;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+rwkv6_chunk_out(const float* __restrict__ r, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ s_in,
+                float* __restrict__ o, int T, int H, int n) {
+  using L = OutSmem<D>;
+  constexpr int PA = L::PA;
+  constexpr int NE = D / kDV;
+  extern __shared__ __align__(16) float smem[];
   float* Rs = smem + L::R;
   float* Ks = smem + L::K;
-  float* Es = smem + L::E;
-  float* Cs = smem + L::C;
-  float* Vs = smem + L::V;
+  float* Cx = smem + L::CX;
+  float* Vs = smem + L::K;
+  float* Ss = smem + L::CX;
   float* As = smem + L::A;
-  float* Ss = smem + L::S;
   float* Us = smem + L::U;
   float* Tot = smem + L::TOT;
-  float* Xs = smem + L::X;
-  float* Ys = smem + L::Y;
-  float* Ms = smem + L::M;
-  float* Dcl = smem + L::DCL;
 
-  const int e0 = blockIdx.x * kDV;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const size_t step = (size_t)H * D;                  // floats per time step
-  const size_t base = ((size_t)b * T * H + h) * D;    // (b, 0, h, 0)
-  const size_t sbase = ((size_t)b * H + h) * D * D;   // (b, h, 0, 0)
+  const int chunk = blockIdx.x / NE, e0 = (blockIdx.x % NE) * kDV;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q4 = lane % 4;
+  const int t0 = chunk * kChunk, tv = min(kChunk, T - t0);
+  const size_t step = (size_t)H * D;
+  const size_t base = (((size_t)b * T + t0) * H + h) * D;   // (b, t0, h, 0)
 
-  for (int d = tid; d < D; d += kThreads) Us[d] = u[h * D + d];
-  for (int i = tid; i < D * kDV; i += kThreads) {
-    const int d = i / kDV, e = i % kDV;
-    Ss[i] = s0 != nullptr ? s0[sbase + (size_t)d * D + e0 + e] : 0.f;
-  }
-  for (int i = tid; i < kChunk * kAP; i += kThreads) As[i] = 0.f;
+  load_rows(Rs, PA, r + base, step, D, tv, tid);
+  load_rows(Ks, PA, k + base, step, D, tv, tid);
+  load_rows(Cx + PA, PA, w + base, step, D, tv, tid);
+  for (int i = tid; i < D / 4; i += kThreads)
+    cp_async16(Us + 4 * i, u + (size_t)h * D + 4 * i, true);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
-  for (int t0 = 0; t0 < T; t0 += kChunk) {
-    __syncthreads();  // the previous chunk's readers are done
-
-    // (a) load; steps past T are identity steps
-    for (int i = tid; i < kChunk * V4; i += kThreads) {
-      const int t = i / V4, c = (i % V4) * 4;
-      float4 rr = make_float4(0.f, 0.f, 0.f, 0.f), kk = rr, lw = rr;
-      if (t0 + t < T) {
-        const size_t off = base + (size_t)(t0 + t) * step + c;
-        rr = __ldg(reinterpret_cast<const float4*>(r + off));
-        kk = __ldg(reinterpret_cast<const float4*>(k + off));
-        const float4 ww = __ldg(reinterpret_cast<const float4*>(w + off));
-        lw = make_float4(logf(fmaxf(ww.x, 1e-12f)), logf(fmaxf(ww.y, 1e-12f)),
-                         logf(fmaxf(ww.z, 1e-12f)), logf(fmaxf(ww.w, 1e-12f)));
-      }
-      float* rp = Rs + t * P + c;
-      float* kp = Ks + t * P + c;
-      float* cp = Cs + t * P + c;
-      rp[0] = rr.x; rp[1] = rr.y; rp[2] = rr.z; rp[3] = rr.w;
-      kp[0] = kk.x; kp[1] = kk.y; kp[2] = kk.z; kp[3] = kk.w;
-      cp[0] = lw.x; cp[1] = lw.y; cp[2] = lw.z; cp[3] = lw.w;
+  // inclusive sums of log2 w from the chunk start: Cx[t + 1] = C_t, and
+  // Cx[t] = E_t (Cx[0] = 0), so E_t equals C_{t-1} bit for bit; the parts'
+  // offsets are summed in order, so Cx falls monotonically and every
+  // exponent formed below is <= 0
+  {
+    constexpr int Q = kThreads / D, LEN = kChunk / Q;
+    const int d = tid % D, q = tid / D;
+    float run = 0.f;
+    for (int i = 0; i < LEN; ++i) {
+      const int t = q * LEN + i;
+      float* p = Cx + (t + 1) * PA + d;
+      run += t < tv ? log2f(fmaxf(*p, 1e-12f)) : 0.f;
+      *p = run;
     }
-    for (int i = tid; i < kChunk * (kDV / 4); i += kThreads) {
-      const int t = i / (kDV / 4), c = (i % (kDV / 4)) * 4;
-      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + t < T)
-        vv = __ldg(reinterpret_cast<const float4*>(
-            v + base + (size_t)(t0 + t) * step + e0 + c));
-      float* vp = Vs + t * kDV + c;
-      vp[0] = vv.x; vp[1] = vv.y; vp[2] = vv.z; vp[3] = vv.w;
-    }
+    Tot[q * D + d] = run;
+    if (q == 0) Cx[d] = 0.f;
     __syncthreads();
-
-    // (b) sums of log w: within each sub-block, then offset by the
-    // sub-blocks before it.  E[t] equals C[t-1] bit for bit, and both fall
-    // monotonically, so every exponent formed below is <= 0.
-    for (int i = tid; i < kNSub * D; i += kThreads) {
-      const int q = i / D, d = i % D;
-      float run = 0.f;
-      for (int t = q * kSub; t < (q + 1) * kSub; ++t) {
-        const float lw = Cs[t * P + d];
-        Es[t * P + d] = run;
-        run += lw;
-        Cs[t * P + d] = run;
-      }
-      Tot[q * D + d] = run;
-    }
-    __syncthreads();
-    for (int i = tid; i < kNSub * D; i += kThreads) {
-      const int q = i / D, d = i % D;
+    if (q > 0) {
       float off = 0.f;
       for (int p = 0; p < q; ++p) off += Tot[p * D + d];
-      for (int t = q * kSub; t < (q + 1) * kSub; ++t) {
-        Es[t * P + d] += off;
-        Cs[t * P + d] += off;
-      }
-      Xs[q * D + d] = off;
-      Ys[q * D + d] = off + Tot[q * D + d];
-    }
-    __syncthreads();
-
-    // (c) scores inside each sub-block (and the bonus on the diagonal),
-    // one exp per (t, s, d); then the cross-sub-block decay factors
-    {
-      const int q = tid / 64, l = tid % 64;
-      const int tl = l / 4, sg = (l % 4) * 4;
-      const int t = q * kSub + tl;
-      if (sg <= tl) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int d = 0; d < D; ++d) {
-          const float rv = Rs[t * P + d], ev = Es[t * P + d];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int s = q * kSub + sg + m;
-            const float kv = Ks[s * P + d];
-            if (sg + m < tl)
-              acc[m] = fmaf(rv, kv * expf(ev - Cs[s * P + d]), acc[m]);
-            else if (sg + m == tl)
-              acc[m] = fmaf(rv, Us[d] * kv, acc[m]);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          if (sg + m <= tl) As[t * kAP + q * kSub + sg + m] = acc[m];
-      }
-    }
-    for (int i = tid; i < kPairs * D; i += kThreads) {
-      const int p = i / D, d = i % D;
-      int qi = 1;
-      while (p >= qi * (qi + 1) / 2) ++qi;       // p = qi (qi - 1) / 2 + qj
-      const int qj = p - qi * (qi - 1) / 2;
-      Ms[p * D + d] = expf(Xs[qi * D + d] - Ys[qj * D + d]);
-    }
-    for (int d = tid; d < D; d += kThreads)
-      Dcl[d] = expf(Ys[(kNSub - 1) * D + d]);
-    __syncthreads();
-
-    // (d) decayed r and k, each factor <= 1
-    for (int i = tid; i < kChunk * D; i += kThreads) {
-      const int t = i / D, d = i % D, q = t / kSub;
-      const float rv = Rs[t * P + d], ev = Es[t * P + d];
-      const float kv = Ks[t * P + d], cv = Cs[t * P + d];
-      Rs[t * P + d] = rv * expf(ev - Xs[q * D + d]);
-      Es[t * P + d] = rv * expf(ev);
-      Ks[t * P + d] = kv * expf(Ys[q * D + d] - cv);
-      Cs[t * P + d] = kv * expf(Ys[(kNSub - 1) * D + d] - cv);
-    }
-    __syncthreads();
-
-    // (e) scores across sub-blocks j < i
-    {
-      const int tl = tid / kSub, sl = tid % kSub;
-      float acc[kPairs];
-#pragma unroll
-      for (int p = 0; p < kPairs; ++p) acc[p] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kh[kNSub - 1];
-#pragma unroll
-        for (int j = 0; j < kNSub - 1; ++j) kh[j] = Ks[(j * kSub + sl) * P + d];
-#pragma unroll
-        for (int i = 1; i < kNSub; ++i) {
-          const float rv = Rs[(i * kSub + tl) * P + d];
-#pragma unroll
-          for (int j = 0; j < i; ++j) {
-            const int p = i * (i - 1) / 2 + j;
-            acc[p] = fmaf(rv * Ms[p * D + d], kh[j], acc[p]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 1; i < kNSub; ++i)
-#pragma unroll
-        for (int j = 0; j < i; ++j)
-          As[(i * kSub + tl) * kAP + j * kSub + sl] = acc[i * (i - 1) / 2 + j];
-    }
-    __syncthreads();
-
-    // (f) outputs: carried state plus the causal scores times v
-    {
-      const int e = tid % kDV, tg = tid / kDV;
-      float acc[kNSub];
-#pragma unroll
-      for (int q = 0; q < kNSub; ++q) acc[q] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float sv = Ss[d * kDV + e];
-#pragma unroll
-        for (int q = 0; q < kNSub; ++q)
-          acc[q] = fmaf(Es[(tg + q * kSub) * P + d], sv, acc[q]);
-      }
-      for (int s = 0; s < kChunk; ++s) {
-        const float vv = Vs[s * kDV + e];
-#pragma unroll
-        for (int q = 0; q < kNSub; ++q)
-          acc[q] = fmaf(As[(tg + q * kSub) * kAP + s], vv, acc[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < kNSub; ++q) {
-        const int t = t0 + tg + q * kSub;
-        if (t < T) o[base + (size_t)t * step + e0 + e] = acc[q];
-      }
-    }
-    __syncthreads();
-
-    // (g) state to the chunk end
-    {
-      constexpr int kRows = D * kDV / kThreads;
-      const int e = tid % kDV, dg = tid / kDV;
-      float acc[kRows];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int d = dg + q * (kThreads / kDV);
-        acc[q] = Ss[d * kDV + e] * Dcl[d];
-      }
-      for (int s = 0; s < kChunk; ++s) {
-        const float vv = Vs[s * kDV + e];
-#pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          acc[q] = fmaf(Cs[s * P + dg + q * (kThreads / kDV)], vv, acc[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        Ss[(dg + q * (kThreads / kDV)) * kDV + e] = acc[q];
+      for (int i = 0; i < LEN; ++i) Cx[(q * LEN + i + 1) * PA + d] += off;
     }
   }
   __syncthreads();
-  for (int i = tid; i < D * kDV; i += kThreads) {
-    const int d = i / kDV, e = i % kDV;
-    s_out[sbase + (size_t)d * D + e0 + e] = Ss[i];
+
+  // scores inside each sub-block on the CUDA cores, two entries a thread:
+  // warps 0-6 two of the 480 pairs s < t, warp 7 one pair and two entries
+  // of the diagonal (r u k); entries above the diagonal are zero
+  {
+    constexpr int kTri = kSub * (kSub - 1) / 2;      // pairs a sub-block
+    constexpr int kLower = kNSub * kTri;
+    static_assert(kLower == 2 * kThreads - 32 && kChunk == 2 * 32,
+                  "warps 0-6: two pairs; warp 7: a pair, two diagonal rows");
+    int ta, sa, tb, sb;
+    pair(tid, ta, sa);
+    const bool diag = tid + kThreads >= kLower;      // warp 7
+    if (diag) {
+      tb = 2 * (tid + kThreads - kLower);
+      sb = tb + 1;                                   // the next diagonal row
+    } else {
+      pair(tid + kThreads, tb, sb);
+    }
+    float acc_a = 0.f, acc_b = 0.f, acc_c = 0.f;
+    for (int d = 0; d < D; d += 4) {
+      const float4 ra = ld4(Rs + ta * PA + d), ea = ld4(Cx + ta * PA + d);
+      const float4 ka = ld4(Ks + sa * PA + d);
+      const float4 ca = ld4(Cx + (sa + 1) * PA + d);
+      acc_a = fmaf(ra.x, ka.x * exp2_ftz(ea.x - ca.x), acc_a);
+      acc_a = fmaf(ra.y, ka.y * exp2_ftz(ea.y - ca.y), acc_a);
+      acc_a = fmaf(ra.z, ka.z * exp2_ftz(ea.z - ca.z), acc_a);
+      acc_a = fmaf(ra.w, ka.w * exp2_ftz(ea.w - ca.w), acc_a);
+      if (diag) {
+        const float4 uv = ld4(Us + d);
+        const float4 r0 = ld4(Rs + tb * PA + d), k0 = ld4(Ks + tb * PA + d);
+        const float4 r1 = ld4(Rs + sb * PA + d), k1 = ld4(Ks + sb * PA + d);
+        acc_b = fmaf(r0.x, uv.x * k0.x, acc_b);
+        acc_b = fmaf(r0.y, uv.y * k0.y, acc_b);
+        acc_b = fmaf(r0.z, uv.z * k0.z, acc_b);
+        acc_b = fmaf(r0.w, uv.w * k0.w, acc_b);
+        acc_c = fmaf(r1.x, uv.x * k1.x, acc_c);
+        acc_c = fmaf(r1.y, uv.y * k1.y, acc_c);
+        acc_c = fmaf(r1.z, uv.z * k1.z, acc_c);
+        acc_c = fmaf(r1.w, uv.w * k1.w, acc_c);
+      } else {
+        const float4 rb = ld4(Rs + tb * PA + d), eb = ld4(Cx + tb * PA + d);
+        const float4 kb = ld4(Ks + sb * PA + d);
+        const float4 cb = ld4(Cx + (sb + 1) * PA + d);
+        acc_b = fmaf(rb.x, kb.x * exp2_ftz(eb.x - cb.x), acc_b);
+        acc_b = fmaf(rb.y, kb.y * exp2_ftz(eb.y - cb.y), acc_b);
+        acc_b = fmaf(rb.z, kb.z * exp2_ftz(eb.z - cb.z), acc_b);
+        acc_b = fmaf(rb.w, kb.w * exp2_ftz(eb.w - cb.w), acc_b);
+      }
+    }
+    As[ta * kPS + sa] = acc_a;
+    if (diag) {
+      As[tb * kPS + tb] = acc_b;
+      As[sb * kPS + sb] = acc_c;
+    } else {
+      As[tb * kPS + sb] = acc_b;
+    }
+    for (int i = tid; i < kNSub * kSub * kSub; i += kThreads) {
+      const int q = i / (kSub * kSub), tl = i / kSub % kSub, sl = i % kSub;
+      if (sl > tl) As[(q * kSub + tl) * kPS + q * kSub + sl] = 0.f;
+    }
+  }
+
+  // scores across sub-blocks j < i on the tensor cores, one warp a pair:
+  // (r 2^(E - Y_j)) (k 2^(Y_j - C))^T, Y_j = C at the end of sub-block j
+  if (warp < kPairs) {
+    int i = 1, j = warp;
+    while (j >= i) j -= i++;                   // warp -> (i, j), j < i
+    if (i * kSub < tv) {
+      const float* Y = Cx + (j + 1) * kSub * PA;
+      const int ta = i * kSub + g, tb = ta + 8;
+      float acc[2][4] = {};
+      for (int d0 = 0; d0 < D; d0 += 8) {
+        const int da = d0 + q4, db = da + 4;
+        const FragA a = frag_a(
+            Rs[ta * PA + da] * exp2_ftz(Cx[ta * PA + da] - Y[da]),
+            Rs[tb * PA + da] * exp2_ftz(Cx[tb * PA + da] - Y[da]),
+            Rs[ta * PA + db] * exp2_ftz(Cx[ta * PA + db] - Y[db]),
+            Rs[tb * PA + db] * exp2_ftz(Cx[tb * PA + db] - Y[db]));
+        FragB bf[2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int s = j * kSub + nt * 8 + g;
+          bf[nt] = frag_b(
+              Ks[s * PA + da] * exp2_ftz(Y[da] - Cx[(s + 1) * PA + da]),
+              Ks[s * PA + db] * exp2_ftz(Y[db] - Cx[(s + 1) * PA + db]));
+        }
+        mma3(acc, a, bf);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int s = j * kSub + nt * 8 + 2 * q4;
+        As[ta * kPS + s] = acc[nt][0];
+        As[ta * kPS + s + 1] = acc[nt][1];
+        As[tb * kPS + s] = acc[nt][2];
+        As[tb * kPS + s + 1] = acc[nt][3];
+      }
+    }
+  }
+
+  __syncthreads();             // the score tile is whole; k is read no more
+
+  // v into k's place; r_dec = r 2^E into r's; then S_in into the sums'
+  // place, landing under the A v product
+  load_rows(Vs, kPB, v + base + e0, step, kDV, tv, tid);
+  cp_async_commit();
+  for (int i = tid; i < kChunk * D; i += kThreads) {
+    const int t = i / D, d = i % D;
+    Rs[t * PA + d] *= exp2_ftz(Cx[t * PA + d]);
+  }
+  __syncthreads();                             // the sums are read no more
+  {
+    const float* src = s_in + (((size_t)b * H + h) * n + chunk) * D * D + e0;
+    for (int i = tid; i < D * (kDV / 4); i += kThreads) {
+      const int d = i / (kDV / 4), c = (i % (kDV / 4)) * 4;
+      cp_async16(Ss + d * kPB + c, src + (size_t)d * D + c, true);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();                             // v has landed
+
+  // o = A v + r_dec S_in: warp (16 rows, 32 columns)
+  const int mt = warp / 2, nc = (warp % 2) * 32;
+  const int ta = mt * 16 + g, tb = ta + 8;
+  const bool live = mt * 16 < tv;
+  float acc[4][4] = {};
+  if (live) {
+    for (int s0 = 0; s0 < (mt + 1) * 16; s0 += 8) {
+      const int sa = s0 + q4, sb = sa + 4;
+      const FragA a = frag_a(As[ta * kPS + sa], As[tb * kPS + sa],
+                             As[ta * kPS + sb], As[tb * kPS + sb]);
+      FragB bf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = nc + j * 8 + g;
+        bf[j] = frag_b(Vs[sa * kPB + e], Vs[sb * kPB + e]);
+      }
+      mma3(acc, a, bf);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // S_in has landed
+  if (!live) return;
+  for (int d0 = 0; d0 < D; d0 += 8) {
+    const int da = d0 + q4, db = da + 4;
+    const FragA a = frag_a(Rs[ta * PA + da], Rs[tb * PA + da],
+                           Rs[ta * PA + db], Rs[tb * PA + db]);
+    FragB bf[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = nc + j * 8 + g;
+      bf[j] = frag_b(Ss[da * kPB + e], Ss[db * kPB + e]);
+    }
+    mma3(acc, a, bf);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = e0 + nc + j * 8 + 2 * q4;
+    if (ta < tv)
+      *reinterpret_cast<float2*>(o + base + (size_t)ta * step + e) =
+          make_float2(acc[j][0], acc[j][1]);
+    if (tb < tv)
+      *reinterpret_cast<float2*>(o + base + (size_t)tb * step + e) =
+          make_float2(acc[j][2], acc[j][3]);
   }
 }
 
 template <int D>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* o, float* s_out, int B,
-           int T, int H, cudaStream_t stream) {
-  static bool smem_set[kMaxDevices] = {};
-  const size_t smem = Smem<D>::kFloats * sizeof(float);
-  cudaError_t err = allow_dynamic_smem(rwkv6_scan_kernel<D>, smem, smem_set);
+           const float* u, const float* s0, float* o, float* s_out,
+           float* scratch, int B, int T, int H, cudaStream_t stream) {
+  static bool state_set[kMaxDevices] = {}, out_set[kMaxDevices] = {};
+  const size_t state_smem = StateSmem<D>::kFloats * sizeof(float);
+  const size_t out_smem = OutSmem<D>::kFloats * sizeof(float);
+  cudaError_t err =
+      allow_dynamic_smem(rwkv6_chunk_state<D>, state_smem, state_set);
+  if (err == cudaSuccess)
+    err = allow_dynamic_smem(rwkv6_chunk_out<D>, out_smem, out_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(D / kDV, H, B);
-  rwkv6_scan_kernel<D><<<grid, kThreads, smem, stream>>>(r, k, v, w, u, s0, o,
-                                                         s_out, T, H);
+  const int n = (T + kChunk - 1) / kChunk;
+  float* dstate = scratch;                              // (B, H, n, D, D)
+  float* ddec = scratch + (size_t)B * H * n * D * D;    // (B, H, n, D)
+  const dim3 grid(n * (D / kDV), H, B);
+  if (n > 0) {
+    rwkv6_chunk_state<D><<<grid, kThreads, state_smem, stream>>>(
+        k, v, w, dstate, ddec, T, H, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const size_t quads = (size_t)B * H * D * D / 4;
+  rwkv6_state_scan<<<(unsigned)((quads + kScanThreads - 1) / kScanThreads),
+                     kScanThreads, 0, stream>>>(dstate, ddec, s0, s_out, B * H,
+                                                D, n);
+  if ((err = cudaGetLastError()) != cudaSuccess || n == 0) return (int)err;
+  rwkv6_chunk_out<D><<<grid, kThreads, out_smem, stream>>>(r, k, v, w, u,
+                                                           dstate, o, T, H, n);
   return (int)cudaGetLastError();
 }
 
@@ -345,13 +598,14 @@ int launch(const float* r, const float* k, const float* v, const float* w,
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  r, k, v, w, o (B,T,H,D), u (H,D),
-// s0 and s_out (B,H,D,D): contiguous float32 on the device, r/k/v/w 16-byte
-// aligned; s0 may be null (zero state); D is 64 or 128.  Returns the
-// launch's cudaError_t.
+// s0 and s_out (B,H,D,D): contiguous float32 on the device, 16-byte
+// aligned; s0 may be null (zero state); scratch holds B*H*n*(D*D + D)
+// floats, n = ceil(T / 64), 16-byte aligned; D is 64 or 128.  Returns the
+// first failing launch's cudaError_t (0 on success).
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, const void* s0,
-                                 void* o, void* s_out, int B, int T, int H,
-                                 int D, void* stream) {
+                                 void* o, void* s_out, void* scratch, int B,
+                                 int T, int H, int D, void* stream) {
   using namespace repro_torch;
   if (B == 0 || H == 0) return 0;
   decltype(&launch<64>) fn =
@@ -359,6 +613,6 @@ extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   return fn(f(r), f(k), f(v), f(w), f(u), f(s0), static_cast<float*>(o),
-            static_cast<float*>(s_out), B, T, H,
+            static_cast<float*>(s_out), static_cast<float*>(scratch), B, T, H,
             static_cast<cudaStream_t>(stream));
 }

@@ -8,16 +8,29 @@ the same function as ``rwkv6_chunked_jnp``.  Per (batch, head), with a
     o_t = r_t^T (diag(u) k_t v_t^T + S_{t-1})
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-The CUDA source is ``csrc/rwkv6_scan.cu``: one thread block per (16 state
-columns, head, batch) loops over 64-step chunks with its state columns in
-shared memory, reads the (B, T, H, D) inputs in place, masks a ragged last
-chunk as identity steps, and writes the final state itself.  Its decay
-factors are all <= 1 (see the source note), so it stays finite where the
-reference's ``k * exp(-cum)`` overflows.
+The CUDA source is ``csrc/rwkv6_scan.cu``, the chunked form in three
+grid launches per call on 64-step chunks (``KERNEL_CHUNK``), reading the
+(B, T, H, D) inputs in place and masking a ragged last chunk as identity
+steps:
 
-On the H100 the function is bound by bytes, narrowly (its f32 work at the
-kernel's chunk takes almost as long at the f32 peak); this first kernel
-does its products as f32 FMAs on the CUDA cores, far from either bound.
+1. per (chunk, 64 state columns, head, batch): the chunk's decay and its
+   state delta k_end^T v, into scratch that the wrapper allocates;
+2. per (4 state entries, head, batch): the n chunks in order, which turns
+   each delta into the state entering its chunk and writes the final
+   state;
+3. per (chunk, 64 output columns, head, batch): o from the state entering
+   the chunk and the chunk's causal score tile.
+
+On the H100 the function is bound by bytes, narrowly (its f32 products at
+the kernel's chunk take almost as long at the CUDA cores' f32 peak).  The
+chunk-parallel form gives 640 blocks at rwkv6-3b's prefill where walking
+the chunks in turn gave 160, and the products run on the tensor cores in
+the 3xTF32 split (three TF32 products per f32 one, ~22 bits of each
+operand kept; a single TF32 pass misses the port's 1e-4 limit).  Every
+decay factor is <= 1 (see the source note), so the kernel stays finite
+where the reference's ``k * exp(-cum)`` overflows, and every sum is taken
+in a fixed order, so two calls give the same bits.
+``rwkv6_scan.launches`` counts calls, each of them three grid launches.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 RWKV_CHUNK = 128        # chunk of ``rwkv6_chunked_jnp`` (layers.py RWKV_CHUNK)
+KERNEL_CHUNK = 64       # time steps per chunk of csrc/rwkv6_scan.cu
 
 
 def rwkv6_scan_plain(r, k, v, w, u, s0=None):
@@ -102,25 +116,29 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
     if D not in HEAD_DIMS:
         raise NotImplementedError(
             f"rwkv6_scan kernel: head_dim in {HEAD_DIMS}; got D={D}")
-    if not all(t.is_contiguous() for t in tensors) or not all(
-            t.data_ptr() % 16 == 0 for t in (r, k, v, w)):
-        raise ValueError("rwkv6_scan: inputs must be contiguous, r/k/v/w "
-                         "16-byte aligned (the kernel loads 16 bytes at a "
-                         "time)")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("rwkv6_scan: inputs must be contiguous and 16-byte "
+                         "aligned (the kernel moves 16 bytes at a time)")
     o = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     if B == 0 or H == 0:
         return o, state
+    # per chunk: its state delta, then the state entering it (D*D), and its
+    # decay (D)
+    n = -(-T // KERNEL_CHUNK)
+    scratch = torch.empty(B * H * n * (D * D + D), dtype=torch.float32,
+                          device=r.device)
     lib = _build.load()
     with torch.cuda.device(r.device):
         err = lib.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
-            o.data_ptr(), state.data_ptr(), B, T, H, D,
+            o.data_ptr(), state.data_ptr(), scratch.data_ptr(), B, T, H, D,
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return o, state
 
 
-rwkv6_scan.launches = 0    # kernel launches since the last reset
+rwkv6_scan.launches = 0    # calls (3 grid launches each) since the last reset
