@@ -11,8 +11,10 @@ Phases, in order (all by default):
 3. ``kernels``: each hand-written kernel against its plain PyTorch version
    on the card: the attention kernels in bf16 and f32, over ragged
    lengths, T and S that are not multiples of the tiles, GQA groups of 1,
-   4, 5 and 10, head_dim 64, 128 and 256 (recurrentgemma-2b's shapes, with
-   windowed prefills past and off its tiles and a decode over a full ring);
+   4, 5, 6, 10 and 16 (qwen2-vl-2b's 6 and chatglm3-6b's 16 at their main
+   shapes and off the tiles), head_dim 64, 128 and 256 (recurrentgemma-2b's
+   shapes, with windowed prefills past and off its tiles and a decode over
+   a full ring);
    the split-S decode also against its own algorithm in plain PyTorch
    (``decode_attention_split_plain``), at lengths 0, 1, on a split
    boundary and one either side of it, and with S off the split size;
@@ -34,20 +36,25 @@ Phases, in order (all by default):
    GPU spin that fills the queue first, so they are device time alone,
    and give the achieved TFLOP/s (prefill) or GB/s (decode; also timed
    with the L2 cache flushed before each call).
-4. ``parity``: llama3-8b and rwkv6-3b at full width, 2 layers, and
+4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
+   rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
    attention cycle), f32: one prompt and 8 greedy decode steps with the
    kernels on the card and with the plain versions on the CPU; logits
    within a stated tolerance, tokens equal.  A second recurrentgemma-2b
    run has its window reduced to 128 under a 190-token prompt, so that
-   the prefill's ring is rolled and decode wraps it.
+   the prefill's ring is rolled and decode wraps it; a second qwen2-vl-2b
+   run puts 64 vision patches through the frontend before its prompt.
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances of full-depth bf16 llama3-8b, then of
-   rwkv6-3b, then of recurrentgemma-2b (``max_batch`` 8, ``max_seq_len``
-   2048), on a wall clock; every request must finish with its token
-   count, no logit row may hold a NaN or an infinity, and the launch
-   counts of the path's kernels (all set to 0 just before each run, read
-   just after it) must be > 0.
+   rwkv6-3b, recurrentgemma-2b, qwen3-4b, chatglm3-6b and qwen2-vl-2b
+   (``max_batch`` 8, ``max_seq_len`` 2048), on a wall clock; every request
+   must finish with its token count, no logit row may hold a NaN or an
+   infinity, and the launch counts of the path's kernels (all set to 0
+   just before each run, read just after it) must be > 0.  Then one
+   ``EcoServeAPI.generate`` of 4 prompts, 8 new tokens each, on
+   full-depth bf16 qwen3-4b: 8 tokens a prompt, 32 streamed, its kernels
+   launched.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -186,10 +193,10 @@ def tol_text(tol_name: str) -> str:
 # --------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------- #
-# The first element names the served path whose main shape the case is (its
-# bf16 line goes into the kernel table), or is None.
-FLASH_CASES = [  # path, B, T, S, Hq, Hkv, D, causal, window, q_offset
-    ("llama3-8b", 1, 1024, 1024, 32, 8, 128, True, 0, 0),
+# The first element names the served paths whose main shape the case is
+# (its bf16 line goes into the kernel table under each), or is None.
+FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
+    (("llama3-8b", "qwen3-4b"), 1, 1024, 1024, 32, 8, 128, True, 0, 0),
     (None, 1, 1000, 1000, 32, 8, 128, True, 0, 0),  # T, S not tile multiples
     (None, 2, 200, 200, 10, 2, 128, True, 0, 0),    # G = 5
     (None, 2, 128, 128, 8, 2, 64, True, 0, 0),      # D = 64
@@ -198,7 +205,7 @@ FLASH_CASES = [  # path, B, T, S, Hq, Hkv, D, causal, window, q_offset
     (None, 1, 128, 100, 4, 4, 64, False, 0, 0),     # bidirectional, S != T
     # recurrentgemma-2b's local attention: G = 10, D = 256, its 2048 window
     # (inactive below 2048 tokens), then a prefill past a 128 window
-    ("recurrentgemma-2b", 1, 1024, 1024, 10, 1, 256, True, 2048, 0),
+    (("recurrentgemma-2b",), 1, 1024, 1024, 10, 1, 256, True, 2048, 0),
     (None, 1, 1000, 1000, 10, 1, 256, True, 128, 0),
     # T and S off the bf16 kernel's 64-key tiles and its 64/G-position
     # q tiles; G = 1 (64 positions a tile, one left over); a
@@ -208,16 +215,22 @@ FLASH_CASES = [  # path, B, T, S, Hq, Hkv, D, causal, window, q_offset
     (None, 2, 65, 65, 4, 4, 64, True, 0, 0),
     (None, 1, 700, 700, 10, 1, 256, True, 100, 0),
     (None, 1, 100, 1100, 10, 1, 256, True, 300, 1000),
+    # chatglm3-6b (G = 16: 4 positions a q tile) and qwen2-vl-2b (G = 6:
+    # 10 positions and 4 dead rows a tile), then both off the tiles
+    (("chatglm3-6b",), 1, 1024, 1024, 32, 2, 128, True, 0, 0),
+    (("qwen2-vl-2b",), 1, 1024, 1024, 12, 2, 128, True, 0, 0),
+    (None, 1, 333, 333, 32, 2, 128, True, 0, 0),
+    (None, 1, 333, 333, 12, 2, 128, True, 0, 0),
 ]
-DECODE_CASES = [  # path, B, S, Hq, Hkv, D, lengths (a count or a kind)
-    ("llama3-8b", 8, 2048, 32, 8, 128, 1024),
+DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
+    (("llama3-8b", "qwen3-4b"), 8, 2048, 32, 8, 128, 1024),
     (None, 8, 2048, 32, 8, 128, "ragged"),
     (None, 4, 1000, 4, 4, 128, "ragged"),           # S not a tile multiple
     (None, 1, 512, 10, 2, 64, "ragged"),            # G = 5
     (None, 2, 256, 8, 2, 64, "ragged"),
     # recurrentgemma-2b: a W = 2048 ring half full, then full (every slot
     # valid, as after a wrap), then ragged
-    ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 1024),
+    (("recurrentgemma-2b",), 8, 2048, 10, 1, 256, 1024),
     (None, 8, 2048, 10, 1, 256, 2048),
     (None, 4, 1000, 10, 1, 256, "ragged"),
     # split-S: B 1 and Hkv 1 (the most splits per sequence) with one key;
@@ -228,6 +241,19 @@ DECODE_CASES = [  # path, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (None, 6, 2048, 10, 1, 256, "edges"),
     (None, 4, 1000, 10, 1, 256, "tail"),
     (None, 4, 1000, 4, 2, 64, "tail"),
+    # chatglm3-6b (G = 16, the kernel's MAX_GROUP: a full m16n8k16 head
+    # tile) and qwen2-vl-2b (G = 6: 10 zero rows); Hkv 2 at B 8 takes more
+    # splits a sequence than llama3-8b's Hkv 8
+    (("chatglm3-6b",), 8, 2048, 32, 2, 128, 1024),
+    (("qwen2-vl-2b",), 8, 2048, 12, 2, 128, 1024),
+    (None, 8, 2048, 32, 2, 128, "ragged"),
+    (None, 8, 2048, 12, 2, 128, "ragged"),
+    (None, 6, 2048, 32, 2, 128, "edges"),
+    (None, 6, 2048, 12, 2, 128, "edges"),
+    (None, 4, 1000, 32, 2, 128, "tail"),
+    (None, 4, 1000, 12, 2, 128, "tail"),
+    (None, 4, 333, 32, 2, 128, "ragged"),
+    (None, 4, 333, 12, 2, 128, "ragged"),
 ]
 
 
@@ -267,9 +293,9 @@ def sdpa_mask(torch, T, S, causal, window, q_offset, device):
     return m
 
 
-def record(results, name, path, **numbers):
-    """Keep a kernel's numbers at a served path's main shape."""
-    if path is not None:
+def record(results, name, paths, **numbers):
+    """Keep a kernel's numbers at the main shape of served ``paths``."""
+    for path in paths or ():
         results.setdefault(name, {})[path] = numbers
 
 
@@ -292,7 +318,7 @@ def run_kernels(torch, rng, results):
         dn = str(dtype).split(".")[-1]
         esize = torch.finfo(dtype).bits // 8
         for case in FLASH_CASES:
-            path, B, T, S, Hq, Hkv, D, causal, window, off = case
+            paths, B, T, S, Hq, Hkv, D, causal, window, off = case
             q = randn((B, T, Hq, D), dtype)
             k = randn((B, S, Hkv, D), dtype)
             v = randn((B, S, Hkv, D), dtype)
@@ -332,12 +358,12 @@ def run_kernels(torch, rng, results):
                 f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
                 f"{ops / lib_dev_ms * 1e-9:.1f})")
             if dtype == torch.bfloat16:
-                record(results, "flash_prefill", path, max_abs_err=err,
+                record(results, "flash_prefill", paths, max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
                        library_device_ms=lib_dev_ms)
         for case in DECODE_CASES:
-            path, B, S, Hq, Hkv, D, lens = case
+            paths, B, S, Hq, Hkv, D, lens = case
             q = randn((B, Hq, D), dtype)
             kc = randn((B, S, Hkv, D), dtype)
             vc = randn((B, S, Hkv, D), dtype)
@@ -386,7 +412,7 @@ def run_kernels(torch, rng, results):
                 f"before each call: kernel {cold_ms:.4f} ms, SDPA "
                 f"{lib_cold_ms:.4f} ms")
             if dtype == torch.bfloat16:
-                record(results, "decode_attention", path, max_abs_err=err,
+                record(results, "decode_attention", paths, max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
                        library_device_ms=lib_dev_ms)
@@ -506,7 +532,7 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
             f"passes move {rwkv6_form_bytes(B, T, H, D, carried) / 1e6:.1f}"
             f" MB)")
         if case is RWKV_CASES[0]:
-            record(results, "rwkv6_scan", "rwkv6-3b",
+            record(results, "rwkv6_scan", ("rwkv6-3b",),
                    max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    device_ms=dev_ms, library_device_ms=None)
@@ -594,7 +620,7 @@ def run_rglru_kernel(torch, rng, results) -> bool:
             f"bound_ms={b_ms:.4f} ({b_by}; the kernel's passes move "
             f"{rglru_form_bytes(B, T, d, carried) / 1e6:.1f} MB)")
         if case is RGLRU_CASES[0]:
-            record(results, "rglru_scan", "recurrentgemma-2b",
+            record(results, "rglru_scan", ("recurrentgemma-2b",),
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None, device_ms=dev_ms,
                    library_device_ms=None)
@@ -604,12 +630,17 @@ def run_rglru_kernel(torch, rng, results) -> bool:
 # --------------------------------------------------------------------- #
 # phase 4: model parity, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------- #
-def greedy(torch, params, cfg, prompt, n_new, device):
+def greedy(torch, params, cfg, prompt, n_new, device, patches=None):
+    """One prompt (after ``patches``, (1, P, frontend_dim), if given) and
+    ``n_new`` greedy decode steps: the tokens and each step's logits."""
     from repro_torch.models import forward, init_cache, write_slot
 
-    T = len(prompt)
     toks = torch.tensor([prompt], dtype=torch.long, device=device)
-    logits, pc = forward(params, cfg, {"tokens": toks}, return_cache=True)
+    batch = {"tokens": toks}
+    if patches is not None:
+        batch["patches"] = patches.to(device)
+    logits, pc = forward(params, cfg, batch, return_cache=True)
+    T = logits.shape[1]             # the patches and the prompt
     cache = init_cache(cfg, 1, T + n_new + 1, torch.float32, device)
     write_slot(cache, pc, 0, T)
     steps = [logits[0, -1].cpu()]
@@ -628,19 +659,25 @@ def greedy(torch, params, cfg, prompt, n_new, device):
 # prompt lengths of the parity runs: llama3-8b as before; rwkv6-3b's is
 # ragged against both the kernel's 64-step and the plain form's 128-step
 # chunks, recurrentgemma-2b's against rglru_scan's 16-step chunks and
-# flash_prefill's 6-position query tiles
-PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190}
+# flash_prefill's 6-position query tiles; chatglm3-6b's and qwen2-vl-2b's
+# against flash_prefill's 4- and 10-position query tiles (G 16 and 6)
+PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190,
+                 "qwen3-4b": 77, "chatglm3-6b": 101, "qwen2-vl-2b": 77}
 # layers of the parity runs: 2, or recurrentgemma-2b's one full (RG-LRU,
 # RG-LRU, local attention) cycle
 PARITY_LAYERS = {"recurrentgemma-2b": 3}
-# (arch, reduced sliding window or None): the second recurrentgemma-2b run
-# cuts the window to 128 under its 190-token prompt, so the prefill rolls
-# the ring and decode wraps it on the card
-PARITY_RUNS = [("llama3-8b", None), ("rwkv6-3b", None),
-               ("recurrentgemma-2b", None), ("recurrentgemma-2b", 128)]
+# (arch, reduced sliding window or None, vision patches before the prompt):
+# the second recurrentgemma-2b run cuts the window to 128 under its
+# 190-token prompt, so the prefill rolls the ring and decode wraps it on
+# the card; the second qwen2-vl-2b run puts 64 patches (an 8 x 8 grid of
+# M-RoPE positions) through the frontend before its prompt
+PARITY_RUNS = [("llama3-8b", None, 0), ("rwkv6-3b", None, 0),
+               ("recurrentgemma-2b", None, 0), ("recurrentgemma-2b", 128, 0),
+               ("qwen3-4b", None, 0), ("chatglm3-6b", None, 0),
+               ("qwen2-vl-2b", None, 0), ("qwen2-vl-2b", None, 64)]
 
 
-def run_parity(torch, rng, seed, arch, window=None):
+def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -661,18 +698,22 @@ def run_parity(torch, rng, seed, arch, window=None):
     p_cpu = to_cpu(p_gpu)
     n = PARITY_PROMPT[arch]
     prompt = [int(x) for x in rng.integers(2, cfg.vocab_size - 1, n)]
+    patches = (torch.from_numpy(rng.standard_normal(
+        (1, n_patches, cfg.frontend_dim), "float32")) if n_patches else None)
     t0 = time.perf_counter()
-    tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda")
+    tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda", patches)
     t_gpu = time.perf_counter() - t0
     # the first torch.exp of a CPU process can come out less accurate on
     # part of its tensor (ROADMAP Queue 3): one call before the reference
     torch.exp(torch.zeros(64))
     t0 = time.perf_counter()
-    tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu")
+    tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu", patches)
     t_cpu = time.perf_counter() - t0
     err = float((lg_gpu - lg_cpu).abs().max())
     reduced = (f", window reduced to {window} (reduced run)" if window
                else "")
+    if n_patches:
+        reduced += f", {n_patches} vision patches before the prompt"
     log(f"parity {arch} width, {n_layers} layers{reduced}, f32, prompt {n} "
         f"+ 8 decode steps: max |logit diff| = {err:.3e} (tol "
         f"{PARITY_ATOL}), "
@@ -721,7 +762,10 @@ class StepLog:
 PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
                 "rwkv6-3b": ("rwkv6_scan",),
                 "recurrentgemma-2b": ("rglru_scan", "flash_prefill",
-                                      "decode_attention")}
+                                      "decode_attention"),
+                "qwen3-4b": ("flash_prefill", "decode_attention"),
+                "chatglm3-6b": ("flash_prefill", "decode_attention"),
+                "qwen2-vl-2b": ("flash_prefill", "decode_attention")}
 
 
 def kernel_wrappers():
@@ -822,6 +866,55 @@ def run_serve(torch, rng, seed, arch):
     return {name: launches[name] for name in PATH_KERNELS[arch]}
 
 
+API_ARCH = "qwen3-4b"
+API_PROMPTS = ["the quick brown fox", "ecoserve rolls activation",
+               "prefill then decode", "macro instances cooperate"]
+
+
+def run_api(torch, seed, arch=API_ARCH):
+    """One ``EcoServeAPI.generate`` at the arch's full width and depth in
+    bf16: every prompt gets 8 tokens, all 32 are streamed, and the path's
+    kernels launched (counts set to 0 just before the call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import EcoServeAPI
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = get_config(arch)
+    econf = EngineConfig(max_batch=8, max_seq_len=2048,
+                         dtype=torch.bfloat16, eos_token=-1, device="cuda")
+    wrappers = kernel_wrappers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    streamed = []
+    with EcoServeAPI(cfg, n_instances=2, econf=econf, seed=seed) as api:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = api.generate(API_PROMPTS, max_new_tokens=8,
+                           stream=lambda i, tok: streamed.append((i, tok)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+    torch.cuda.empty_cache()
+    log(f"api {arch} bf16, {cfg.num_layers} layers: EcoServeAPI.generate of "
+        f"{len(API_PROMPTS)} prompts, max_new_tokens 8: {len(streamed)} "
+        f"tokens streamed, wall_s={wall:.2f} (host clock) "
+        f"launches={json.dumps(launches)}")
+    for r in res:
+        log(f"api {arch} {r.prompt!r}: tokens {r.tokens} ttft_s="
+            f"{r.ttft_s:.3f}")
+    if [r.prompt for r in res] != API_PROMPTS or any(
+            len(r.tokens) != 8 or not all(0 <= t < cfg.vocab_size
+                                          for t in r.tokens) for r in res):
+        fail(f"api {arch}: not 8 tokens in the vocabulary for every prompt")
+    if len(streamed) != 8 * len(API_PROMPTS):
+        fail(f"api {arch}: {len(streamed)} tokens streamed, not "
+             f"{8 * len(API_PROMPTS)}")
+    for name in PATH_KERNELS[arch]:
+        if launches[name] <= 0:
+            fail(f"api {arch}: kernel {name} was never launched")
+
+
 # --------------------------------------------------------------------- #
 KERNEL_META = {
     "flash_prefill": dict(
@@ -907,15 +1000,16 @@ def main() -> None:
     if "kernels" in phases:
         run_kernels(torch, np.random.default_rng(args.seed), results)
     if "parity" in phases:
-        for arch, window in PARITY_RUNS:
+        for arch, window, n_patches in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
-                       arch, window)
+                       arch, window, n_patches)
     if "serve" in phases:
         for arch in PATH_KERNELS:
             counts = run_serve(torch, np.random.default_rng(args.seed),
                                args.seed, arch)
             for name, n in counts.items():
                 launches.setdefault(name, {})[arch] = n
+        run_api(torch, args.seed)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [

@@ -4,7 +4,8 @@
     python3 profile_port.py [--seed N] [--phases sweep,steps]
 
 ``sweep``: ``decode_attention`` (bf16) at llama3-8b's and
-recurrentgemma-2b's decode shapes, half-full and full, for every split size
+recurrentgemma-2b's decode shapes, half-full and full, and at chatglm3-6b's
+(G 16) and qwen2-vl-2b's (G 6) half-full, for every split size
 in ``SPLIT_SIZES`` beside the one ``split_rows`` picks: device time
 (``chip_smoke.cuda_ms`` behind a GPU spin, so no host time is in it), the
 error against the plain version, and each of the picked size's two passes'
@@ -17,7 +18,8 @@ one compiled chunk, each with its passes' device times.
 and ``scaled_dot_product_attention``.
 
 ``steps``: one full-depth bf16 ``ServingEngine`` per served path
-(llama3-8b, rwkv6-3b, recurrentgemma-2b), random weights from ``--seed``:
+(llama3-8b, rwkv6-3b, recurrentgemma-2b, qwen3-4b, chatglm3-6b,
+qwen2-vl-2b), random weights from ``--seed``:
 a 1024-token prefill, then decode steps at batch 8 with 1024-token
 contexts, each under ``torch.profiler``.  Prints the host-clock time of the
 step (ending in the engine's own device read), the summed device time of
@@ -93,7 +95,9 @@ def run_sweep(torch, seed: int) -> None:
             ("llama3-8b", 8, 2048, 32, 8, 128, 1024),
             ("llama3-8b", 8, 2048, 32, 8, 128, 2048),
             ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 1024),
-            ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 2048)):
+            ("recurrentgemma-2b", 8, 2048, 10, 1, 256, 2048),
+            ("chatglm3-6b", 8, 2048, 32, 2, 128, 1024),
+            ("qwen2-vl-2b", 8, 2048, 12, 2, 128, 1024)):
         q, kc, vc = randn(B, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         ln = torch.full((B,), L, dtype=torch.int32, device=dev)
         want = DA.decode_attention_plain(q, kc, vc, ln).float()
@@ -165,7 +169,8 @@ def run_steps(torch, seed: int) -> None:
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     rng = np.random.default_rng(seed)
-    for arch in ("llama3-8b", "rwkv6-3b", "recurrentgemma-2b"):
+    for arch in ("llama3-8b", "rwkv6-3b", "recurrentgemma-2b", "qwen3-4b",
+                 "chatglm3-6b", "qwen2-vl-2b"):
         cfg = get_config(arch)
         econf = EngineConfig(max_batch=8, max_seq_len=2048,
                              dtype=torch.bfloat16, eos_token=-1,

@@ -11,10 +11,13 @@ kernels are reached through the dispatch names of
 ``rwkv6_chunked_jnp``.
 
 Blocks: global and sliding-window causal attention with SwiGLU (dense GQA
-decoders, and the local attention of Griffin), the RG-LRU recurrent block
+decoders, and the local attention of Griffin), with the attention
+flavours of the dense decoders: qkv bias, per-head q/k RMSNorm (qwen3-4b),
+rotary on the full head, on its first half (chatglm3-6b) or in M-RoPE's
+three position sections (qwen2-vl-2b); the RG-LRU recurrent block
 (recurrentgemma-2b), and the RWKV-6 time mix with its squared-ReLU channel
-mix (rwkv6-3b).  Flavours outside these paths (qk_norm, half/mrope rope,
-MoE, encoders) raise ``NotImplementedError``.
+mix (rwkv6-3b).  Flavours outside these paths (MoE, encoders, the audio
+frontend) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,11 +48,9 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("encoder (bidirectional) models")
     if cfg.is_moe:
         missing.append("MoE")
-    if cfg.qk_norm:
-        missing.append("qk_norm")
-    if cfg.rope not in ("full", "none"):
+    if cfg.rope not in ("full", "half", "mrope", "none"):
         missing.append(f"rope={cfg.rope!r}")
-    if cfg.modality != "text":
+    if cfg.modality not in ("text", "vision"):
         missing.append(f"modality={cfg.modality!r}")
     if missing:
         raise NotImplementedError(
@@ -71,7 +72,8 @@ def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Rotary embeddings ("full": pairs-first half-split layout, not interleaved)
+# Rotary embeddings (full / half / mrope; pairs-first half-split layout,
+# not interleaved)
 # --------------------------------------------------------------------------- #
 def _rope_freqs(theta: float, n_freq: int, device) -> torch.Tensor:
     exponent = torch.arange(0, n_freq, dtype=torch.float32,
@@ -81,18 +83,34 @@ def _rope_freqs(theta: float, n_freq: int, device) -> torch.Tensor:
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, heads, head_dim); positions: (B, T)."""
+    """x: (B, T, heads, head_dim); positions: (B, T), or (B, T, 3) for
+    mrope.  "half" rotates the first half of head_dim (n_freq = hd/4
+    frequencies, the exponent over n_freq) and passes the rest through;
+    "mrope" splits the n_freq = hd/2 frequency slots 2:1:1 into
+    (temporal, height, width) sections, each turned by its own column of
+    positions."""
     if cfg.rope == "none":
         return x
-    if cfg.rope != "full":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
-    n = x.shape[-1] // 2
+    hd = x.shape[-1]
+    n = hd // 4 if cfg.rope == "half" else hd // 2
     freqs = _rope_freqs(cfg.rope_theta, n, x.device)
-    ang = (positions.float()[..., None] * freqs)[:, :, None, :]  # (B,T,1,n)
+    pos = positions.float()
+    if cfg.rope == "mrope":
+        s1 = n // 2
+        s2 = (n - s1) // 2
+        ang = torch.cat([pos[..., 0:1] * freqs[:s1],
+                         pos[..., 1:2] * freqs[s1:s1 + s2],
+                         pos[..., 2:3] * freqs[s1 + s2:]], dim=-1)
+    else:
+        ang = pos[..., None] * freqs                        # (B, T, n)
+    ang = ang[:, :, None, :]                                # over heads
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :n], x[..., n:2 * n]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                        dim=-1).to(x.dtype)
+    if hd > 2 * n:                       # "half": the rest passes through
+        rotated = torch.cat([rotated, x[..., 2 * n:]], dim=-1)
+    return rotated
 
 
 # --------------------------------------------------------------------------- #
@@ -116,7 +134,7 @@ def attention_block(
     params: Params,
     cfg: ModelConfig,
     x: torch.Tensor,                        # (B, T, d)
-    positions: torch.Tensor,                # (B, T)
+    positions: torch.Tensor,                # (B, T) or (B, T, 3) (mrope)
     *,
     window: int = 0,                        # 0 for global
     layer_cache: Optional[Params],          # {"k","v"}: (B, S, Hkv, D)
@@ -129,8 +147,6 @@ def attention_block(
     cache's memory) and returns the same dict.  With a ``window`` the
     prefill attends over it and returns its k/v ring-ordered in ``window``
     rows, the size of a sliding-window layer's cache (S == window)."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet")
     B, T, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -139,9 +155,15 @@ def attention_block(
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(cfg, q.reshape(B, T, hq, hd), positions)
-    k = apply_rope(cfg, k.reshape(B, T, hkv, hd), positions)
+    q = q.reshape(B, T, hq, hd)
+    k = k.reshape(B, T, hkv, hd)
     v = v.reshape(B, T, hkv, hd)
+    if cfg.qk_norm:
+        # per head, over head_dim
+        q = rms_norm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+        k = rms_norm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
 
     new_cache = None
     if layer_cache is not None and T == 1:

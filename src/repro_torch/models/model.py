@@ -1,8 +1,9 @@
 """The port's decoders: init / forward / cache, in PyTorch.
 
 Counterpart of ``repro.models.model`` for the served paths: dense GQA
-decoders (ATTN or LOCAL_ATTN blocks), Griffin (RGLRU and LOCAL_ATTN
-blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
+decoders (ATTN or LOCAL_ATTN blocks; a vision model's patch embeddings
+through its ``frontend`` projection before the tokens), Griffin (RGLRU and
+LOCAL_ATTN blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
 layers per pattern position and scans over them; here
 ``params["layers"]`` is a plain list in layer order (``params_from_jax``
 maps one onto the other; layer ``i`` has kind
@@ -99,6 +100,9 @@ def _init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
         core["bq"] = _zeros((hq * hd,), dtype, device)
         core["bk"] = _zeros((hkv * hd,), dtype, device)
         core["bv"] = _zeros((hkv * hd,), dtype, device)
+    if cfg.qk_norm:
+        core["q_norm"] = _zeros((hd,), dtype, device)
+        core["k_norm"] = _zeros((hd,), dtype, device)
     return core
 
 
@@ -167,6 +171,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(generator, (cfg.d_model, cfg.vocab_size),
                                     0.02, dtype, device)
+    if cfg.frontend_dim:
+        params["frontend"] = _normal(generator, (cfg.frontend_dim,
+                                                 cfg.d_model), 0.02, dtype,
+                                     device)
     params["layers"] = [_init_block(cfg, kind, generator, dtype, device)
                         for kind in layer_kinds(cfg)]
     return params
@@ -251,6 +259,38 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
     return x + ffn, new_cache
 
 
+def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
+                       device, num_patches: int = 0) -> torch.Tensor:
+    """(B, T) positions, or (B, T, 3) for mrope: with ``num_patches``
+    patches first, patch i at (0, i // g, i % g) on a g x g grid and text
+    token t at (t + g, t + g, t + g); without, (t, t, t)."""
+    if cfg.rope == "mrope":
+        if num_patches:
+            g = max(1, int(num_patches ** 0.5))
+            pi = torch.arange(num_patches, device=device)
+            patch_pos = torch.stack([torch.zeros_like(pi), pi // g, pi % g],
+                                    -1)
+            tj = torch.arange(seqlen - num_patches, device=device) + g
+            pos = torch.cat([patch_pos, torch.stack([tj, tj, tj], -1)])
+        else:
+            t = torch.arange(seqlen, device=device)
+            pos = torch.stack([t, t, t], -1)
+        return pos.expand((batch,) + tuple(pos.shape))
+    return torch.arange(seqlen, device=device).expand(batch, seqlen)
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, with a vision model's patches (B, P, frontend_dim),
+    cast to the model's dtype, projected through ``params["frontend"]`` and
+    put before them."""
+    x = params["embed"][batch["tokens"]]
+    if cfg.modality == "vision" and "patches" in batch:
+        patch_emb = batch["patches"].to(x.dtype) @ params["frontend"]
+        x = torch.cat([patch_emb, x], dim=1)
+    return x
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -264,20 +304,30 @@ def forward(
 
     decode:  batch["tokens"] has T == 1 and ``cache``/``cache_len`` given;
              the cache is updated in place and returned.
-    prefill: full sequence + return_cache=True.
+    prefill: full sequence + return_cache=True; a vision model's
+             ``batch["patches"]`` come before the tokens (T counts both).
+
+    Decode positions are ``cache_len`` (repeated 3 times for mrope), as in
+    ``repro.models.forward``: after P patches on a g-wide grid and T text
+    tokens the first decoded token sits at P + T, not at the text's next
+    position T + g.
     """
     L.check_supported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    B, T = tokens.shape
+    x = _embed_inputs(params, cfg, batch)
+    B, T = x.shape[0], x.shape[1]
     decoding = cache is not None and T == 1
 
     if "positions" in batch:
         positions = batch["positions"]
     elif decoding:
         positions = cache_len[:, None]
+        if cfg.rope == "mrope":
+            positions = positions[..., None].expand(B, 1, 3)
     else:
-        positions = torch.arange(T, device=x.device).expand(B, T)
+        n_patches = (batch["patches"].shape[1]
+                     if cfg.modality == "vision" and "patches" in batch
+                     else 0)
+        positions = _default_positions(cfg, B, T, x.device, n_patches)
 
     new: Dict[str, list] = {}
     for bp, (kind, j) in zip(params["layers"], _cache_index(cfg)):

@@ -58,4 +58,6 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = to_tensor(tree["lm_head"], device)
+    if cfg.frontend_dim:
+        params["frontend"] = to_tensor(tree["frontend"], device)
     return params

@@ -43,6 +43,7 @@ class EngineConfig:
     max_seq_len: int = 256        # per-slot KV capacity
     dtype: object = torch.float32
     eos_token: int = 1
+    greedy: bool = True
     device: str = "cuda"
 
 
@@ -63,17 +64,26 @@ class MeasuredExecutor:
     # the Instance ctx_sum fast path with an unbounded clamp
     ctx_clamp = 0
 
-    def __init__(self, seed_model):
-        p1 = seed_model.prefill_time([1])
-        p257 = seed_model.prefill_time([257])
-        self._prefill_per_tok = max((p257 - p1) / 256.0, 1e-12)
-        self._prefill_base = max(p1 - self._prefill_per_tok, 0.0)
-        d10 = seed_model.decode_time(1, [0])
-        d20 = seed_model.decode_time(2, [0, 0])
-        d1k = seed_model.decode_time(1, [1024])
-        self._decode_per_seq = max(d20 - d10, 0.0)
-        self._decode_per_ctx = max((d1k - d10) / 1024.0, 0.0)
-        self._decode_base = max(d10 - self._decode_per_seq, 0.0)
+    def __init__(self, seed_model=None,
+                 fallback_prefill=2e-4, fallback_decode=5e-2):
+        if seed_model is not None:
+            p1 = seed_model.prefill_time([1])
+            p257 = seed_model.prefill_time([257])
+            self._prefill_per_tok = max((p257 - p1) / 256.0, 1e-12)
+            self._prefill_base = max(p1 - self._prefill_per_tok, 0.0)
+            d10 = seed_model.decode_time(1, [0])
+            d20 = seed_model.decode_time(2, [0, 0])
+            d1k = seed_model.decode_time(1, [1024])
+            self._decode_per_seq = max(d20 - d10, 0.0)
+            self._decode_per_ctx = max((d1k - d10) / 1024.0, 0.0)
+            self._decode_base = max(d10 - self._decode_per_seq, 0.0)
+        else:
+            # legacy flat fallbacks (no model to probe)
+            self._prefill_per_tok = fallback_prefill
+            self._prefill_base = 0.0
+            self._decode_per_seq = fallback_decode
+            self._decode_per_ctx = 0.0
+            self._decode_base = 0.0
         self._prefill_gain = 1.0
         self._decode_gain = 1.0
 
@@ -127,6 +137,10 @@ class ServingEngine:
                  econf: EngineConfig = EngineConfig(),
                  cost_model=None, recorder=None):
         assert not cfg.is_encoder, "decode engine serves decoder models"
+        if not econf.greedy:
+            raise NotImplementedError(
+                "the engine decodes greedily only; EngineConfig.greedy=False "
+                "has no sampler behind it")
         self.cfg = cfg
         self.econf = econf
         self.device = resolve_device(econf.device)

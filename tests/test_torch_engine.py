@@ -158,3 +158,43 @@ def test_executor_seeded_from_h100_profile():
         989e12, 3.35e12, 80e9)
     _, te = engines(seed=0)
     assert te.econf.device == "cpu" and te.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [{}, dict(fallback_prefill=1e-3,
+                                         fallback_decode=1e-2)],
+                         ids=["default", "custom"])
+def test_measured_executor_legacy_fallbacks_match_jax(kw):
+    """test_serving_engine.py::test_measured_executor_legacy_fallbacks on
+    the port: without a model to probe, the flat fallbacks apply, and the
+    predictions equal the JAX executor's after the same observations."""
+    from repro_torch.serving.engine import MeasuredExecutor
+    ex, jex = MeasuredExecutor(**kw), jeng.MeasuredExecutor(**kw)
+    per_tok = kw.get("fallback_prefill", 2e-4)
+    per_seq = kw.get("fallback_decode", 5e-2)
+    assert ex.prefill_time([10]) == pytest.approx(10 * per_tok)
+    assert ex.decode_time(3) == pytest.approx(3 * per_seq)
+    for tokens, dt in ((12, 4e-3), (40, 2e-2)):
+        ex.observe_prefill(tokens, dt)
+        jex.observe_prefill(tokens, dt)
+    for batch, ctx, dt in ((1, 10, 3e-2), (3, 200, 9e-2)):
+        ex.observe_decode(dt, batch=batch, ctx_sum=ctx)
+        jex.observe_decode(dt, batch=batch, ctx_sum=ctx)
+    for lens in ([1], [10, 20], [257]):
+        assert ex.prefill_time(lens) == jex.prefill_time(lens)
+    for batch, ctx in ((1, 0), (4, 512)):
+        assert (ex.decode_time(batch, ctx_sum=ctx)
+                == jex.decode_time(batch, ctx_sum=ctx))
+
+
+def test_engine_config_greedy():
+    """EngineConfig takes the reference's ``greedy`` field (default True)."""
+    assert EngineConfig(greedy=True).greedy is True
+    assert EngineConfig().greedy == jeng.EngineConfig().greedy
+
+
+def test_engine_rejects_non_greedy():
+    """The engine has no sampler: ``greedy=False`` raises at construction
+    (before any weight is made) instead of decoding greedily anyway."""
+    with pytest.raises(NotImplementedError, match="greedy"):
+        ServingEngine(tiny_cfg(), econf=EngineConfig(greedy=False,
+                                                     device="cpu"))

@@ -23,7 +23,8 @@ COPIED = sorted(
                                 "macro", "mitosis", "policies", "transport",
                                 "system", "padg_system")]
     + ["obs/events.py", "faults/policies.py", "simulator/cost_model.py",
-       "simulator/engine.py", "serving/replay.py"])
+       "simulator/engine.py", "serving/replay.py", "data/__init__.py",
+       "data/pipeline.py"])
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -45,7 +46,8 @@ def test_port_imports_neither_jax_nor_repro():
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
         "print(len(names), {'repro_torch.kernels.rwkv6_scan', "
-        "'repro_torch.kernels.rglru_scan'} <= set(names), bad)\n")
+        "'repro_torch.kernels.rglru_scan', 'repro_torch.serving.api', "
+        "'repro_torch.data.pipeline'} <= set(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=120)

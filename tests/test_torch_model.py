@@ -170,14 +170,13 @@ def test_rope_and_norm_match_jax():
         np.asarray(JL.soft_cap(jnp.asarray(y), 30.0)), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "chatglm3-6b",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "qwen2-vl-2b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "hubert-xlarge",
+                                  "llama4-scout-17b-a16e"])
 def test_unported_flavours_raise(arch):
-    """qk_norm, half/mrope rope, MoE and the encoder are not approximated:
-    they raise.  (RWKV6, RG-LRU and local attention are ported:
-    tests/test_torch_rwkv6.py, tests/test_torch_rglru.py and the two tests
-    below.)"""
+    """MoE and the encoder are not approximated: they raise.  (RWKV6,
+    RG-LRU and local attention are ported: tests/test_torch_rwkv6.py,
+    tests/test_torch_rglru.py and the two tests below; qk_norm, half and
+    mrope rope and the vision frontend: tests/test_torch_flavours.py.)"""
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError):
         tm.init_params(cfg, torch.Generator().manual_seed(0),
