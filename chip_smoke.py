@@ -11,10 +11,11 @@ Phases, in order (all by default):
 3. ``kernels``: each hand-written kernel against its plain PyTorch version
    on the card: the attention kernels in bf16 and f32, over ragged
    lengths, T and S that are not multiples of the tiles, GQA groups of 1,
-   4, 5, 6, 10 and 16 (qwen2-vl-2b's 6 and chatglm3-6b's 16 at their main
-   shapes and off the tiles), head_dim 64, 128 and 256 (recurrentgemma-2b's
-   shapes, with windowed prefills past and off its tiles and a decode over
-   a full ring);
+   4, 5, 6, 10 and 16 (qwen2-vl-2b's 6, chatglm3-6b's 16 and llama4-scout's
+   5 at their main shapes and off the tiles), head_dim 64, 128 and 256
+   (recurrentgemma-2b's shapes, with windowed prefills past and off its
+   tiles and a decode over a full ring), and llama4-scout's decode over an
+   8192-row ring (1024 rows valid, ragged, on the split edges, all valid);
    the split-S decode also against its own algorithm in plain PyTorch
    (``decode_attention_split_plain``), at lengths 0, 1, on a split
    boundary and one either side of it, and with S off the split size;
@@ -35,7 +36,9 @@ Phases, in order (all by default):
    ``device_ms`` and ``library_device_ms`` time the same calls behind a
    GPU spin that fills the queue first, so they are device time alone,
    and give the achieved TFLOP/s (prefill) or GB/s (decode; also timed
-   with the L2 cache flushed before each call).
+   with the L2 cache flushed before each call).  Each wrapper must
+   raise on a CUDA input that requires grad (the kernels have no
+   backward) and launch nothing.
 4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
    rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
@@ -45,13 +48,21 @@ Phases, in order (all by default):
    run has its window reduced to 128 under a 190-token prompt, so that
    the prefill's ring is rolled and decode wraps it; a second qwen2-vl-2b
    run puts 64 vision patches through the frontend before its prompt.
+   phi3.5-moe and llama4-scout run at full width and 1 layer (the host's
+   free memory logged first), with each side's smallest top-k router
+   margin and whether the chosen experts agree logged, then one
+   ``moe_block`` on a decode-shaped input under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
-   requests on two instances of full-depth bf16 llama3-8b, then of
-   rwkv6-3b, recurrentgemma-2b, qwen3-4b, chatglm3-6b and qwen2-vl-2b
-   (``max_batch`` 8, ``max_seq_len`` 2048), on a wall clock; every request
-   must finish with its token count, no logit row may hold a NaN or an
-   infinity, and the launch counts of the path's kernels (all set to 0
-   just before each run, read just after it) must be > 0.  Then one
+   requests on two instances (``max_batch`` 8, ``max_seq_len`` 2048) of
+   full-depth bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b,
+   qwen3-4b, chatglm3-6b and qwen2-vl-2b, then of full-width phi3.5-moe
+   at 8 of its 32 layers and llama4-scout at 4 of its 48 (two whole
+   instances do not fit the card; ``reduced`` is logged), on a wall
+   clock; every request must finish with its token count, no logit row
+   may hold a NaN or an infinity, and the launch counts of the path's
+   kernels (all set to 0 just before each run, read just after it) must
+   be > 0.  Then one
    ``EcoServeAPI.generate`` of 4 prompts, 8 new tokens each, on
    full-depth bf16 qwen3-4b: 8 tokens a prompt, 32 streamed, its kernels
    launched.
@@ -104,6 +115,8 @@ TOL["rglru"] = dict(atol=1e-5, atol_rms=0.0, rtol=1e-5)
 # model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
 # products (and rwkv6_scan its T*D-term sums) in another order than the CPU
 PARITY_ATOL = 1e-3
+# the MoE paths
+PHI, SCOUT = "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"
 
 
 def fail(msg: str) -> None:
@@ -196,7 +209,8 @@ def tol_text(tol_name: str) -> str:
 # The first element names the served paths whose main shape the case is
 # (its bf16 line goes into the kernel table under each), or is None.
 FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
-    (("llama3-8b", "qwen3-4b"), 1, 1024, 1024, 32, 8, 128, True, 0, 0),
+    # llama3-8b's shape is qwen3-4b's and phi3.5-moe's too
+    (("llama3-8b", "qwen3-4b", PHI), 1, 1024, 1024, 32, 8, 128, True, 0, 0),
     (None, 1, 1000, 1000, 32, 8, 128, True, 0, 0),  # T, S not tile multiples
     (None, 2, 200, 200, 10, 2, 128, True, 0, 0),    # G = 5
     (None, 2, 128, 128, 8, 2, 64, True, 0, 0),      # D = 64
@@ -221,9 +235,15 @@ FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
     (("qwen2-vl-2b",), 1, 1024, 1024, 12, 2, 128, True, 0, 0),
     (None, 1, 333, 333, 32, 2, 128, True, 0, 0),
     (None, 1, 333, 333, 12, 2, 128, True, 0, 0),
+    # llama4-scout: G = 5 (40 / 8; 12 positions and 4 dead rows a q tile)
+    # at D 128, its 8192 window (inactive under 8192 tokens), then off the
+    # tiles and past a window
+    ((SCOUT,), 1, 1024, 1024, 40, 8, 128, True, 8192, 0),
+    (None, 1, 333, 333, 40, 8, 128, True, 8192, 0),
+    (None, 1, 1000, 1000, 40, 8, 128, True, 300, 0),
 ]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
-    (("llama3-8b", "qwen3-4b"), 8, 2048, 32, 8, 128, 1024),
+    (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
     (None, 8, 2048, 32, 8, 128, "ragged"),
     (None, 4, 1000, 4, 4, 128, "ragged"),           # S not a tile multiple
     (None, 1, 512, 10, 2, 64, "ragged"),            # G = 5
@@ -254,6 +274,13 @@ DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (None, 4, 1000, 12, 2, 128, "tail"),
     (None, 4, 333, 32, 2, 128, "ragged"),
     (None, 4, 333, 12, 2, 128, "ragged"),
+    # llama4-scout: G = 5 over its S = 8192 ring (local attention keeps
+    # the whole window whatever max_seq_len is): 1024 valid rows, ragged,
+    # the split edges, and every row valid (as after a wrap)
+    ((SCOUT,), 8, 8192, 40, 8, 128, 1024),
+    (None, 8, 8192, 40, 8, 128, "ragged"),
+    (None, 6, 8192, 40, 8, 128, "edges"),
+    (None, 8, 8192, 40, 8, 128, 8192),
 ]
 
 
@@ -420,6 +447,51 @@ def run_kernels(torch, rng, results):
     all_ok &= run_rglru_kernel(torch, rng, results)
     if not all_ok:
         fail("a kernel disagrees with its plain version (lines above)")
+    check_grad_refused(torch)
+
+
+def check_grad_refused(torch):
+    """Each wrapper raises on a CUDA input that requires grad while grad is
+    enabled (the kernels have no backward), launching nothing, and runs
+    under ``torch.no_grad()``."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    def t(*shape, neg=False):
+        x = torch.rand(shape, device="cuda")
+        return (-x if neg else x).requires_grad_()
+
+    lengths = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_prefill": lambda: FP.flash_prefill(
+            t(1, 9, 4, 64), t(1, 9, 2, 64), t(1, 9, 2, 64)),
+        "decode_attention": lambda: DA.decode_attention(
+            t(2, 4, 64), t(2, 7, 2, 64), t(2, 7, 2, 64), lengths),
+        "rwkv6_scan": lambda: RS.rwkv6_scan(
+            t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64),
+            t(2, 64)),
+        "rglru_scan": lambda: RG.rglru_scan(t(1, 6, 8, neg=True),
+                                            t(1, 6, 8)),
+    }
+    wrappers = kernel_wrappers()
+    for name, call in calls.items():
+        before = wrappers[name].launches
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            fail(f"{name}: a CUDA input that requires grad did not raise")
+        if wrappers[name].launches != before:
+            fail(f"{name}: launched on an input that requires grad")
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        log(f"{name}: raises on a CUDA input that requires grad (no "
+            "backward), runs under torch.no_grad(): ok")
 
 
 RWKV_CASES = [  # B, T, H, D, carried-in state, decay
@@ -660,12 +732,16 @@ def greedy(torch, params, cfg, prompt, n_new, device, patches=None):
 # ragged against both the kernel's 64-step and the plain form's 128-step
 # chunks, recurrentgemma-2b's against rglru_scan's 16-step chunks and
 # flash_prefill's 6-position query tiles; chatglm3-6b's and qwen2-vl-2b's
-# against flash_prefill's 4- and 10-position query tiles (G 16 and 6)
+# against flash_prefill's 4- and 10-position query tiles (G 16 and 6);
+# llama4-scout's against its 12-position tiles (G 5)
 PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190,
-                 "qwen3-4b": 77, "chatglm3-6b": 101, "qwen2-vl-2b": 77}
-# layers of the parity runs: 2, or recurrentgemma-2b's one full (RG-LRU,
-# RG-LRU, local attention) cycle
-PARITY_LAYERS = {"recurrentgemma-2b": 3}
+                 "qwen3-4b": 77, "chatglm3-6b": 101, "qwen2-vl-2b": 77,
+                 PHI: 77, SCOUT: 101}
+# layers of the parity runs: 2, recurrentgemma-2b's one full (RG-LRU,
+# RG-LRU, local attention) cycle, or 1 for the MoE models (llama4-scout's
+# f32 weights are 16.6 GB a side at one layer, 8.1 GB of them the
+# 202048-row embedding and head)
+PARITY_LAYERS = {"recurrentgemma-2b": 3, PHI: 1, SCOUT: 1}
 # (arch, reduced sliding window or None, vision patches before the prompt):
 # the second recurrentgemma-2b run cuts the window to 128 under its
 # 190-token prompt, so the prefill rolls the ring and decode wraps it on
@@ -674,7 +750,82 @@ PARITY_LAYERS = {"recurrentgemma-2b": 3}
 PARITY_RUNS = [("llama3-8b", None, 0), ("rwkv6-3b", None, 0),
                ("recurrentgemma-2b", None, 0), ("recurrentgemma-2b", 128, 0),
                ("qwen3-4b", None, 0), ("chatglm3-6b", None, 0),
-               ("qwen2-vl-2b", None, 0), ("qwen2-vl-2b", None, 64)]
+               ("qwen2-vl-2b", None, 0), ("qwen2-vl-2b", None, 64),
+               (PHI, None, 0), (SCOUT, None, 0)]
+
+
+def host_free_gb() -> float:
+    import os
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class RouteLog:
+    """Wraps ``layers.moe_route`` while it is installed: each call's router
+    logits and chosen experts, by the device they ran on."""
+
+    def __init__(self, layers):
+        self.layers, self.real = layers, layers.moe_route
+        self.calls = {"cuda": [], "cpu": []}
+
+    def __enter__(self):
+        def logged(params, cfg, x):
+            r = self.real(params, cfg, x)
+            self.calls[x.device.type].append((r["logits"], r["experts"]))
+            return r
+        self.layers.moe_route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.real
+
+    def summary(self, torch, k: int) -> str:
+        """Each side's smallest top-k margin (k-th minus (k+1)-th logit of
+        a token), whether the chosen experts match call by call, and the
+        largest router-logit difference."""
+        def margins(side):
+            out = [lg.sort(-1, descending=True).values.cpu()
+                   for lg, _ in self.calls[side]]
+            return torch.cat([v[:, k - 1] - v[:, k] for v in out])
+        pairs = list(zip(self.calls["cuda"], self.calls["cpu"]))
+        same = (len(self.calls["cuda"]) == len(self.calls["cpu"]) and all(
+            torch.equal(ec.cpu(), eh) for (_, ec), (_, eh) in pairs))
+        diff = max(float((lc.cpu() - lh).abs().max())
+                   for (lc, _), (lh, _) in pairs)
+        m_card, m_cpu = margins("cuda"), margins("cpu")
+        return (f"{len(pairs)} routing calls a side, "
+                f"{m_cpu.numel()} tokens; smallest top-{k} margin card "
+                f"{float(m_card.min()):.3e}, cpu {float(m_cpu.min()):.3e} "
+                f"({int((m_cpu < 1e-4).sum())} tokens under 1e-4); router "
+                f"logits differ by at most {diff:.3e}; chosen experts equal "
+                f"on both sides in every call: {same}")
+
+
+def check_moe_no_sync(torch, params, cfg, seed):
+    """``moe_block`` of layer 0 once on a decode-shaped input (B 8, T 1)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a device-to-host
+    sync anywhere in it fails the phase (a decode step stays capturable by
+    a CUDA graph)."""
+    from repro_torch.models import layers as L
+
+    ffn = params["layers"][0]["ffn"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda")
+    want = L.moe_block(ffn, cfg, x)              # warm-up, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = L.moe_block(ffn, cfg, x)
+    except RuntimeError as e:
+        fail(f"{cfg.name}: moe_block synchronised with the host in a decode "
+             f"step: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{cfg.name}: moe_block gave other bits on a second call")
+    log(f"parity {cfg.name}: moe_block on (8, 1, {cfg.d_model}) (cap "
+        f"{L.moe_capacity(cfg, 8)}) under set_sync_debug_mode('error'): no "
+        "device-to-host sync, the same bits as its warm-up call")
 
 
 def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
@@ -685,6 +836,10 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
     if window:
         cfg = dataclasses.replace(cfg, sliding_window=window)
+    if cfg.is_moe:
+        log(f"parity {arch}: {host_free_gb():.1f} GB of host memory free "
+            f"before {cfg.param_count() * 4 / 1e9:.1f} GB of f32 weights on "
+            "each side")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, torch.float32, "cuda")
 
@@ -700,15 +855,20 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     prompt = [int(x) for x in rng.integers(2, cfg.vocab_size - 1, n)]
     patches = (torch.from_numpy(rng.standard_normal(
         (1, n_patches, cfg.frontend_dim), "float32")) if n_patches else None)
-    t0 = time.perf_counter()
-    tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda", patches)
-    t_gpu = time.perf_counter() - t0
-    # the first torch.exp of a CPU process can come out less accurate on
-    # part of its tensor (ROADMAP Queue 3): one call before the reference
-    torch.exp(torch.zeros(64))
-    t0 = time.perf_counter()
-    tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu", patches)
-    t_cpu = time.perf_counter() - t0
+    from repro_torch.models import layers
+    with RouteLog(layers) as routes:
+        t0 = time.perf_counter()
+        tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda",
+                                 patches)
+        t_gpu = time.perf_counter() - t0
+        # the first torch.exp of a CPU process can come out less accurate
+        # on part of its tensor (ROADMAP Queue 3): one call before the
+        # reference
+        torch.exp(torch.zeros(64))
+        t0 = time.perf_counter()
+        tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu",
+                                 patches)
+        t_cpu = time.perf_counter() - t0
     err = float((lg_gpu - lg_cpu).abs().max())
     reduced = (f", window reduced to {window} (reduced run)" if window
                else "")
@@ -720,10 +880,14 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
         f"logit range [{float(lg_cpu.min()):.2f}, {float(lg_cpu.max()):.2f}]"
         f"; tokens card {tok_gpu} cpu {tok_cpu}; card {t_gpu:.2f} s, "
         f"cpu {t_cpu:.2f} s (host clock)")
+    if cfg.is_moe:
+        log(f"parity {arch} routing: {routes.summary(torch, cfg.top_k)}")
     if not (torch.isfinite(lg_gpu).all() and err <= PARITY_ATOL):
         fail(f"{arch} parity: logits differ by {err:.3e} > {PARITY_ATOL}")
     if tok_gpu != tok_cpu:
         fail(f"{arch} parity: greedy tokens differ between card and CPU")
+    if cfg.is_moe:
+        check_moe_no_sync(torch, p_gpu, cfg, seed)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -765,7 +929,15 @@ PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
                                       "decode_attention"),
                 "qwen3-4b": ("flash_prefill", "decode_attention"),
                 "chatglm3-6b": ("flash_prefill", "decode_attention"),
-                "qwen2-vl-2b": ("flash_prefill", "decode_attention")}
+                "qwen2-vl-2b": ("flash_prefill", "decode_attention"),
+                PHI: ("flash_prefill", "decode_attention"),
+                SCOUT: ("flash_prefill", "decode_attention")}
+# depth of the served MoE models: 2 instances of the whole models do not fit
+# one 80 GB card (83.7 GB and 203.5 GB of bf16 weights each), so they serve
+# at their published width with 8 of 32 and 4 of 48 layers (21.3 and 20.8 GB
+# an instance; each model's one-block pattern is kept whole); the other
+# paths serve at full depth
+SERVE_LAYERS = {PHI: 8, SCOUT: 4}
 
 
 def kernel_wrappers():
@@ -790,6 +962,11 @@ def run_serve(torch, rng, seed, arch):
     from repro_torch.serving.replay import WallClock
 
     cfg = get_config(arch)
+    reduced = ""
+    if arch in SERVE_LAYERS:
+        reduced = (f" (reduced from {cfg.num_layers}: 2 instances of the "
+                   "whole model do not fit the card)")
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
     econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=2048,
                                     dtype=torch.bfloat16, eos_token=-1,
                                     device="cuda")
@@ -841,7 +1018,7 @@ def run_serve(torch, rng, seed, arch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     summary = stats.summary()
-    log(f"serve {arch} bf16, {cfg.num_layers} layers, "
+    log(f"serve {arch} bf16, {cfg.num_layers} layers{reduced}, "
         f"{cfg.param_count() / 1e9:.2f}B parameters, 2 instances, max_batch"
         f" 8, max_seq_len 2048: {len(reqs)} requests, prompts "
         f"{sum(r.prompt_len for r in reqs)} tokens, outputs "

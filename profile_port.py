@@ -17,9 +17,10 @@ one compiled chunk, each with its passes' device times.
 ``chip_smoke.py`` phase 3 times the kernels against their plain versions
 and ``scaled_dot_product_attention``.
 
-``steps``: one full-depth bf16 ``ServingEngine`` per served path
-(llama3-8b, rwkv6-3b, recurrentgemma-2b, qwen3-4b, chatglm3-6b,
-qwen2-vl-2b), random weights from ``--seed``:
+``steps``: one bf16 ``ServingEngine`` per served path (llama3-8b,
+rwkv6-3b, recurrentgemma-2b, qwen3-4b, chatglm3-6b, qwen2-vl-2b at full
+depth; phi3.5-moe and llama4-scout at ``chip_smoke.py``'s serving depth,
+8 and 4 layers), random weights from ``--seed``:
 a 1024-token prefill, then decode steps at batch 8 with 1024-token
 contexts, each under ``torch.profiler``.  Prints the host-clock time of the
 step (ending in the engine's own device read), the summed device time of
@@ -34,12 +35,13 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pathlib
 import subprocess
 import sys
 import time
 
-from chip_smoke import cuda_ms, log
+from chip_smoke import SERVE_LAYERS, cuda_ms, log
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SPLIT_SIZES = (64, 128, 256, 512)
@@ -170,8 +172,11 @@ def run_steps(torch, seed: int) -> None:
 
     rng = np.random.default_rng(seed)
     for arch in ("llama3-8b", "rwkv6-3b", "recurrentgemma-2b", "qwen3-4b",
-                 "chatglm3-6b", "qwen2-vl-2b"):
+                 "chatglm3-6b", "qwen2-vl-2b", *SERVE_LAYERS):
         cfg = get_config(arch)
+        if arch in SERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
+            log(f"step {arch}: {cfg.num_layers} layers (reduced)")
         econf = EngineConfig(max_batch=8, max_seq_len=2048,
                              dtype=torch.bfloat16, eos_token=-1,
                              device="cuda")

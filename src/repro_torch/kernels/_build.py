@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -131,3 +133,15 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel's call: the kernels have
+    no backward, and an output filled through ``ctypes`` carries no
+    ``grad_fn``, so a gradient through it would be lost without a word.
+    The plain versions (CPU tensors) do carry gradients."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() (or on inputs that do not require grad)")

@@ -129,7 +129,8 @@ def decode_attention(q, k_cache, v_cache, lengths):
     """One new token per sequence: q (B,Hq,D) over caches (B,S,Hkv,D)
     masked at ``lengths`` (B,) int32; returns (B,Hq,D) in q's dtype.  CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise (on an input that requires grad while grad is enabled, too: the
+    kernel has no backward)."""
     if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
@@ -160,6 +161,7 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError("decode_attention: inputs must be contiguous, q "
                          "and the caches 16-byte aligned (the kernel loads "
                          "16 bytes at a time)")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if B == 0:
         return torch.empty_like(q)
     out = run_kernel(q, k_cache, v_cache, lengths,

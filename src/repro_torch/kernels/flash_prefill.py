@@ -70,7 +70,8 @@ def flash_prefill_plain(q, k, v, *, causal=True, window=0, q_offset=0):
 def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
     """GQA attention of q (B,T,Hq,D) over k, v (B,S,Hkv,D); returns
     (B,T,Hq,D) in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise (on an input that requires grad
+    while grad is enabled, too: the kernel has no backward)."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -98,6 +99,7 @@ def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
         raise ValueError("flash_prefill: q, k, v must be contiguous and "
                          "16-byte aligned (the kernel loads 16 bytes at a "
                          "time)")
+    _build.refuse_grad("flash_prefill", q, k, v)
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out

@@ -56,7 +56,8 @@ def rglru_scan(log_a, b, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All h of h_t = exp(log_a_t) * h_{t-1} + b_t: log_a, b (B,T,d)
     float32, optional h0 (B,d) float32 (zeros when None); returns (B,T,d)
     float32.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise (on an input that requires grad while grad is enabled,
+    too: the kernel has no backward)."""
     if log_a.ndim != 3 or log_a.shape != b.shape:
         raise ValueError(f"bad shapes log_a{tuple(log_a.shape)} "
                          f"b{tuple(b.shape)}")
@@ -76,6 +77,7 @@ def rglru_scan(log_a, b, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
                         f"{[str(t.dtype) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru_scan: inputs must be contiguous")
+    _build.refuse_grad("rglru_scan", *tensors)
     if log_a.numel() == 0:
         return torch.empty_like(log_a)
     out = run_kernel(log_a, b, h0, time_chunk(T))

@@ -94,7 +94,9 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
     """WKV6 over a whole sequence: r, k, v, w (B,T,H,D) float32, u (H,D)
     float32, optional initial state s0 (B,H,D,D) float32.  Returns (o
     (B,T,H,D), final state (B,H,D,D)), float32.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise (on an input that
+    requires grad while grad is enabled, too: the kernel has no
+    backward)."""
     if r.ndim != 4 or not (r.shape == k.shape == v.shape == w.shape):
         raise ValueError(f"bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} w{tuple(w.shape)}")
@@ -120,6 +122,7 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
                for t in tensors):
         raise ValueError("rwkv6_scan: inputs must be contiguous and 16-byte "
                          "aligned (the kernel moves 16 bytes at a time)")
+    _build.refuse_grad("rwkv6_scan", *tensors)
     o = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     if B == 0 or H == 0:

@@ -15,9 +15,10 @@ decoders, and the local attention of Griffin), with the attention
 flavours of the dense decoders: qkv bias, per-head q/k RMSNorm (qwen3-4b),
 rotary on the full head, on its first half (chatglm3-6b) or in M-RoPE's
 three position sections (qwen2-vl-2b); the RG-LRU recurrent block
-(recurrentgemma-2b), and the RWKV-6 time mix with its squared-ReLU channel
-mix (rwkv6-3b).  Flavours outside these paths (MoE, encoders, the audio
-frontend) raise ``NotImplementedError``.
+(recurrentgemma-2b), the RWKV-6 time mix with its squared-ReLU channel
+mix (rwkv6-3b), and the capacity-routed mixture of experts on one device
+(phi3.5-moe, llama4-scout).  Flavours outside these paths (encoders, the
+audio frontend) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,8 +47,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"block kinds {sorted(other)}")
     if cfg.is_encoder:
         missing.append("encoder (bidirectional) models")
-    if cfg.is_moe:
-        missing.append("MoE")
     if cfg.rope not in ("full", "half", "mrope", "none"):
         missing.append(f"rope={cfg.rope!r}")
     if cfg.modality not in ("text", "vision"):
@@ -333,3 +332,100 @@ def channel_mix(params: Params, x: torch.Tensor) -> torch.Tensor:
     """RWKV's FFN: squared ReLU."""
     h = torch.square(F.relu(x @ params["w_in"]))
     return h @ params["w_out"]
+
+
+# --------------------------------------------------------------------------- #
+# Mixture of experts, one device (``repro.models.layers`` ``init_moe``,
+# ``_moe_local`` and the ``mesh is None`` branch of ``moe_block``)
+# --------------------------------------------------------------------------- #
+def init_moe(cfg: ModelConfig, generator: torch.Generator, dtype,
+             device) -> Params:
+    """The leaves and layouts of ``repro.models.layers.init_moe``: router
+    (d, E) and w_gate, w_up (E, d, f) at std d^-0.5, w_down (E, f, d) at
+    f^-0.5."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device)
+        return x.mul_(std).to(device)
+    std = d ** -0.5
+    return {"router": normal((d, e), std),
+            "w_gate": normal((e, d, f), std),
+            "w_up": normal((e, d, f), std),
+            "w_down": normal((e, f, d), f ** -0.5)}
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Rows of each expert's buffer for a call over ``n_tokens`` tokens:
+    the reference's expression, Python float arithmetic then ``int``."""
+    return max(1, int(n_tokens * cfg.top_k / cfg.num_experts
+                      * cfg.capacity_factor))
+
+
+def moe_route(params: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """Top-k routing of x (T, d) as ``_moe_local`` does it: router logits
+    (T, E) in x's dtype then f32; the k largest with the lower expert index
+    first on ties (as ``jax.lax.top_k``; a stable descending sort, where
+    ``torch.topk`` orders ties as it likes); their softmax in f32; each
+    (token, choice)'s position in its expert's queue (an exclusive cumsum
+    over the token-major, choice-minor (T*k, E) one-hot) and ``keep =
+    pos < cap``.  Fixed shapes and no host sync.  Returns the logits
+    (T, E), and weights, experts, pos and keep (T, k)."""
+    T = x.shape[0]
+    E, k = cfg.num_experts, cfg.top_k
+    logits = (x @ params["router"]).float()                   # (T, E)
+    order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    weights = torch.softmax(order.values[:, :k], dim=-1)
+    experts = order.indices[:, :k]                            # (T, k)
+    ids = torch.arange(E, device=x.device)
+    flat = (experts[..., None] == ids).to(torch.int32).reshape(T * k, E)
+    pos = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
+    pos = (pos * flat).sum(-1, dtype=torch.int32).reshape(T, k)
+    keep = pos < moe_capacity(cfg, T)
+    return {"logits": logits, "weights": weights, "experts": experts,
+            "pos": pos, "keep": keep}
+
+
+def _moe_local(params: Params, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    """Capacity-routed MoE over all E experts of x (T, d): the f32 sum of
+    each token's kept choices, expert output times routing weight.  Step
+    for step ``repro.models.layers._moe_local`` over experts [0, E): per
+    expert in index order, its kept tokens are scattered into a (cap + 1,
+    d) buffer in x's dtype (row cap takes every dropped token, summed and
+    discarded), its SwiGLU runs on the first cap rows, and each token
+    gathers its row back (a zero row if dropped).  The expert products
+    stay ``torch.matmul``: the reference computes them outside any Pallas
+    kernel."""
+    T, d = x.shape
+    cap = moe_capacity(cfg, T)
+    r = moe_route(params, cfg, x)
+    experts, pos, keep = r["experts"], r["pos"], r["keep"]
+    zero_row = x.new_zeros((1, d), dtype=torch.float32)
+    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        sel = (experts == e) & keep                           # (T, k)
+        slot_t = torch.where(sel, pos, cap).amin(-1).long()   # (T,)
+        w_t = torch.where(sel, r["weights"], 0.0).sum(-1)     # (T,)
+        buf = x.new_zeros((cap + 1, d)).index_add_(0, slot_t, x)[:cap]
+        h = F.silu(buf @ params["w_gate"][e]) * (buf @ params["w_up"][e])
+        eo = (h @ params["w_down"][e]).float()                # (cap, d)
+        gathered = torch.cat([eo, zero_row])[slot_t]
+        out = out + gathered * w_t[:, None]
+    return out
+
+
+def moe_block(params: Params, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """MoE FFN over x (B, T, d) on one device: the ``mesh is None`` branch
+    of ``repro.models.layers.moe_block``.  All B*T tokens of the call are
+    routed together, so the capacity, and with it which choices drop,
+    depends on the whole batch: a decode step's free slots compete with
+    the live ones.  The reference's expert-parallel ``shard_map`` path and
+    its weight-tensor-parallel ``_moe_local_wtp`` wait for the port's
+    multi-device work."""
+    B, T, d = x.shape
+    y = _moe_local(params, cfg, x.reshape(B * T, d))
+    return y.reshape(B, T, d).to(x.dtype)

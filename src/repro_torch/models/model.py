@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.model`` for the served paths: dense GQA
 decoders (ATTN or LOCAL_ATTN blocks; a vision model's patch embeddings
-through its ``frontend`` projection before the tokens), Griffin (RGLRU and
+through its ``frontend`` projection before the tokens), their MoE
+variants (the SwiGLU replaced by ``moe_block``), Griffin (RGLRU and
 LOCAL_ATTN blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
 layers per pattern position and scans over them; here
 ``params["layers"]`` is a plain list in layer order (``params_from_jax``
@@ -148,7 +149,7 @@ def _init_block(cfg: ModelConfig, kind: str, generator, dtype,
         core = (_init_rglru if kind == RGLRU else _init_attention)(
             cfg, generator, dtype, device)
         std = d ** -0.5
-        ffn = {
+        ffn = L.init_moe(cfg, generator, dtype, device) if cfg.is_moe else {
             "w_gate": _normal(generator, (d, f), std, dtype, device),
             "w_up": _normal(generator, (d, f), std, dtype, device),
             "w_down": _normal(generator, (f, d), f ** -0.5, dtype, device),
@@ -254,8 +255,12 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
             return_cache=return_cache)
     x = x + core
     h = L.rms_norm(bp["norm2"], x, cfg.norm_eps)
-    ffn = (L.channel_mix(bp["ffn"], h) if kind == RWKV6
-           else L.mlp_block(bp["ffn"], h))
+    if kind == RWKV6:
+        ffn = L.channel_mix(bp["ffn"], h)
+    elif cfg.is_moe:
+        ffn = L.moe_block(bp["ffn"], cfg, h)
+    else:
+        ffn = L.mlp_block(bp["ffn"], h)
     return x + ffn, new_cache
 
 

@@ -200,12 +200,17 @@ class ServingEngine:
             return {}
         t0 = time.perf_counter()
         lengths = torch.from_numpy(self.lengths).to(self.device)
+        live = torch.from_numpy(np.array(
+            [r is not None for r in self.slot_req])).to(self.device)
         logits, self.cache = forward(
             self.params, self.cfg, {"tokens": self.tokens},
             cache=self.cache, cache_len=lengths)
-        # a free slot's token is never read: its next prefill sets it
-        self.tokens = logits[:, 0].argmax(-1, keepdim=True)
-        new_tokens = self.tokens[:, 0].tolist()   # waits for the device
+        # only the occupied slots take their new token, as in the
+        # reference: a free slot decodes its stale token again, which a MoE
+        # model routes beside the live ones (one capacity for the step)
+        new = logits[:, 0].argmax(-1, keepdim=True)
+        self.tokens = torch.where(live[:, None], new, self.tokens)
+        new_tokens = new[:, 0].tolist()           # waits for the device
         dt = time.perf_counter() - t0
         ctx_sum = int(sum(self.lengths[i] for i in occupied))
         self.executor.observe_decode(dt, batch=len(occupied),

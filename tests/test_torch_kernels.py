@@ -216,6 +216,60 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         n_fp, n_da)
 
 
+def _grad_calls():
+    """name -> (wrapper call on fresh CPU inputs that require grad, the
+    inputs)."""
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rwkv6_scan as RS
+    g = torch.Generator().manual_seed(0)
+
+    def leaf(*shape, scale=1.0, lo=None):
+        x = torch.randn(shape, generator=g) * scale
+        if lo is not None:                     # decays in (lo, 1)
+            x = lo + (1 - lo) * torch.sigmoid(x)
+        return x.requires_grad_()
+
+    fp = (leaf(1, 9, 4, 64), leaf(1, 9, 2, 64), leaf(1, 9, 2, 64))
+    da = (leaf(2, 4, 64), leaf(2, 7, 2, 64), leaf(2, 7, 2, 64))
+    lengths = torch.tensor([3, 7], dtype=torch.int32)
+    rs = (leaf(1, 5, 2, 64, scale=0.5), leaf(1, 5, 2, 64, scale=0.5),
+          leaf(1, 5, 2, 64, scale=0.5), leaf(1, 5, 2, 64, lo=0.6),
+          leaf(2, 64, scale=0.1))
+    rg = ((-leaf(1, 6, 8).detach().abs()).requires_grad_(), leaf(1, 6, 8),
+          leaf(1, 8))
+    return {"flash_prefill": (lambda: FP.flash_prefill(*fp), fp),
+            "decode_attention": (lambda: DA.decode_attention(*da, lengths),
+                                 da),
+            "rwkv6_scan": (lambda: RS.rwkv6_scan(*rs)[0], rs),
+            "rglru_scan": (lambda: RG.rglru_scan(*rg), rg)}
+
+
+@pytest.mark.parametrize("name", ["flash_prefill", "decode_attention",
+                                  "rwkv6_scan", "rglru_scan"])
+def test_plain_paths_carry_gradients(name):
+    """On CPU tensors each wrapper runs its plain version, which autograd
+    records: every input that requires grad gets a finite, non-zero
+    gradient.  (On CUDA tensors the wrappers refuse such inputs: the
+    kernels have no backward; chip_smoke.py checks that on the card.)"""
+    call, inputs = _grad_calls()[name]
+    out = call()
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for x in inputs:
+        assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+        assert float(x.grad.abs().sum()) > 0
+
+
+def test_refuse_grad_raises_only_where_autograd_would_record():
+    from repro_torch.kernels import _build
+    x, y = torch.zeros(3, requires_grad=True), torch.zeros(3)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _build.refuse_grad("k", y, x, None)
+    _build.refuse_grad("k", y, None)
+    with torch.no_grad():
+        _build.refuse_grad("k", y, x)
+
+
 def test_wrappers_reject_malformed_inputs():
     q = torch.randn(1, 8, 6, 64)
     k = torch.randn(1, 8, 4, 64)            # 6 query heads over 4 kv heads

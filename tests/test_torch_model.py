@@ -173,14 +173,25 @@ def test_rope_and_norm_match_jax():
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "hubert-xlarge",
                                   "llama4-scout-17b-a16e"])
 def test_unported_flavours_raise(arch):
-    """MoE and the encoder are not approximated: they raise.  (RWKV6,
-    RG-LRU and local attention are ported: tests/test_torch_rwkv6.py,
-    tests/test_torch_rglru.py and the two tests below; qk_norm, half and
-    mrope rope and the vision frontend: tests/test_torch_flavours.py.)"""
+    """The encoder is not approximated: it raises.  The MoE configs are
+    ported: their smoke models build and run a forward (parity with the
+    JAX package: tests/test_torch_moe.py).  (RWKV6, RG-LRU and local
+    attention: tests/test_torch_rwkv6.py, tests/test_torch_rglru.py and
+    the two tests below; qk_norm, half and mrope rope and the vision
+    frontend: tests/test_torch_flavours.py.)"""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError):
-        tm.init_params(cfg, torch.Generator().manual_seed(0),
-                       torch.float32, "cpu")
+    if not cfg.is_moe:
+        with pytest.raises(NotImplementedError):
+            tm.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+        return
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    logits, _ = tm.forward(params, cfg, {"tokens": toks})
+    assert logits.shape == (2, 9, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_sliding_window_ring_buffer_decode_matches_jax():
