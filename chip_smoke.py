@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases build,kernels,parity,serve]
+    python3 chip_smoke.py [--seed N]
+                          [--phases build,kernels,parity,serve,train]
 
 Phases, in order (all by default):
 
@@ -36,9 +37,19 @@ Phases, in order (all by default):
    ``device_ms`` and ``library_device_ms`` time the same calls behind a
    GPU spin that fills the queue first, so they are device time alone,
    and give the achieved TFLOP/s (prefill) or GB/s (decode; also timed
-   with the L2 cache flushed before each call).  Each wrapper must
-   raise on a CUDA input that requires grad (the kernels have no
-   backward) and launch nothing.
+   with the L2 cache flushed before each call).  ``flash_prefill`` in f32
+   also at head_dim 80 (hubert-xlarge: bidirectional, and causal, on
+   ragged T), and every f32 case's log-sum-exp output against the plain
+   one.  The backward kernel (``flash_prefill_bwd``: dQ, dK, dV) against
+   autograd of the plain version on the card, at D 64 / 80 / 128, G 1 / 4
+   / 16, causal / bidirectional / window, T off the tiles, and at the two
+   training shapes, with the time of autograd's backward through
+   ``scaled_dot_product_attention`` beside it.  Each wrapper of a kernel
+   without a backward (``decode_attention``, the scans; ``flash_prefill``
+   in bf16, at D 256 or with a ``q_offset``) must raise on a CUDA input
+   that requires grad and launch nothing; an f32 ``flash_prefill`` input
+   that requires grad gets a ``grad_fn`` whose backward launches
+   ``flash_prefill_bwd``.
 4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
    rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
@@ -53,6 +64,13 @@ Phases, in order (all by default):
    margin and whether the chosen experts agree logged, then one
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
+   Train parity: hubert-xlarge and llama3-8b at full width, 2 layers, f32,
+   one sequence of 256 frames / tokens: one training step (loss,
+   gradients, AdamW) with the kernels on the card against the same step
+   with the plain versions on the CPU, from the same weights: the loss,
+   every gradient leaf and every parameter after the update within stated
+   limits, and the card's backward and update under
+   ``set_sync_debug_mode("error")``.
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances (``max_batch`` 8, ``max_seq_len`` 2048) of
    full-depth bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b,
@@ -66,6 +84,22 @@ Phases, in order (all by default):
    ``EcoServeAPI.generate`` of 4 prompts, 8 new tokens each, on
    full-depth bf16 qwen3-4b: 8 tokens a prompt, 32 streamed, its kernels
    launched.
+6. ``train``: ``repro_torch.training.train_loop.train`` in f32 on
+   hubert-xlarge at its full config (48 layers; frames from ``--seed`` at
+   batch 8 x 1024, labels a fixed random linear classifier of the frames,
+   5 steps) and on llama3-8b at full width with 4 of its 32 layers
+   (``TokenDataset`` batches of ``synthetic_corpus``, 4 x 1024, 3 steps),
+   both with the reference's AdamW at lr ``TRAIN_LR`` (1e-4: the
+   reference's ``train`` has no warmup, and at lr 3e-4 or 1e-3 both
+   full-width models' losses climb back above their start within a few
+   steps, as the reference's identical step would); each step's loss
+   (finite, falling from the first to the last step), time, frames or
+   tokens per second, peak device memory, the device-busy share of the
+   last step under ``torch.profiler`` with its costliest kernels and the
+   port's own, and each step's
+   ``flash_prefill`` (2 a layer: forward and its recomputation) and
+   ``flash_prefill_bwd`` (1 a layer) launches.  Then ``python -m
+   repro_torch.launch.train --arch llama3-8b --steps 3 --device cuda``.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -87,7 +121,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("build", "kernels", "parity", "serve")
+PHASES = ("build", "kernels", "parity", "serve", "train")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them,
 # HBM3 rate.  f32 work is counted at the f32 rate: rwkv6_scan's 3xTF32
@@ -112,6 +146,13 @@ TOL["rwkv6"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
 # recurrence with two roundings a step, so they differ only where the
 # card's expf and torch's exp differ; a tenth of the reference tests' 1e-4
 TOL["rglru"] = dict(atol=1e-5, atol_rms=0.0, rtol=1e-5)
+# flash_prefill_bwd (f32) against autograd of the plain version: both sum
+# the same products over up to T*G rows or S keys in another order (the
+# kernel over 64 x 64 tiles, with P recomputed from the log-sum-exp), so
+# the error scales with each gradient's size: 1e-4 of its rms, and of
+# |plain| (the CPU emulation of the kernel's algorithm agrees with
+# autograd to 1e-6 of the largest element: tests/test_torch_kernels.py)
+TOL["grad"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
 # model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
 # products (and rwkv6_scan its T*D-term sums) in another order than the CPU
 PARITY_ATOL = 1e-3
@@ -192,7 +233,10 @@ def compare(torch, got, want, tol_name: str):
     limit = (tol["atol"] + tol["atol_rms"] * want.square().mean().sqrt()
              + tol["rtol"] * want.abs())
     max_abs = float(diff.max()) if diff.numel() else 0.0
-    share = float((diff / limit).max()) if diff.numel() else 0.0
+    # (an element equal on both sides uses none of its limit, even a zero
+    # limit: a gradient that is zero on both sides)
+    share = (float(torch.where(diff == 0, 0.0, diff / limit).max())
+             if diff.numel() else 0.0)
     ok = bool(torch.isfinite(got).all()) and share <= 1.0
     return ok, max_abs, share
 
@@ -241,6 +285,20 @@ FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
     ((SCOUT,), 1, 1024, 1024, 40, 8, 128, True, 8192, 0),
     (None, 1, 333, 333, 40, 8, 128, True, 8192, 0),
     (None, 1, 1000, 1000, 40, 8, 128, True, 300, 0),
+]
+# f32 only: head_dim 80 (hubert-xlarge; bf16 has no D 80 kernel) and the
+# training shapes, where the f32 numbers go into the table under the
+# training paths
+TRAIN_HUBERT, TRAIN_LLAMA = "train hubert-xlarge", "train llama3-8b"
+FLASH_F32_CASES = [
+    ((TRAIN_HUBERT,), 8, 1024, 1024, 16, 16, 80, False, 0, 0),
+    (None, 1, 333, 333, 16, 16, 80, True, 0, 0),
+    (None, 2, 1000, 1000, 16, 16, 80, False, 0, 0),
+    (None, 1, 100, 130, 16, 4, 80, False, 0, 0),    # S != T, G 4
+    (None, 1, 500, 500, 8, 2, 80, True, 100, 0),    # window
+    (None, 1, 81, 81, 64, 1, 80, True, 0, 0),       # G 64: 1 position a tile
+    (None, 1, 200, 60, 4, 2, 64, True, 20, 0),      # rows with no key
+    ((TRAIN_LLAMA,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
 ]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
@@ -344,7 +402,8 @@ def run_kernels(torch, rng, results):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         esize = torch.finfo(dtype).bits // 8
-        for case in FLASH_CASES:
+        f32 = dtype == torch.float32
+        for case in FLASH_CASES + (FLASH_F32_CASES if f32 else []):
             paths, B, T, S, Hq, Hkv, D, causal, window, off = case
             q = randn((B, T, Hq, D), dtype)
             k = randn((B, S, Hkv, D), dtype)
@@ -354,6 +413,23 @@ def run_kernels(torch, rng, results):
             want = FP.flash_prefill_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             ok, err, share = compare(torch, got, want, dn)
+            lse_text = ""
+            if f32:     # the log-sum-exp the backward reads
+                got2, lse = FP._forward_kernel(q, k, v, causal, window,
+                                               off, True)
+                _, want_lse = FP.flash_prefill_plain(q, k, v, **kw,
+                                                     return_lse=True)
+                torch.cuda.synchronize()
+                empty = torch.isinf(want_lse)
+                same_empty = torch.equal(empty, torch.isinf(lse)) and bool(
+                    (lse[empty] < 0).all())
+                ok_l, err_l, share_l = compare(
+                    torch, lse.masked_fill(empty, 0.0),
+                    want_lse.masked_fill(empty, 0.0), dn)
+                ok = ok and ok_l and same_empty and torch.equal(got, got2)
+                lse_text = (f"; lse max_abs_err={err_l:.3e} ({share_l:.3f} "
+                            f"of its limit), {int(empty.sum())} empty rows "
+                            f"-inf on both sides: {same_empty}")
             kern = lambda: FP.flash_prefill(q, k, v, **kw)  # noqa: E731
             ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
             plain_ms = cuda_ms(
@@ -377,14 +453,14 @@ def run_kernels(torch, rng, results):
             log(f"flash_prefill {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
                 f"D={D} causal={causal} window={window} q_offset={off}: "
                 f"max_abs_err={err:.3e} ({tol_text(dn)}; worst element at "
-                f"{share:.3f} of its limit) "
+                f"{share:.3f} of its limit{lse_text}) "
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"(device: kernel {dev_ms:.4f}, library {lib_dev_ms:.4f}) "
                 f"bound_ms={b_ms:.4f} ({b_by}) achieved on the device "
                 f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
                 f"{ops / lib_dev_ms * 1e-9:.1f})")
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or case in FLASH_F32_CASES:
                 record(results, "flash_prefill", paths, max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
@@ -443,40 +519,51 @@ def run_kernels(torch, rng, results):
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
                        library_device_ms=lib_dev_ms)
+    all_ok &= run_bwd_kernel(torch, rng, results)
     all_ok &= run_rwkv6_kernel(torch, rng, results)
     all_ok &= run_rglru_kernel(torch, rng, results)
     if not all_ok:
         fail("a kernel disagrees with its plain version (lines above)")
     check_grad_refused(torch)
+    check_grad_carried(torch)
 
 
 def check_grad_refused(torch):
-    """Each wrapper raises on a CUDA input that requires grad while grad is
-    enabled (the kernels have no backward), launching nothing, and runs
-    under ``torch.no_grad()``."""
+    """Each wrapper of a kernel without a backward raises on a CUDA input
+    that requires grad while grad is enabled, launching nothing, and runs
+    under ``torch.no_grad()``: ``decode_attention`` and the scans, and
+    ``flash_prefill`` in bf16, at head_dim 256 and with a ``q_offset``."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_prefill as FP
     from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rwkv6_scan as RS
 
-    def t(*shape, neg=False):
-        x = torch.rand(shape, device="cuda")
+    def t(*shape, neg=False, dtype=torch.float32):
+        x = torch.rand(shape, device="cuda", dtype=dtype)
         return (-x if neg else x).requires_grad_()
 
     lengths = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
+    bf = torch.bfloat16
     calls = {
-        "flash_prefill": lambda: FP.flash_prefill(
-            t(1, 9, 4, 64), t(1, 9, 2, 64), t(1, 9, 2, 64)),
-        "decode_attention": lambda: DA.decode_attention(
-            t(2, 4, 64), t(2, 7, 2, 64), t(2, 7, 2, 64), lengths),
-        "rwkv6_scan": lambda: RS.rwkv6_scan(
+        "flash_prefill bf16": ("flash_prefill", lambda: FP.flash_prefill(
+            t(1, 9, 4, 64, dtype=bf), t(1, 9, 2, 64, dtype=bf),
+            t(1, 9, 2, 64, dtype=bf))),
+        "flash_prefill f32 D 256": ("flash_prefill", lambda: FP.flash_prefill(
+            t(1, 9, 4, 256), t(1, 9, 2, 256), t(1, 9, 2, 256))),
+        "flash_prefill f32 q_offset": ("flash_prefill",
+                                       lambda: FP.flash_prefill(
+                                           t(1, 9, 4, 64), t(1, 19, 2, 64),
+                                           t(1, 19, 2, 64), q_offset=10)),
+        "decode_attention": ("decode_attention", lambda: DA.decode_attention(
+            t(2, 4, 64), t(2, 7, 2, 64), t(2, 7, 2, 64), lengths)),
+        "rwkv6_scan": ("rwkv6_scan", lambda: RS.rwkv6_scan(
             t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64),
-            t(2, 64)),
-        "rglru_scan": lambda: RG.rglru_scan(t(1, 6, 8, neg=True),
-                                            t(1, 6, 8)),
+            t(2, 64))),
+        "rglru_scan": ("rglru_scan", lambda: RG.rglru_scan(
+            t(1, 6, 8, neg=True), t(1, 6, 8))),
     }
     wrappers = kernel_wrappers()
-    for name, call in calls.items():
+    for what, (name, call) in calls.items():
         before = wrappers[name].launches
         try:
             call()
@@ -484,14 +571,138 @@ def check_grad_refused(torch):
             if "no backward" not in str(e):
                 raise
         else:
-            fail(f"{name}: a CUDA input that requires grad did not raise")
+            fail(f"{what}: a CUDA input that requires grad did not raise")
         if wrappers[name].launches != before:
-            fail(f"{name}: launched on an input that requires grad")
+            fail(f"{what}: launched on an input that requires grad")
         with torch.no_grad():
             call()
         torch.cuda.synchronize()
-        log(f"{name}: raises on a CUDA input that requires grad (no "
+        log(f"{what}: raises on a CUDA input that requires grad (no "
             "backward), runs under torch.no_grad(): ok")
+
+
+def check_grad_carried(torch):
+    """An f32 CUDA input that requires grad trains through the backward
+    kernel: ``flash_prefill`` returns a ``grad_fn`` (``FlashPrefillFn``),
+    and backward launches ``flash_prefill_bwd`` once, with the gradients
+    of autograd through the plain version."""
+    from repro_torch.kernels import flash_prefill as FP
+
+    for D, causal in ((64, True), (80, False), (128, True)):
+        gen = torch.Generator(device="cuda").manual_seed(D)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda")
+                   .requires_grad_() for s in ((2, 77, 8, D), (2, 77, 2, D),
+                                               (2, 77, 2, D)))
+        do = torch.randn((2, 77, 8, D), generator=gen, device="cuda")
+        n_fwd = FP.flash_prefill.launches
+        n_bwd = FP.flash_prefill_bwd.launches
+        out = FP.flash_prefill(q, k, v, causal=causal)
+        if out.grad_fn is None:
+            fail(f"flash_prefill f32 D {D}: no grad_fn")
+        got = torch.autograd.grad(out, (q, k, v), do)
+        want = FP.flash_prefill_bwd_plain(q, k, v, do, causal=causal)
+        torch.cuda.synchronize()
+        shares = [compare(torch, g, w, "grad") for g, w in zip(got, want)]
+        launched = (FP.flash_prefill.launches - n_fwd,
+                    FP.flash_prefill_bwd.launches - n_bwd)
+        if launched != (1, 1) or not all(ok for ok, _, _ in shares):
+            fail(f"flash_prefill f32 D {D}: launches (forward, backward) "
+                 f"{launched}, gradients {shares}")
+        log(f"flash_prefill f32 D {D} causal={causal} on inputs that "
+            f"require grad: grad_fn {type(out.grad_fn).__name__}, "
+            f"launches forward 1, backward 1; dq, dk, dv at "
+            + ", ".join(f"{sh:.3f}" for _, _, sh in shares)
+            + f" of their limits ({tol_text('grad')}): ok")
+
+
+BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
+    ((TRAIN_HUBERT,), 8, 1024, 1024, 16, 16, 80, False, 0),
+    ((TRAIN_LLAMA,), 4, 1024, 1024, 32, 8, 128, True, 0),
+    (None, 2, 256, 256, 16, 16, 80, True, 0),       # T*G on the tiles
+    (None, 1, 333, 333, 4, 4, 64, True, 0),         # G 1, ragged
+    (None, 2, 200, 200, 16, 4, 64, False, 0),       # G 4, bidirectional
+    (None, 1, 300, 300, 16, 1, 128, True, 0),       # G 16
+    (None, 1, 500, 500, 8, 2, 80, True, 100),       # window, G 4
+    (None, 2, 130, 130, 16, 16, 80, False, 0),      # ragged, hubert's heads
+    (None, 1, 190, 190, 32, 2, 128, True, 64),      # G 16 under a window
+    (None, 1, 100, 260, 4, 1, 64, False, 0),        # S != T, G 4
+    (None, 1, 65, 65, 16, 1, 80, True, 0),          # G 16 at D 80
+    (None, 1, 200, 60, 4, 2, 64, True, 20),         # rows with no key
+]
+
+
+def run_bwd_kernel(torch, rng, results) -> bool:
+    """``flash_prefill_bwd`` against autograd of the plain version on the
+    card, and autograd's backward through ``scaled_dot_product_attention``
+    (the forward's graph kept, the backward alone timed) as the library's
+    time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_prefill as FP
+
+    dev = torch.device("cuda")
+
+    def randn(shape):
+        x = rng.standard_normal(shape, "float32")
+        return torch.from_numpy(x).to(dev)
+
+    all_ok = True
+    for case in BWD_CASES:
+        paths, B, T, S, Hq, Hkv, D, causal, window = case
+        q, do = randn((B, T, Hq, D)), randn((B, T, Hq, D))
+        k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+        kw = dict(causal=causal, window=window)
+        o, lse = FP._forward_kernel(q, k, v, causal, window, 0, True)
+        got = FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
+        got2 = FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, got2))
+        want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        checks = [compare(torch, g, w, "grad") for g, w in zip(got, want)]
+        ok = same and all(c[0] for c in checks)
+        def kern():
+            return FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
+        ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+        plain_ms = cuda_ms(torch, lambda: FP.flash_prefill_bwd_plain(
+            q, k, v, do, **kw), iters=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = (None if not window and (not causal or S == T)
+                else sdpa_mask(torch, T, S, causal, window, 0, dev))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=Hq != Hkv)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        lib_ms, lib_dev_ms = (cuda_ms(torch, lib, iters=10),
+                              cuda_ms(torch, lib, iters=10, spin=True))
+        del out
+        pairs = flash_pairs(T, S, causal, window, 0)
+        ops = 10 * D * B * Hq * pairs
+        nbytes = 4 * (4 * B * T * Hq * D + 4 * B * S * Hkv * D + B * Hq * T)
+        b_ms, b_by = bound(nbytes, ops, "float32")
+        err = max(c[1] for c in checks)
+        all_ok &= ok
+        log(f"flash_prefill_bwd float32 B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
+            f"D={D} causal={causal} window={window}: dq/dk/dv max_abs_err "
+            + "/".join(f"{c[1]:.3e}" for c in checks) + " (worst elements at "
+            + "/".join(f"{c[2]:.3f}" for c in checks) + f" of their limits; "
+            f"{tol_text('grad')}), two calls bit-identical: {same} "
+            f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
+            f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} (autograd of the plain "
+            f"forward, forward included) library_ms={lib_ms:.4f} (SDPA's "
+            f"backward alone; device {lib_dev_ms:.4f}) bound_ms={b_ms:.4f} "
+            f"({b_by}, 10 D operations a pair; share "
+            f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
+            f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
+            f"{ops / lib_dev_ms * 1e-9:.1f})")
+        record(results, "flash_prefill_bwd", paths, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, device_ms=dev_ms,
+               library_device_ms=lib_dev_ms)
+        del qt, kt, vt
+    return all_ok
 
 
 RWKV_CASES = [  # B, T, H, D, carried-in state, decay
@@ -892,6 +1103,130 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     torch.cuda.empty_cache()
 
 
+# train parity: one training step, kernels on the card vs plain on the CPU
+TRAIN_PARITY = (("hubert-xlarge", 256), ("llama3-8b", 256))  # arch, length
+# the loss: f32 sums in another order (cuBLAS and the kernels vs the CPU)
+TRAIN_LOSS_RTOL = 1e-5
+# each gradient leaf: |card - cpu| <= 1e-3 * rms(cpu leaf) + 1e-3 * |cpu|,
+# a tenth of the forward's PARITY_ATOL on logits near 1, through the
+# backward of two layers (the kernels' f32 limit is 2e-5 relative)
+TOL["train_grad"] = dict(atol=0.0, atol_rms=1e-3, rtol=1e-3)
+
+
+def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt):
+    """Per element, how far one AdamW step from zero moments may move the
+    two sides' parameters apart given their gradients: the step is
+    lr * (u + wd * p) with u = g/(|g| + eps) for the clipped gradient g
+    (bias corrections cancel at step 1), and |u1 - u2| <= 2 |g1 - g2| /
+    (|g1| + |g2| + eps); plus 1e-5 of lr and 2^-22 of |p| for f32 rounding
+    of the update and the parameter."""
+    a, b = g_gpu.double() * s_gpu, g_cpu.double() * s_cpu
+    du = 2 * (a - b).abs() / (a.abs() + b.abs() + opt.eps)
+    return opt.lr * (du + 1e-5) + p_cpu.double().abs() * 2.0 ** -22
+
+
+def run_train_parity(torch, rng, seed, arch, length):
+    """One ``train_step``-equivalent at full width, 2 layers, f32, batch 1
+    x ``length``: on the card (kernels) and on the CPU (plain versions)
+    from the same weights; the card's backward and AdamW update under
+    ``set_sync_debug_mode("error")``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_loss_fn
+    from repro_torch.params import tree_leaves, tree_unflatten
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import loss_and_grads, to_batch
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p_gpu = init_params(cfg, gen, torch.float32, "cuda")
+    p_cpu = tree_unflatten(p_gpu, iter(
+        t.to("cpu", copy=True) for t in tree_leaves(p_gpu)))
+    if cfg.modality == "audio":
+        nb = {"frames": rng.standard_normal((1, length, cfg.frontend_dim),
+                                            "float32")}
+    else:
+        nb = {"tokens": rng.integers(2, cfg.vocab_size - 1, (1, length))}
+    nb["labels"] = rng.integers(0, cfg.vocab_size, (1, length))
+    opt = AdamW()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    t0 = time.perf_counter()
+    leaves = tree_leaves(p_gpu)
+    for x in leaves:
+        x.requires_grad_(True)
+    loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, torch.float32, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = torch.autograd.grad(loss_gpu, leaves, allow_unused=True)
+        g_gpu = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, leaves)]
+        state = opt.init(leaves)
+        opt.update(g_gpu, state, leaves)
+    except RuntimeError as e:
+        fail(f"train parity {arch}: the backward or the update synchronised "
+             f"with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+
+    torch.exp(torch.zeros(64))      # (ROADMAP Queue 3: the CPU's first exp)
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, torch.float32,
+                                                          "cpu"))
+    g_cpu = tree_leaves(g_cpu)
+    p_before = [x.detach().clone() for x in tree_leaves(p_cpu)]
+    opt.update(g_cpu, opt.init(p_cpu), p_cpu)
+    t_cpu = time.perf_counter() - t0
+
+    def clip(gs):
+        n = float(torch.sqrt(sum(g.double().square().sum() for g in gs)))
+        return min(1.0, opt.grad_clip / (n + 1e-12)), n
+
+    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_cpu)
+    lg, lc = float(loss_gpu.detach()), float(loss_cpu)
+    ok = abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)
+    g_share = p_share = 0.0
+    for i, (gg, gc, pg, pc, p0) in enumerate(zip(
+            g_gpu, g_cpu, leaves, tree_leaves(p_cpu), p_before)):
+        gg = gg.cpu()
+        ok_g, _, sh = compare(torch, gg, gc, "train_grad")
+        g_share = max(g_share, sh)
+        diff = (pg.detach().cpu().double() - pc.detach().double()).abs()
+        lim = adamw_limit(p0, gg, gc, s_gpu, s_cpu, opt)
+        sh_p = float((diff / lim).max()) if diff.numel() else 0.0
+        p_share = max(p_share, sh_p)
+        if not ok_g or sh_p > 1.0:
+            log(f"train parity {arch}: leaf {i} {tuple(gc.shape)} gradient "
+                f"at {sh:.3f} of its limit, parameter at {sh_p:.3f}")
+            ok = False
+    log(f"train parity {arch} full width, 2 layers, f32, batch 1 x {length}: "
+        f"loss card {lg:.6f} cpu {lc:.6f} (rtol {TRAIN_LOSS_RTOL}); "
+        f"gradients: {len(g_cpu)} leaves, worst element at {g_share:.3f} of "
+        f"its limit ({tol_text('train_grad')}), global norm card {n_gpu:.6f}"
+        f" cpu {n_cpu:.6f}; parameters after AdamW: worst element at "
+        f"{p_share:.3f} of its limit (lr * (2|g1 - g2| / (|g1| + |g2| + "
+        f"eps) + 1e-5) + 2^-22 |p|); backward and update under "
+        f"set_sync_debug_mode('error'): no host sync; launches "
+        f"{json.dumps(launches)}; card {t_gpu:.2f} s, cpu {t_cpu:.2f} s "
+        "(host clock)")
+    if not ok or not np.isfinite(lg):
+        fail(f"train parity {arch}: card and CPU steps differ (lines above)")
+    if launches.get("flash_prefill") != 4 or \
+            launches.get("flash_prefill_bwd") != 2:
+        fail(f"train parity {arch}: launches {launches}, expected "
+             "flash_prefill 4 (2 layers, forward and recomputation) and "
+             "flash_prefill_bwd 2")
+    del p_gpu, g_gpu, leaves, state
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 # phase 5: serve (the main path)
 # --------------------------------------------------------------------- #
@@ -943,12 +1278,14 @@ SERVE_LAYERS = {PHI: 8, SCOUT: 4}
 def kernel_wrappers():
     """name -> the wrapper that carries the kernel's launch count."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
     return {"flash_prefill": flash_prefill,
             "decode_attention": decode_attention,
-            "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan}
+            "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan,
+            "flash_prefill_bwd": flash_prefill_bwd}
 
 
 def run_serve(torch, rng, seed, arch):
@@ -1093,6 +1430,180 @@ def run_api(torch, seed, arch=API_ARCH):
 
 
 # --------------------------------------------------------------------- #
+# phase 6: train (the training path)
+# --------------------------------------------------------------------- #
+# run name -> (arch, layers or None for the full depth, batch, length,
+# steps); each run's kernels are TRAIN_KERNELS'
+TRAIN_RUNS = {TRAIN_HUBERT: ("hubert-xlarge", None, 8, 1024, 5),
+              TRAIN_LLAMA: ("llama3-8b", 4, 4, 1024, 3)}
+TRAIN_KERNELS = {TRAIN_HUBERT: ("flash_prefill", "flash_prefill_bwd"),
+                 TRAIN_LLAMA: ("flash_prefill", "flash_prefill_bwd")}
+# AdamW's lr in the training runs.  ``train`` (like the reference's) has no
+# warmup: at 3e-4 and 1e-3 the first update lowers the loss and the next
+# ones overshoot, until hubert-xlarge (48 layers) and llama3-8b end above
+# their first step's loss (PERF.md, PR 18); at 1e-4 both end below it
+TRAIN_LR = 1e-4
+
+
+class StepClock:
+    """The batch iterator of a ``train`` run, instrumented: ``train`` asks
+    for step i's batch after step i - 1's loss reached the host, so the
+    time between two requests (after a device synchronise) is a step, and
+    the kernels' launch counts are read and set to 0 there.  The last step
+    runs under ``torch.profiler`` (started at its request; the caller
+    stops it after ``train`` returns)."""
+
+    def __init__(self, torch, batches, steps):
+        self.torch, self.batches, self.steps = torch, iter(batches), steps
+        self.wrappers = kernel_wrappers()
+        self.marks, self.launches, self.prof = [], [], None
+
+    def _mark(self):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self.marks:
+            self.launches.append({n: fn.launches
+                                  for n, fn in self.wrappers.items()})
+        for fn in self.wrappers.values():
+            fn.launches = 0
+        self.marks.append(now)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self._mark()
+        if len(self.marks) == self.steps:
+            from torch.profiler import ProfilerActivity, profile
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+        return next(self.batches)
+
+    def finish(self):
+        """End of the last step (``train`` returned): stop the profiler;
+        (step seconds, launches per step, [(kernel, device ms)] of the
+        last step, costliest first)."""
+        self._mark()
+        self.prof.stop()
+        kernels = sorted(((ev.key, ev.device_time_total / 1e3)
+                          for ev in self.prof.key_averages()
+                          if ev.device_type.name == "CUDA"),
+                         key=lambda r: -r[1])
+        steps = [b - a for a, b in zip(self.marks, self.marks[1:])]
+        return steps, self.launches, kernels
+
+
+def hubert_batches(rng, cfg, B, T, steps):
+    """Frames (B, T, frontend_dim) from the seed, new every step, with
+    cluster-like targets as HuBERT's k-means labels are: a frame's label is
+    its class under one fixed random linear classifier whose classes have
+    a skewed prior (class c's score lowered by 8 log(1 + c)), so class
+    frequencies fall off as cluster sizes do.  (With a flat prior the
+    classes are about equally frequent, the model at init already predicts
+    them about uniformly, and 5 steps from random init did not lower the
+    loss: PERF.md, PR 18.)"""
+    import numpy as np
+
+    w = rng.standard_normal((cfg.frontend_dim, cfg.vocab_size), "float32")
+    prior = -8.0 * np.log1p(np.arange(cfg.vocab_size, dtype=np.float32))
+    out = []
+    for _ in range(steps):
+        frames = rng.standard_normal((B, T, cfg.frontend_dim), "float32")
+        out.append({"frames": frames,
+                    "labels": (frames @ w + prior).argmax(-1)})
+    return out
+
+
+def run_train(torch, rng, seed, name, smi):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (ByteTokenizer, TokenDataset,
+                                           synthetic_corpus)
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import train
+
+    arch, layers, B, T, steps = TRAIN_RUNS[name]
+    cfg = get_config(arch)
+    reduced = ""
+    if layers:
+        reduced = f" (reduced from {cfg.num_layers})"
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.modality == "audio":
+        batches, unit = hubert_batches(rng, cfg, B, T, steps), "frames"
+    else:
+        ds = TokenDataset.from_texts(synthetic_corpus(512),
+                                     ByteTokenizer(cfg.vocab_size))
+        batches, unit = ds.batches(B, T, seed=seed), "tokens"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clock = StepClock(torch, batches, steps)
+    t0 = time.perf_counter()
+    opt = AdamW(lr=TRAIN_LR)
+    _, losses = train(cfg, clock, steps=steps, optimizer=opt, seed=seed,
+                      log_every=1, log_fn=lambda m: log(f"train {arch}: {m}"),
+                      device="cuda")
+    wall = time.perf_counter() - t0
+    secs, launches, kernels = clock.finish()
+    busy = sum(t for _, t in kernels)
+
+    def short(k):
+        return k.replace("void ", "").replace("(anonymous namespace)::",
+                                              "").split("(")[0][:60]
+    top = ", ".join(f"{short(k)} {t:.1f}" for k, t in kernels[:6])
+    own = ", ".join(f"{short(k)} {t:.1f}" for k, t in kernels
+                    if "repro_torch::" in k)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = secs[1:-1] or secs[-1:]       # after step 0, unprofiled
+    step_s = float(np.median(timed))
+    share, share_last = busy / 1e3 / step_s, busy / 1e3 / secs[-1]
+    per_step = {n: sorted({c[n] for c in launches})
+                for n in TRAIN_KERNELS[name]}
+    log(f"train {arch} f32, {cfg.num_layers} layers{reduced}, "
+        f"{cfg.param_count() / 1e9:.3f}B parameters, batch {B} x {T} "
+        f"{unit}, {steps} steps, AdamW(lr={opt.lr:g}) [{smi}]: losses "
+        f"{[round(x, 5) for x in losses]}; step s "
+        f"{[round(x, 3) for x in secs]} (host clock, after a device "
+        f"synchronise); median after step 0 (unprofiled) {step_s:.3f} s, "
+        f"{B * T / step_s:.0f} {unit}/s; peak device memory {peak_gb:.2f} "
+        f"GB; the last step under the profiler: {secs[-1]:.3f} s, device "
+        f"busy {busy:.1f} ms ({100 * share:.0f}% of the median step, "
+        f"{100 * share_last:.0f}% of the profiled one); launches per step "
+        f"{json.dumps(per_step)}; wall {wall:.1f} s")
+    log(f"train {arch} profiled step, device ms by kernel: {top}; the "
+        f"port's kernels: {own}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train {arch}: losses {losses} not finite and falling")
+    want = {"flash_prefill": [2 * cfg.num_layers],
+            "flash_prefill_bwd": [cfg.num_layers]}
+    if per_step != want:
+        fail(f"train {arch}: launches per step {per_step}, expected {want}")
+    return {n: sum(c[n] for c in launches) for n in TRAIN_KERNELS[name]}
+
+
+def run_train_cli(torch):
+    """The launcher's own check: ``python -m repro_torch.launch.train
+    --arch llama3-8b --steps 3 --device cuda`` (its smoke config)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3-8b", "--steps", "3", "--device", "cuda"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.strip().splitlines():
+        log(f"train cli: {line}")
+    if out.returncode != 0 or "(improved)" not in out.stdout:
+        fail(f"python -m repro_torch.launch.train failed "
+             f"(exit {out.returncode}): {out.stderr[-2000:]}")
+    log(f"train cli: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------- #
 KERNEL_META = {
     "flash_prefill": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_prefill.cu",
@@ -1107,6 +1618,12 @@ KERNEL_META = {
     "rglru_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:47"),
+    # the gradient of the forward's function (JAX differentiates
+    # blockwise_attention; no TPU kernel has a backward)
+    "flash_prefill_bwd": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
+        replaces="src/repro/kernels/flash_prefill.py:82"),
 }
 NUMBER_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "device_ms", "library_device_ms")
@@ -1117,7 +1634,8 @@ def kernel_row(name, numbers, counts):
     the first served path that runs it, launches summed over the serves
     (None when no serve ran), and each path's own numbers and launches
     under ``paths``."""
-    paths = [arch for arch, names in PATH_KERNELS.items() if name in names]
+    paths = [arch for arch, names in {**PATH_KERNELS, **TRAIN_KERNELS}
+             .items() if name in names]
     first = numbers.get(paths[0], dict.fromkeys(NUMBER_KEYS))
     return {"name": name, **KERNEL_META[name],
             "launches": sum(counts.values()) if counts else None, **first,
@@ -1180,6 +1698,9 @@ def main() -> None:
         for arch, window, n_patches in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
                        arch, window, n_patches)
+        for arch, length in TRAIN_PARITY:
+            run_train_parity(torch, np.random.default_rng(args.seed),
+                             args.seed, arch, length)
     if "serve" in phases:
         for arch in PATH_KERNELS:
             counts = run_serve(torch, np.random.default_rng(args.seed),
@@ -1187,6 +1708,13 @@ def main() -> None:
             for name, n in counts.items():
                 launches.setdefault(name, {})[arch] = n
         run_api(torch, args.seed)
+    if "train" in phases:
+        for name in TRAIN_RUNS:
+            counts = run_train(torch, np.random.default_rng(args.seed),
+                               args.seed, name, smi)
+            for kname, n in counts.items():
+                launches.setdefault(kname, {})[name] = n
+        run_train_cli(torch)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [

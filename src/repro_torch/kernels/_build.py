@@ -32,8 +32,10 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (see the extern "C" blocks in csrc/)
 SIGNATURES = {
-    "flash_prefill_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _I, _P),
+    "flash_prefill_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _I, _P),
+    "flash_prefill_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _I, _P),
     "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -135,13 +137,19 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where autograd would record a kernel's call: the kernels have
-    no backward, and an output filled through ``ctypes`` carries no
-    ``grad_fn``, so a gradient through it would be lost without a word.
-    The plain versions (CPU tensors) do carry gradients."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these inputs."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors, why: str = "") -> None:
+    """Raise where autograd would record a kernel's call that has no
+    backward kernel (``why`` says for which inputs): an output filled
+    through ``ctypes`` carries no ``grad_fn``, so a gradient through it
+    would be lost without a word.  The plain versions (CPU tensors) do
+    carry gradients."""
+    if wants_grad(*tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward; call it under "
+            f"{name}: the CUDA kernel has no backward{why}; call it under "
             "torch.no_grad() (or on inputs that do not require grad)")

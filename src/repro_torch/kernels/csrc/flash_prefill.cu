@@ -39,19 +39,24 @@
 // step.  Under causal masks the heaviest q tiles are launched first (the
 // q-tile index is the slowest-moving part of a flat grid, reversed).
 //
-// f32 (`f32::`, no served path; the models' f32 parity runs): products are
-// IEEE f32 FMAs on the CUDA cores (no TF32), 32-key tiles widened to f32 in
-// shared memory, 256 threads: lane j holds key j of the tile and warp w the
-// rows w, w+8, ...; in P.V thread (row group, d) owns column d.
+// f32 (`f32::`, no served path; the models' f32 parity runs and training):
+// products are IEEE f32 FMAs on the CUDA cores (no TF32), 32-key tiles
+// widened to f32 in shared memory, 256 threads (320 at D 80, hubert-xlarge:
+// see Shape): lane j holds key j of the tile and warp w the rows w, w+8,
+// ...; in P.V thread (row group, d) owns column d.  On request it writes
+// each row's log-sum-exp m + log l (f32, (B, Hq, T); -inf for a row with
+// no valid key), which flash_prefill_bwd.cu reads.
 //
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.8) and the dynamic shared memory of
-// each instantiation; no static shared memory:
+// ptxas (-Xptxas -v, sm_90a) and the dynamic shared memory of each
+// instantiation; no static shared memory:
 //   tc<64>   117 registers, no spills,  41,984 B
 //   tc<128>  150 registers, no spills,  82,944 B (2 blocks per SM)
 //   tc<256>  213 registers, no spills, 164,864 B (1 block per SM)
-//   f32<64>   92 registers, no spills,  41,600 B
+//   f32<64>   88 registers, no spills,  41,600 B
+//   f32<80>   94 registers, no spills,  57,088 B (320 threads)
 //   f32<128> 128 registers, no spills,  74,368 B
-//   f32<256> 128 registers, 88 B of spill stores and loads, 139,904 B
+//   f32<256> 128 registers, 116 B of spill stores, 404 B of spill loads,
+//            139,904 B
 #include <math.h>
 #include <stdint.h>
 
@@ -63,27 +68,46 @@ namespace {
 // ---------------------------------------------------------------- f32 --
 namespace f32 {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;                     // G * block_q rows per tile
-constexpr int kBK = 32;                       // keys per tile, one per lane
-constexpr int kRowsPerWarp = kRows / kWarps;  // score rows per warp
+// The block's shape at head_dim D: 256 threads and 64 rows where D divides
+// 256; at D 80 (hubert-xlarge), 320 threads (4 row groups of 80 columns in
+// the P.V stage) and 80 rows, so that every thread keeps 8 score rows and
+// 20 output rows as at D 64.
+template <int D>
+struct Shape {
+  static constexpr int kThreads = (256 % D == 0) ? 256 : 4 * D;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRows = (256 % D == 0) ? 64 : 80;  // G * block_q rows
+  static constexpr int kRowsPerWarp = kRows / kWarps;      // score rows a warp
+  static constexpr int kRG = kThreads / D;                 // P.V row groups
+  static constexpr int kAccRows = kRows / kRG;             // P.V rows a thread
+  static_assert(kThreads % D == 0 && kRows % kWarps == 0 && kRows % kRG == 0,
+                "f32 flash_prefill: unsupported head_dim");
+};
+constexpr int kBK = 32;  // keys per tile, one per lane
 
 template <int D>
 constexpr size_t smem_floats() {
-  return kRows * D          // Q tile
-         + kBK * (D + 1)    // K tile, padded: lane j reads row j conflict-free
-         + kBK * D          // V tile
-         + kRows * kBK      // P tile
-         + 2 * kRows;       // alpha, l
+  constexpr int R = Shape<D>::kRows;
+  return R * D             // Q tile
+         + kBK * (D + 1)   // K tile, padded: lane j reads row j conflict-free
+         + kBK * D         // V tile
+         + R * kBK         // P tile
+         + 2 * R;          // alpha, l
 }
 
+// lse (nullable): the f32 (B, Hq, T) log-sum-exp m + log l of each row's
+// scaled scores, -inf for a row with no valid key (the backward's input).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int T_len,
-                     int S, int Hq, int Hkv, int G, int block_q, int causal,
-                     int window, int q_offset, float scale) {
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int T_len, int S, int Hq,
+                     int Hkv, int G, int block_q, int causal, int window,
+                     int q_offset, float scale) {
+  using Sh = Shape<D>;
+  constexpr int kThreads = Sh::kThreads, kWarps = Sh::kWarps;
+  constexpr int kRows = Sh::kRows, kRowsPerWarp = Sh::kRowsPerWarp;
+  constexpr int kRG = Sh::kRG, kAccRows = Sh::kAccRows;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kRows * D;
@@ -93,9 +117,6 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = alpha_s + kRows;
 
   constexpr int V = vec_width<T>();
-  constexpr int kRG = kThreads / D;       // row groups in the P.V stage
-  constexpr int kAccRows = kRows / kRG;   // rows per thread in P.V
-
   const int t0 = blockIdx.x * block_q;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -205,7 +226,15 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) l_s[warp + kWarps * i] = l_r[i];
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int row = warp + kWarps * i;
+      l_s[row] = l_r[i];
+      if (lse != nullptr && row < rows) {
+        const int qi = row / G, g = row % G;
+        lse[((size_t)b * Hq + h * G + g) * T_len + t0 + qi] =
+            l_r[i] > 0.f ? m_r[i] + logf(l_r[i]) : -INFINITY;
+      }
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -221,20 +250,20 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T_len, int S, int Hq, int Hkv, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int T_len, int S, int Hq, int Hkv, int causal, int window,
            int q_offset, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const int block_q = kRows / G;
+  const int block_q = Shape<D>::kRows / G;
   static bool smem_set[kMaxDevices] = {};
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err =
       allow_dynamic_smem(flash_prefill_kernel<T, D>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + block_q - 1) / block_q, Hkv, B);
-  flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_prefill_kernel<T, D><<<grid, Shape<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), T_len, S, Hq, Hkv, G,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, T_len, S, Hq, Hkv, G,
       block_q, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
@@ -589,23 +618,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T_
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Tensors are contiguous in the JAX layouts; D is 64, 128 or 256; Hq/Hkv <= 64.
-// Returns the cudaError_t of the launch (0 on success).
+// Tensors are contiguous in the JAX layouts; D is 64, 80 (f32 only), 128 or
+// 256; Hq/Hkv <= 64.  lse: null, or (f32 only) the (B, Hq, T) f32 row
+// log-sum-exp written beside the output.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
-                                    const void* v, void* out, int B, int T,
-                                    int S, int Hq, int Hkv, int D, int causal,
-                                    int window, int q_offset, float scale,
-                                    int dtype, void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int B, int T, int S, int Hq, int Hkv,
+                                    int D, int causal, int window,
+                                    int q_offset, float scale, int dtype,
+                                    void* stream) {
   using namespace repro_torch;
   if (B == 0 || T == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > tc::kRows) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && D == 64)
-    return f32::launch<float, 64>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<float, 64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+  if (dtype == 0 && D == 80)
+    return f32::launch<float, 80>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 128)
-    return f32::launch<float, 128>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<float, 128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 256)
-    return f32::launch<float, 256>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<float, 256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+  if (l != nullptr) return (int)cudaErrorInvalidValue;  // bf16 writes no lse
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 1 && D == 128)

@@ -1,4 +1,5 @@
-"""Flash-attention prefill: the Hopper kernel, its plain version, its count.
+"""Flash-attention prefill: the Hopper kernels (forward and backward),
+their plain versions, their counts.
 
 Replaces the TPU kernel ``flash_prefill`` (``repro/kernels/flash_prefill.py``,
 ``_flash_kernel``), which the JAX model reaches as ``blockwise_attention``.
@@ -14,10 +15,19 @@ tensor cores with ``wgmma`` (one warpgroup per 64-row tile, Q, K and V
 bf16 in shared memory in wgmma's swizzled layout, P from registers, f32
 sums) with 64-key K/V tiles copied asynchronously into a 2-stage ring,
 heaviest causal q tiles first.  f32 keeps IEEE f32 FMAs on the CUDA
-cores (no TF32), for the models' f32 parity runs.  ptxas (sm_90a): bf16
+cores (no TF32), for the models' f32 parity runs and training, at head_dim
+64, 80 (hubert-xlarge), 128 and 256; it can also write each row's
+log-sum-exp, which the backward reads.  ptxas (sm_90a): bf16
 117 / 150 / 213 registers at D 64 / 128 / 256, no spills, 41 / 81 / 161 KB
-of shared memory (2 blocks per SM at D 128, 1 at D 256); f32 92-128
-registers, 88 B of spills at D 256 (the table in the CUDA source).
+of shared memory (2 blocks per SM at D 128, 1 at D 256); f32 88-128
+registers, 116 B of spill stores at D 256 (the table in the CUDA source).
+
+The gradient: the JAX package trains by differentiating the jnp attention
+its forward calls; here that call is the kernel, so ``FlashPrefillFn``
+(a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
+backward launches ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128,
+``q_offset`` 0; see ``flash_prefill_bwd``).  Inputs without a backward
+kernel (bf16, D 256, ``q_offset``) raise when autograd would record them.
 
 A row with no valid key returns zeros, as ``repro.kernels.ref`` does.
 """
@@ -28,7 +38,10 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+# head dims of the forward kernel by dtype (bf16's wgmma layout takes 64-
+# column blocks), and of the backward kernel (f32 only)
+HEAD_DIMS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256)}
+BWD_HEAD_DIMS = (64, 80, 128)
 MAX_GROUP = 64            # query heads per kv head in one tile
 
 
@@ -45,14 +58,11 @@ def rounded_softmax_pv(s, v, pv: str):
     return o / torch.where(l > 0, l, 1.0)       # l = 0: o is 0 already
 
 
-def flash_prefill_plain(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q: (B,T,Hq,D); k,v: (B,S,Hkv,D).  Naive masked softmax attention
-    in f32 (the style of ``repro.kernels.ref.flash_prefill_ref``), with p
-    rounded to v's dtype before P.V as the Pallas body and the kernel do."""
+def _scores(q, k, causal, window, q_offset):
+    """(B, Hkv, G, T, S) f32 scaled scores, -inf where masked."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qg = q.reshape(B, T, Hkv, G, D)
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D)
     s = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k.float()) * (D ** -0.5)
     q_pos = q_offset + torch.arange(T, device=q.device)
     k_pos = torch.arange(S, device=q.device)
@@ -61,58 +71,250 @@ def flash_prefill_plain(q, k, v, *, causal=True, window=0, q_offset=0):
         mask &= k_pos[None, :] <= q_pos[:, None]
     if window:
         mask &= k_pos[None, :] > q_pos[:, None] - window
-    s = s.masked_fill(~mask, float("-inf"))
+    return s.masked_fill(~mask, float("-inf"))
+
+
+def flash_prefill_plain(q, k, v, *, causal=True, window=0, q_offset=0,
+                        return_lse=False):
+    """q: (B,T,Hq,D); k,v: (B,S,Hkv,D).  Naive masked softmax attention
+    in f32 (the style of ``repro.kernels.ref.flash_prefill_ref``), with p
+    rounded to v's dtype before P.V as the Pallas body and the kernel do.
+    With ``return_lse`` also each row's f32 log-sum-exp of its scaled
+    scores, (B, Hq, T), -inf for a row with no valid key."""
+    B, T, Hq, D = q.shape
+    s = _scores(q, k, causal, window, q_offset)
     # (B,Hkv,G,T,D) -> (B,T,Hkv,G,D)
     o = rounded_softmax_pv(s, v, "bhgqs,bshd->bhgqd").permute(0, 3, 1, 2, 4)
-    return o.reshape(B, T, Hq, D).to(q.dtype)
+    o = o.reshape(B, T, Hq, D).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, -1).reshape(B, Hq, T)
+    return o
 
 
-def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
-    """GQA attention of q (B,T,Hq,D) over k, v (B,S,Hkv,D); returns
-    (B,T,Hq,D) in q's dtype.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise (on an input that requires grad
-    while grad is enabled, too: the kernel has no backward)."""
+def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):
+    """(dq, dk, dv): autograd of ``flash_prefill_plain`` (q_offset 0)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_prefill_plain(qq, kk, vv, causal=causal, window=window)
+        return torch.autograd.grad(o, (qq, kk, vv), dout)
+
+
+def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
+                                  window=0, block=64):
+    """The backward kernel's own algorithm in plain f32 PyTorch: the G
+    query heads of a kv head flattened into T*G rows (row t*G + g), P
+    recomputed from ``lse`` on 64 x 64 tiles, delta = rowsum(dO*O); dK and
+    dV summed over the q tiles that can see each key tile (launch 2), dQ
+    over the key tiles each q tile can see (launch 1), each tile range
+    chosen as the kernel chooses it."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G, TG, scale = Hq // Hkv, T * (Hq // Hkv), D ** -0.5
+
+    def rows(x):            # (B,T,Hq,D) -> (B,Hkv,T*G,D)
+        return x.float().reshape(B, T, Hkv, G, D).permute(
+            0, 2, 1, 3, 4).reshape(B, Hkv, TG, D)
+
+    qf, of, df = rows(q), rows(o), rows(dout)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B,Hkv,S,D)
+    lf = lse.float().reshape(B, Hkv, G, T).transpose(2, 3).reshape(B, Hkv, TG)
+    delta = (df * of).sum(-1)
+    t_of = torch.arange(TG, device=q.device) // G
+
+    def tile(r0, r1, k0, k1):
+        """P and dS of rows [r0, r1) against keys [k0, k1)."""
+        t, kp = t_of[r0:r1, None], torch.arange(k0, k1, device=q.device)
+        ok = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok &= kp <= t
+        if window:
+            ok &= kp > t - window
+        s = qf[:, :, r0:r1] @ kf[:, :, k0:k1].transpose(-1, -2)
+        p = torch.where(ok, torch.exp(s * scale - lf[:, :, r0:r1, None]),
+                        0.0)
+        dp = df[:, :, r0:r1] @ vf[:, :, k0:k1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, r0:r1, None])
+
+    dq = torch.zeros_like(qf)
+    for r0 in range(0, TG, block):                  # launch 1: dQ
+        r1 = min(r0 + block, TG)
+        t_lo, t_hi = r0 // G, (r1 - 1) // G
+        k_end = min(S, t_hi + 1) if causal else S
+        k_begin = (max(0, t_lo - window + 1) if window else 0) // block
+        for k0 in range(k_begin * block, k_end, block):
+            k1 = min(k0 + block, S)
+            _, ds = tile(r0, r1, k0, k1)
+            dq[:, :, r0:r1] += ds @ kf[:, :, k0:k1]
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, S, block):                   # launch 2: dK, dV
+        k1 = min(k0 + block, S)
+        t_begin = k0 if causal else 0
+        t_end = min(T, k1 - 1 + window) if window else T
+        if t_end <= t_begin:
+            continue
+        for r0 in range(t_begin * G // block * block, t_end * G, block):
+            r1 = min(r0 + block, TG)
+            p, ds = tile(r0, r1, k0, k1)
+            dv[:, :, k0:k1] += p.transpose(-1, -2) @ df[:, :, r0:r1]
+            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qf[:, :, r0:r1]
+    dq = (dq * scale).reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4)
+    return (dq.reshape(B, T, Hq, D), (dk * scale).permute(0, 2, 1, 3),
+            dv.permute(0, 2, 1, 3))
+
+
+def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
     B, T, Hq, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"q{tuple(q.shape)} does not group over "
                          f"k{tuple(k.shape)}")
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_prefill: q, k, v must lie on one CUDA device "
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_cuda(name, tensors, dtypes, head_dims, D, G):
+    q = tensors[0]
+    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+        raise ValueError(f"{name}: the tensors must lie on one CUDA device "
                          "(or all on the CPU)")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_prefill: float32 or bfloat16, one dtype; "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
+    if q.dtype not in dtypes or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: one dtype of {sorted(map(str, dtypes))}; "
+                        f"got {[t.dtype for t in tensors]}")
+    if D not in head_dims[q.dtype] or G > MAX_GROUP:
         raise NotImplementedError(
-            f"flash_prefill kernel: head_dim in {HEAD_DIMS} and "
-            f"Hq/Hkv <= {MAX_GROUP}; got D={D}, G={Hq // Hkv}")
+            f"{name} kernel: head_dim in {head_dims[q.dtype]} for {q.dtype} "
+            f"and Hq/Hkv <= {MAX_GROUP}; got D={D}, G={G}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_prefill: q, k, v must be contiguous and "
+               for t in tensors):
+        raise ValueError(f"{name}: the tensors must be contiguous and "
                          "16-byte aligned (the kernel loads 16 bytes at a "
                          "time)")
-    _build.refuse_grad("flash_prefill", q, k, v)
+
+
+def no_backward_reason(dtype, D: int, q_offset: int) -> str:
+    """Why ``flash_prefill``'s CUDA kernel has no backward for these
+    inputs ("" when it has one)."""
+    if dtype != torch.float32:
+        return f" for {dtype} (f32 only)"
+    if D not in BWD_HEAD_DIMS:
+        return f" at head_dim {D} (only {BWD_HEAD_DIMS})"
+    if q_offset:
+        return " with a q_offset"
+    return ""
+
+
+def _forward_kernel(q, k, v, causal, window, q_offset, want_lse):
+    """Launch the forward kernel on checked CUDA inputs: (out, lse or
+    None)."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if B == 0 or T == 0:
-        return out
+        return out, lse
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if want_lse else None,
             B, T, S, Hq, Hkv, D, int(bool(causal)), int(window),
             int(q_offset), D ** -0.5, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill")
     flash_prefill.launches += 1
-    return out
+    return out, lse
+
+
+class FlashPrefillFn(torch.autograd.Function):
+    """``flash_prefill`` with a gradient: the forward launches the kernel
+    and saves its log-sum-exp, the backward launches the backward kernel
+    (``flash_prefill_bwd``).  CPU tensors take the plain versions on both
+    sides."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _on_cpu(q, k, v):
+            out, lse = flash_prefill_plain(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        else:
+            out, lse = _forward_kernel(q, k, v, causal, window, 0, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, out, dout.contiguous(), lse,
+                                       causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
+    """GQA attention of q (B,T,Hq,D) over k, v (B,S,Hkv,D); returns
+    (B,T,Hq,D) in q's dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise.  Where autograd records the call
+    (an input requires grad), a CUDA call goes through ``FlashPrefillFn``
+    and its backward kernel, or raises where there is none (bf16, D 256,
+    ``q_offset``)."""
+    _check(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_prefill_plain(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    D, G = q.shape[3], q.shape[2] // k.shape[2]
+    _check_cuda("flash_prefill", (q, k, v), _DTYPES, HEAD_DIMS, D, G)
+    if _build.wants_grad(q, k, v):
+        why = no_backward_reason(q.dtype, D, q_offset)
+        if why:
+            _build.refuse_grad("flash_prefill", q, k, v, why=why)
+        return FlashPrefillFn.apply(q, k, v, bool(causal), int(window))
+    return _forward_kernel(q, k, v, causal, window, q_offset, False)[0]
 
 
 flash_prefill.launches = 0    # kernel launches since the last reset
+
+
+def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
+    """The gradient (dq, dk, dv) of ``flash_prefill(q, k, v)`` (q_offset 0)
+    from its output ``o``, the output's gradient ``dout`` and the forward's
+    row log-sum-exp ``lse`` (B, Hq, T).  CPU tensors take the plain version
+    (autograd of ``flash_prefill_plain``); CUDA tensors launch
+    ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128) or raise."""
+    _check(q, k, v)
+    B, T, Hq, D = q.shape
+    if o.shape != q.shape or dout.shape != q.shape or \
+            tuple(lse.shape) != (B, Hq, T):
+        raise ValueError(f"flash_prefill_bwd: o{tuple(o.shape)}, "
+                         f"dout{tuple(dout.shape)}, lse{tuple(lse.shape)} "
+                         f"do not match q{tuple(q.shape)}")
+    if _on_cpu(q, k, v, o, dout, lse):
+        return flash_prefill_bwd_plain(q, k, v, dout, causal=causal,
+                                       window=window)
+    S, Hkv = k.shape[1], k.shape[2]
+    _check_cuda("flash_prefill_bwd", (q, k, v, o, dout, lse),
+                (torch.float32,), {torch.float32: BWD_HEAD_DIMS}, D, Hq // Hkv)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if B == 0:
+        return dq, dk, dv
+    delta = torch.empty_like(lse)       # scratch: rowsum(dO * O)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_prefill_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, Hq, Hkv,
+            D, int(bool(causal)), int(window), D ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_prefill_bwd")
+    flash_prefill_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_prefill_bwd.launches = 0    # kernel launches since the last reset

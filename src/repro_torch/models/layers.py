@@ -11,14 +11,16 @@ kernels are reached through the dispatch names of
 ``rwkv6_chunked_jnp``.
 
 Blocks: global and sliding-window causal attention with SwiGLU (dense GQA
-decoders, and the local attention of Griffin), with the attention
+decoders, and the local attention of Griffin), bidirectional for an
+encoder (hubert-xlarge, whose audio frames come in through its
+``frontend`` projection), with the attention
 flavours of the dense decoders: qkv bias, per-head q/k RMSNorm (qwen3-4b),
 rotary on the full head, on its first half (chatglm3-6b) or in M-RoPE's
 three position sections (qwen2-vl-2b); the RG-LRU recurrent block
 (recurrentgemma-2b), the RWKV-6 time mix with its squared-ReLU channel
 mix (rwkv6-3b), and the capacity-routed mixture of experts on one device
-(phi3.5-moe, llama4-scout).  Flavours outside these paths (encoders, the
-audio frontend) raise ``NotImplementedError``.
+(phi3.5-moe, llama4-scout).  Block kinds or flavours outside these raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,11 +47,9 @@ def check_supported(cfg: ModelConfig) -> None:
     other = set(cfg.block_pattern) - {ATTN, LOCAL_ATTN, RGLRU, RWKV6}
     if other:
         missing.append(f"block kinds {sorted(other)}")
-    if cfg.is_encoder:
-        missing.append("encoder (bidirectional) models")
     if cfg.rope not in ("full", "half", "mrope", "none"):
         missing.append(f"rope={cfg.rope!r}")
-    if cfg.modality not in ("text", "vision"):
+    if cfg.modality not in ("text", "vision", "audio"):
         missing.append(f"modality={cfg.modality!r}")
     if missing:
         raise NotImplementedError(
@@ -113,7 +113,8 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# Attention block (global or sliding-window, causal)
+# Attention block (global or sliding-window; causal, or bidirectional for an
+# encoder)
 # --------------------------------------------------------------------------- #
 def _ring(x: torch.Tensor, window: int) -> torch.Tensor:
     """A prefill's (B, T, ...) k or v as a ``window``-row ring buffer with
@@ -177,8 +178,9 @@ def attention_block(
         out = decode_attention_op(q[:, 0], k_cache, v_cache, valid)
         new_cache = layer_cache
     else:
-        # ---- prefill: causal attention over this sequence ----
-        out = flash_prefill_op(q, k, v, causal=True, window=window)
+        # ---- prefill / train: attention over this sequence ----
+        out = flash_prefill_op(q, k, v, causal=not cfg.is_encoder,
+                               window=window)
         if return_cache:
             new_cache = ({"k": _ring(k, window), "v": _ring(v, window)}
                          if window else {"k": k, "v": v})

@@ -1,15 +1,20 @@
 """The port's decoders: init / forward / cache, in PyTorch.
 
-Counterpart of ``repro.models.model`` for the served paths: dense GQA
-decoders (ATTN or LOCAL_ATTN blocks; a vision model's patch embeddings
-through its ``frontend`` projection before the tokens), their MoE
+Counterpart of ``repro.models.model``: dense GQA decoders (ATTN or
+LOCAL_ATTN blocks; a vision model's patch embeddings through its
+``frontend`` projection before the tokens), the bidirectional audio
+encoder (hubert-xlarge: frames through ``frontend``, no tokens), their MoE
 variants (the SwiGLU replaced by ``moe_block``), Griffin (RGLRU and
 LOCAL_ATTN blocks) and RWKV-6 (RWKV6 blocks).  The JAX package stacks
 layers per pattern position and scans over them; here
 ``params["layers"]`` is a plain list in layer order (``params_from_jax``
 maps one onto the other; layer ``i`` has kind
 ``cfg.block_pattern[i % len(cfg.block_pattern)]``) and the forward loops
-over it.
+over it.  With grad enabled and no cache, each block runs under
+``torch.utils.checkpoint`` (the reference checkpoints each cycle of
+blocks): its activations are recomputed in the backward, so a training
+step holds one block's internals at a time.  ``make_loss_fn`` is the
+training loss.
 
 The cache holds one preallocated tensor per key, stacking the layers of
 the kind that uses the key (``CACHE_KEYS``):
@@ -35,9 +40,10 @@ Forward modes:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                       ModelConfig)
@@ -288,7 +294,11 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings, with a vision model's patches (B, P, frontend_dim),
     cast to the model's dtype, projected through ``params["frontend"]`` and
-    put before them."""
+    put before them; an audio model's frames (B, T, frontend_dim) through
+    ``params["frontend"]`` alone."""
+    if cfg.modality == "audio":
+        return batch["frames"].to(params["frontend"].dtype) @ \
+            params["frontend"]
     x = params["embed"][batch["tokens"]]
     if cfg.modality == "vision" and "patches" in batch:
         patch_emb = batch["patches"].to(x.dtype) @ params["frontend"]
@@ -334,13 +344,18 @@ def forward(
                      else 0)
         positions = _default_positions(cfg, B, T, x.device, n_patches)
 
+    remat = torch.is_grad_enabled() and cache is None and not return_cache
     new: Dict[str, list] = {}
     for bp, (kind, j) in zip(params["layers"], _cache_index(cfg)):
         keys = CACHE_KEYS[kind]
         lc = ({bk: cache[ck][j] for bk, ck in keys.items()} if decoding
               else None)
-        x, nc = _apply_block(cfg, kind, bp, x, positions, lc, cache_len,
-                             return_cache)
+        if remat:
+            x, nc = checkpoint(_apply_block, cfg, kind, bp, x, positions,
+                               None, None, False, use_reentrant=False)
+        else:
+            x, nc = _apply_block(cfg, kind, bp, x, positions, lc, cache_len,
+                                 return_cache)
         if return_cache and not decoding:
             for bk, ck in keys.items():
                 new.setdefault(ck, []).append(nc[bk])
@@ -354,3 +369,28 @@ def forward(
     if return_cache:
         return logits, {key: torch.stack(vals) for key, vals in new.items()}
     return logits, None
+
+
+# --------------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------------- #
+def make_loss_fn(cfg: ModelConfig) -> Callable[[Params, Dict], torch.Tensor]:
+    """Next-token CE for decoders; per-frame label CE for encoders
+    (``repro.models.make_loss_fn``): a vision model's patch positions are
+    not scored, and the log-softmax is taken in f32."""
+
+    def loss_fn(params: Params, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        logits, _ = forward(params, cfg, batch)
+        labels = batch["labels"]
+        if not cfg.is_encoder:
+            logits = logits[:, :-1]
+            labels = labels[:, 1:]
+        if logits.shape[1] != labels.shape[1]:
+            # vlm: patches were prepended; score only the text positions
+            logits = logits[:, -labels.shape[1]:]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        return -ll.mean()
+
+    return loss_fn

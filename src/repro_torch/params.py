@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX ``init_params`` pytree (as numpy) -> the port's
+"""Weight bridge: the JAX ``init_params`` pytree (as numpy) <-> the port's
 parameters.
 
 The JAX package stacks the layers of each block-pattern position under
@@ -6,11 +6,16 @@ The JAX package stacks the layers of each block-pattern position under
 ``c * plen + p``) and keeps the remainder as the ``layers_tail`` tuple
 (layer ``n_full * plen + i``; ``repro/models/model.py:63-96``).  The port
 keeps one dict per layer in ``params["layers"]``, in layer order, with the
-same leaf names and the same (in, out) weight layout.
+same leaf names and the same (in, out) weight layout.  ``params_to_jax``
+is the inverse (numpy, JAX layout), and ``tree_leaves`` /
+``tree_unflatten`` / ``jax_treedef`` re-implement JAX's tree flattening
+(dict keys sorted, tuples and lists in order) without importing JAX: for
+the checkpoint format both packages read, and to order the port's own
+trees (parameters, gradients, optimizer moments).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -61,3 +66,70 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     if cfg.frontend_dim:
         params["frontend"] = to_tensor(tree["frontend"], device)
     return params
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host (bf16 widened to f32)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def params_to_jax(params: Dict[str, Any], cfg: ModelConfig
+                  ) -> Dict[str, Any]:
+    """The port's parameters (or a tree of the same shape, such as their
+    gradients) as numpy in the JAX ``init_params`` layout: layer
+    ``c * plen + p`` stacked as cycle ``c`` of ``layers_scan/pos{p}``, the
+    remainder as the ``layers_tail`` tuple."""
+    plen = len(cfg.block_pattern)
+    n_full = cfg.num_layers // plen
+    layers = params["layers"]
+    tree = {key: _map(val, to_numpy) for key, val in params.items()
+            if key != "layers"}
+    tree["layers_scan"] = {
+        f"pos{p}": _stack([layers[c * plen + p] for c in range(n_full)])
+        for p in range(plen)}
+    tree["layers_tail"] = tuple(_map(block, to_numpy)
+                                for block in layers[n_full * plen:])
+    return tree
+
+
+def _stack(blocks: List[Dict[str, Any]]):
+    if isinstance(blocks[0], dict):
+        return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    return np.stack([to_numpy(b) for b in blocks])
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves in JAX's flattening order (``jax.tree.leaves``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves: Iterator[Any]):
+    """``like``'s structure with its leaves taken in ``tree_leaves`` order
+    from the iterator ``leaves``."""
+    if isinstance(like, dict):
+        out = {k: tree_unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if isinstance(like, (tuple, list)):
+        return type(like)(tree_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def jax_treedef(tree) -> str:
+    """``str(jax.tree.structure(tree))`` for a tree of dicts, tuples and
+    array leaves."""
+    def fmt(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {fmt(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, tuple):
+            inner = ", ".join(fmt(v) for v in t)
+            return f"({inner},)" if len(t) == 1 else f"({inner})"
+        return "*"
+    return f"PyTreeDef({fmt(tree)})"

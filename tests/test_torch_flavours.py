@@ -213,13 +213,13 @@ def test_init_params_leaves_match_jax(arch):
 
 @pytest.mark.parametrize("arch", available_archs())
 def test_check_supported(arch):
-    """13 of the 14 configs are ported; only the encoder raises."""
+    """All 14 configs are ported, the audio encoder (hubert-xlarge) too;
+    an unknown block kind still raises."""
+    import dataclasses
     cfg = get_config(arch)
-    if arch == "hubert-xlarge":
-        with pytest.raises(NotImplementedError):
-            L.check_supported(cfg)
-    else:
-        L.check_supported(cfg)
+    L.check_supported(cfg)
+    with pytest.raises(NotImplementedError):
+        L.check_supported(dataclasses.replace(cfg, block_pattern=("conv",)))
 
 
 # --------------------------------------------------------------------- #

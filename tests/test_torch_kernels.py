@@ -2,8 +2,10 @@
 version against the JAX package's Pallas kernel run in interpret mode, on
 the inputs of ``tests/test_kernels.py`` (made with numpy from a seed), the
 plain form of the decode kernel's split-S algorithm against both, the
-split-count rule, plus the wrappers' dispatch and input checks.  The CUDA
-kernels themselves run only on the card (``chip_smoke.py``)."""
+split-count rule, plus the wrappers' dispatch and input checks.  The
+backward of ``flash_prefill``: its kernel's algorithm in plain PyTorch
+against autograd of the plain forward, and ``FlashPrefillFn``'s wiring.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``)."""
 import contextlib
 import os
 
@@ -261,13 +263,25 @@ def test_plain_paths_carry_gradients(name):
 
 
 def test_refuse_grad_raises_only_where_autograd_would_record():
+    """The wrappers of kernels without a backward (decode_attention and the
+    scans; flash_prefill where ``no_backward_reason`` gives one) raise
+    through this on CUDA inputs, only where autograd would record the
+    call; flash_prefill's backward kernel covers f32 at D 64 / 80 / 128
+    without a q_offset and nothing else."""
     from repro_torch.kernels import _build
     x, y = torch.zeros(3, requires_grad=True), torch.zeros(3)
-    with pytest.raises(RuntimeError, match="no backward"):
-        _build.refuse_grad("k", y, x, None)
+    with pytest.raises(RuntimeError, match="no backward for bf16"):
+        _build.refuse_grad("k", y, x, None, why=" for bf16")
+    assert _build.wants_grad(y, x) and not _build.wants_grad(y, None)
     _build.refuse_grad("k", y, None)
     with torch.no_grad():
+        assert not _build.wants_grad(y, x)
         _build.refuse_grad("k", y, x)
+    for D in (64, 80, 128):
+        assert FP.no_backward_reason(torch.float32, D, 0) == ""
+    assert FP.no_backward_reason(torch.bfloat16, 128, 0)
+    assert FP.no_backward_reason(torch.float32, 256, 0)
+    assert FP.no_backward_reason(torch.float32, 128, 64)
 
 
 def test_wrappers_reject_malformed_inputs():
@@ -381,3 +395,98 @@ def test_split_rows_at_the_served_shapes(B, Hkv, S, rows, n_split):
     got = DA.split_rows(B, Hkv, S, 132)
     assert (got, -(-S // got)) == (rows, n_split)
     assert got % DA.SPLIT_QUANTUM == 0
+
+
+# --------------------------------------------------------------------- #
+# flash_prefill's backward: the kernel's algorithm in plain PyTorch
+# --------------------------------------------------------------------- #
+# |tiled - autograd| <= 1e-5 * max|autograd| per gradient: both are f32
+# sums of the same products in another order (64-row and 64-key tiles,
+# P recomputed from the log-sum-exp rather than normalised by l)
+BWD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 24)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("D", [64, 80])
+def test_flash_prefill_bwd_tiled_plain_matches_autograd(causal, window, Hq,
+                                                        Hkv, D):
+    """T and S off the 64-row / 64-key tiles (T*G rows as the kernel
+    flattens them); at S < T under a window, rows with no valid key
+    (log-sum-exp -inf) get zero gradients."""
+    rng = np.random.default_rng(3)
+    B, T, S = 2, 90, 90 if causal else 70
+    q, do = (torch.from_numpy(rng.normal(size=(B, T, Hq, D)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, Hkv, D)).astype(
+        np.float32)) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    o, lse = FP.flash_prefill_plain(q, k, v, return_lse=True, **kw)
+    want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+    got = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape, name
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= BWD_RTOL * scale, f"d{name}"
+
+
+def test_flash_prefill_lse_and_empty_rows():
+    """The plain log-sum-exp is -inf on a row with no valid key (here: T
+    past S + window) and finite elsewhere; the tiled backward gives those
+    rows zero gradients and matches autograd on the rest."""
+    g = torch.Generator().manual_seed(0)
+    q, do = torch.randn(1, 40, 4, 64, generator=g), torch.randn(
+        1, 40, 4, 64, generator=g)
+    k, v = torch.randn(1, 12, 2, 64, generator=g), torch.randn(
+        1, 12, 2, 64, generator=g)
+    o, lse = FP.flash_prefill_plain(q, k, v, causal=True, window=8,
+                                    return_lse=True)
+    empty = torch.arange(40) >= 12 + 8 - 1
+    assert bool(torch.isinf(lse[..., empty]).all())
+    assert bool(torch.isfinite(lse[..., ~empty]).all())
+    dq, dk, dv = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse,
+                                                  causal=True, window=8)
+    assert bool((dq[:, empty] == 0).all())
+    want = FP.flash_prefill_bwd_plain(q, k, v, do, causal=True, window=8)
+    for got, w in zip((dq, dk, dv), want):
+        assert float((got - w).abs().max()) <= BWD_RTOL * float(
+            w.abs().max())
+
+
+def test_flash_prefill_fn_carries_the_plain_gradient_on_cpu():
+    """``FlashPrefillFn`` (what a CUDA call that requires grad goes
+    through) on CPU tensors: the plain forward and its autograd backward,
+    so the wiring (saved tensors, argument order, gradients of the flags)
+    gives autograd's own gradients bit for bit."""
+    g = torch.Generator().manual_seed(1)
+    leaves = [torch.randn(s, generator=g).requires_grad_()
+              for s in ((2, 33, 8, 80), (2, 33, 2, 80), (2, 33, 2, 80))]
+    do = torch.randn(2, 33, 8, 80, generator=g)
+    out = FP.FlashPrefillFn.apply(*leaves, False, 0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    want = FP.flash_prefill_bwd_plain(*leaves, do, causal=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_prefill_plain_at_head_dim_80_matches_pallas(causal):
+    """hubert-xlarge's head_dim (1280 / 16 = 80), bidirectional as its
+    encoder runs, and causal; f32."""
+    rng = np.random.default_rng(11)
+    T, Hq, D = 100, 4, 80
+    qj, qt = _pair(rng.normal(size=(2, T, Hq, D)).astype(np.float32),
+                   "float32")
+    kj, kt = _pair(rng.normal(size=(2, T, Hq, D)).astype(np.float32),
+                   "float32")
+    vj, vt = _pair(rng.normal(size=(2, T, Hq, D)).astype(np.float32),
+                   "float32")
+    with _ieee_f32_matmuls():
+        want = jax_flash(qj, kj, vj, causal=causal, block_q=32, block_k=64,
+                         interpret=True)
+        got = flash_prefill_op(qt, kt, vt, causal=causal)
+    _close(got, _flash_oracle(qt, kt, vt, "float32", causal=causal),
+           "float32")
+    _close(got, want, "float32")

@@ -173,23 +173,27 @@ def test_rope_and_norm_match_jax():
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "hubert-xlarge",
                                   "llama4-scout-17b-a16e"])
 def test_unported_flavours_raise(arch):
-    """The encoder is not approximated: it raises.  The MoE configs are
-    ported: their smoke models build and run a forward (parity with the
-    JAX package: tests/test_torch_moe.py).  (RWKV6, RG-LRU and local
-    attention: tests/test_torch_rwkv6.py, tests/test_torch_rglru.py and
-    the two tests below; qk_norm, half and mrope rope and the vision
-    frontend: tests/test_torch_flavours.py.)"""
+    """The flavours once unported now build and run a forward: the MoE
+    configs (parity with the JAX package: tests/test_torch_moe.py) and the
+    audio encoder, on frames (parity of its loss and gradients:
+    tests/test_torch_train.py); a flavour the port lacks still raises.
+    (RWKV6, RG-LRU and local attention: tests/test_torch_rwkv6.py,
+    tests/test_torch_rglru.py and the two tests below; qk_norm, half and
+    mrope rope and the vision frontend: tests/test_torch_flavours.py.)"""
+    import dataclasses
     cfg = get_smoke_config(arch)
-    if not cfg.is_moe:
-        with pytest.raises(NotImplementedError):
-            tm.init_params(cfg, torch.Generator().manual_seed(0),
-                           torch.float32, "cpu")
-        return
+    with pytest.raises(NotImplementedError):
+        tm.init_params(dataclasses.replace(cfg, rope="alibi"),
+                       torch.Generator().manual_seed(0), torch.float32,
+                       "cpu")
     params = tm.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, "cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 9),
-                         generator=torch.Generator().manual_seed(1))
-    logits, _ = tm.forward(params, cfg, {"tokens": toks})
+    gen = torch.Generator().manual_seed(1)
+    batch = ({"frames": torch.randn(2, 9, cfg.frontend_dim, generator=gen)}
+             if cfg.modality == "audio" else
+             {"tokens": torch.randint(0, cfg.vocab_size, (2, 9),
+                                      generator=gen)})
+    logits, _ = tm.forward(params, cfg, batch)
     assert logits.shape == (2, 9, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
 
