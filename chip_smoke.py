@@ -40,16 +40,22 @@ Phases, in order (all by default):
    with the L2 cache flushed before each call).  ``flash_prefill`` in f32
    also at head_dim 80 (hubert-xlarge: bidirectional, and causal, on
    ragged T), and every f32 case's log-sum-exp output against the plain
-   one.  The backward kernel (``flash_prefill_bwd``: dQ, dK, dV) against
-   autograd of the plain version on the card, at D 64 / 80 / 128, G 1 / 4
-   / 16, causal / bidirectional / window, T off the tiles, and at the two
-   training shapes, with the time of autograd's backward through
-   ``scaled_dot_product_attention`` beside it.  Each wrapper of a kernel
-   without a backward (``decode_attention``, the scans; ``flash_prefill``
-   in bf16, at D 256 or with a ``q_offset``) must raise on a CUDA input
-   that requires grad and launch nothing; an f32 ``flash_prefill`` input
-   that requires grad gets a ``grad_fn`` whose backward launches
-   ``flash_prefill_bwd``.
+   one (and at recurrentgemma-2b's training shape, T 4096 under its 2048
+   window).  The backward kernel (``flash_prefill_bwd``: dQ, dK, dV)
+   against autograd of the plain version on the card, at D 64 / 80 / 128 /
+   256, G 1 / 4 / 10 / 16, causal / bidirectional / window, T off the
+   tiles, and at the three training shapes, with the time of autograd's
+   backward through ``scaled_dot_product_attention`` beside it.  The scans'
+   backward kernels (``rwkv6_scan_bwd``, ``rglru_scan_bwd``) at their
+   training shapes and off them, against autograd of the plain versions,
+   and ``rwkv6_scan_bwd`` under fast decays and w under its clamp against
+   autograd of the float64 step recurrence; each backward case called
+   twice, the same bits.  Each wrapper of a kernel without a backward for
+   its inputs (``decode_attention``; ``flash_prefill`` in bf16 or with a
+   ``q_offset``; ``rwkv6_scan`` at D 128) must raise on a CUDA input that
+   requires grad and launch nothing; f32 ``flash_prefill`` (D 64 / 80 /
+   128 / 256), ``rwkv6_scan`` and ``rglru_scan`` inputs that require grad
+   get a ``grad_fn`` whose backward launches the backward kernel.
 4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
    rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
@@ -64,13 +70,15 @@ Phases, in order (all by default):
    margin and whether the chosen experts agree logged, then one
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
-   Train parity: hubert-xlarge and llama3-8b at full width, 2 layers, f32,
-   one sequence of 256 frames / tokens: one training step (loss,
-   gradients, AdamW) with the kernels on the card against the same step
-   with the plain versions on the CPU, from the same weights: the loss,
-   every gradient leaf and every parameter after the update within stated
-   limits, and the card's backward and update under
-   ``set_sync_debug_mode("error")``.
+   Train parity: hubert-xlarge, llama3-8b and rwkv6-3b at full width, 2
+   layers, and recurrentgemma-2b at full width, 3 layers, f32, one
+   sequence of 256 frames / tokens: one training step (loss, gradients,
+   AdamW) with the kernels on the card against the same step with the
+   plain versions on the CPU, from the same weights: the loss, every
+   gradient leaf and every parameter after the update within stated
+   limits, the card's backward and update under
+   ``set_sync_debug_mode("error")``, and each kernel's launches (per
+   layer its forward kernel twice, its backward kernel once).
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances (``max_batch`` 8, ``max_seq_len`` 2048) of
    full-depth bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b,
@@ -89,17 +97,20 @@ Phases, in order (all by default):
    batch 8 x 1024, labels a fixed random linear classifier of the frames,
    5 steps) and on llama3-8b at full width with 4 of its 32 layers
    (``TokenDataset`` batches of ``synthetic_corpus``, 4 x 1024, 3 steps),
-   both with the reference's AdamW at lr ``TRAIN_LR`` (1e-4: the
+   on rwkv6-3b at its full config (32 layers, 4 x 1024 tokens, 3 steps)
+   and on recurrentgemma-2b at its full config (26 layers, 1 x 4096
+   tokens, so that its 2048 window bites, 3 steps), all with the
+   reference's AdamW at lr ``TRAIN_LR`` (1e-4: the
    reference's ``train`` has no warmup, and at lr 3e-4 or 1e-3 both
    full-width models' losses climb back above their start within a few
    steps, as the reference's identical step would); each step's loss
    (finite, falling from the first to the last step), time, frames or
    tokens per second, peak device memory, the device-busy share of the
    last step under ``torch.profiler`` with its costliest kernels and the
-   port's own, and each step's
-   ``flash_prefill`` (2 a layer: forward and its recomputation) and
-   ``flash_prefill_bwd`` (1 a layer) launches.  Then ``python -m
-   repro_torch.launch.train --arch llama3-8b --steps 3 --device cuda``.
+   port's own, and each step's launches of the run's kernels (per layer
+   its forward kernel twice, for the forward and its recomputation, and
+   its backward kernel once).  Then ``python -m repro_torch.launch.train
+   --arch <arch> --steps 3 --device cuda`` for llama3-8b and rwkv6-3b.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -290,6 +301,7 @@ FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
 # training shapes, where the f32 numbers go into the table under the
 # training paths
 TRAIN_HUBERT, TRAIN_LLAMA = "train hubert-xlarge", "train llama3-8b"
+TRAIN_RWKV, TRAIN_RG = "train rwkv6-3b", "train recurrentgemma-2b"
 FLASH_F32_CASES = [
     ((TRAIN_HUBERT,), 8, 1024, 1024, 16, 16, 80, False, 0, 0),
     (None, 1, 333, 333, 16, 16, 80, True, 0, 0),
@@ -299,6 +311,8 @@ FLASH_F32_CASES = [
     (None, 1, 81, 81, 64, 1, 80, True, 0, 0),       # G 64: 1 position a tile
     (None, 1, 200, 60, 4, 2, 64, True, 20, 0),      # rows with no key
     ((TRAIN_LLAMA,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
+    # recurrentgemma-2b training: 4096 positions, so that the window bites
+    ((TRAIN_RG,), 1, 4096, 4096, 10, 1, 256, True, 2048, 0),
 ]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
@@ -522,6 +536,8 @@ def run_kernels(torch, rng, results):
     all_ok &= run_bwd_kernel(torch, rng, results)
     all_ok &= run_rwkv6_kernel(torch, rng, results)
     all_ok &= run_rglru_kernel(torch, rng, results)
+    all_ok &= run_rwkv6_bwd_kernel(torch, rng, results)
+    all_ok &= run_rglru_bwd_kernel(torch, rng, results)
     if not all_ok:
         fail("a kernel disagrees with its plain version (lines above)")
     check_grad_refused(torch)
@@ -529,18 +545,17 @@ def run_kernels(torch, rng, results):
 
 
 def check_grad_refused(torch):
-    """Each wrapper of a kernel without a backward raises on a CUDA input
-    that requires grad while grad is enabled, launching nothing, and runs
-    under ``torch.no_grad()``: ``decode_attention`` and the scans, and
-    ``flash_prefill`` in bf16, at head_dim 256 and with a ``q_offset``."""
+    """Each wrapper of a kernel without a backward for these inputs raises
+    on a CUDA input that requires grad while grad is enabled, launching
+    nothing, and runs under ``torch.no_grad()``: ``decode_attention``,
+    ``flash_prefill`` in bf16 and with a ``q_offset``, and ``rwkv6_scan``
+    at head_dim 128 (its backward kernel takes 64)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_prefill as FP
-    from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rwkv6_scan as RS
 
-    def t(*shape, neg=False, dtype=torch.float32):
-        x = torch.rand(shape, device="cuda", dtype=dtype)
-        return (-x if neg else x).requires_grad_()
+    def t(*shape, dtype=torch.float32):
+        return torch.rand(shape, device="cuda", dtype=dtype).requires_grad_()
 
     lengths = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
     bf = torch.bfloat16
@@ -548,19 +563,15 @@ def check_grad_refused(torch):
         "flash_prefill bf16": ("flash_prefill", lambda: FP.flash_prefill(
             t(1, 9, 4, 64, dtype=bf), t(1, 9, 2, 64, dtype=bf),
             t(1, 9, 2, 64, dtype=bf))),
-        "flash_prefill f32 D 256": ("flash_prefill", lambda: FP.flash_prefill(
-            t(1, 9, 4, 256), t(1, 9, 2, 256), t(1, 9, 2, 256))),
         "flash_prefill f32 q_offset": ("flash_prefill",
                                        lambda: FP.flash_prefill(
                                            t(1, 9, 4, 64), t(1, 19, 2, 64),
                                            t(1, 19, 2, 64), q_offset=10)),
         "decode_attention": ("decode_attention", lambda: DA.decode_attention(
             t(2, 4, 64), t(2, 7, 2, 64), t(2, 7, 2, 64), lengths)),
-        "rwkv6_scan": ("rwkv6_scan", lambda: RS.rwkv6_scan(
-            t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64), t(1, 5, 2, 64),
-            t(2, 64))),
-        "rglru_scan": ("rglru_scan", lambda: RG.rglru_scan(
-            t(1, 6, 8, neg=True), t(1, 6, 8))),
+        "rwkv6_scan D 128": ("rwkv6_scan", lambda: RS.rwkv6_scan(
+            t(1, 5, 2, 128), t(1, 5, 2, 128), t(1, 5, 2, 128),
+            t(1, 5, 2, 128), t(2, 128))),
     }
     wrappers = kernel_wrappers()
     for what, (name, call) in calls.items():
@@ -582,37 +593,67 @@ def check_grad_refused(torch):
 
 
 def check_grad_carried(torch):
-    """An f32 CUDA input that requires grad trains through the backward
-    kernel: ``flash_prefill`` returns a ``grad_fn`` (``FlashPrefillFn``),
-    and backward launches ``flash_prefill_bwd`` once, with the gradients
-    of autograd through the plain version."""
+    """A CUDA input that requires grad trains through a backward kernel:
+    ``flash_prefill`` (f32, D 64 / 80 / 128 / 256), ``rwkv6_scan`` (with
+    s0 and a final-state cotangent) and ``rglru_scan`` (with h0) return a
+    ``grad_fn`` (their autograd Functions), and backward launches the
+    backward kernel once, with the gradients of autograd through the
+    plain version."""
     from repro_torch.kernels import flash_prefill as FP
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rwkv6_scan as RS
 
-    for D, causal in ((64, True), (80, False), (128, True)):
-        gen = torch.Generator(device="cuda").manual_seed(D)
-        q, k, v = (torch.randn(s, generator=gen, device="cuda")
-                   .requires_grad_() for s in ((2, 77, 8, D), (2, 77, 2, D),
-                                               (2, 77, 2, D)))
-        do = torch.randn((2, 77, 8, D), generator=gen, device="cuda")
-        n_fwd = FP.flash_prefill.launches
-        n_bwd = FP.flash_prefill_bwd.launches
-        out = FP.flash_prefill(q, k, v, causal=causal)
-        if out.grad_fn is None:
-            fail(f"flash_prefill f32 D {D}: no grad_fn")
-        got = torch.autograd.grad(out, (q, k, v), do)
-        want = FP.flash_prefill_bwd_plain(q, k, v, do, causal=causal)
+    wrappers = kernel_wrappers()
+
+    def carried(what, fwd, bwd, call, leaves, cots, plain):
+        n = (wrappers[fwd].launches, wrappers[bwd].launches)
+        out = call(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        if outs[0].grad_fn is None:
+            fail(f"{what}: no grad_fn")
+        got = torch.autograd.grad(outs, leaves, cots)
+        want = plain(*(x.detach() for x in leaves), *cots)
         torch.cuda.synchronize()
         shares = [compare(torch, g, w, "grad") for g, w in zip(got, want)]
-        launched = (FP.flash_prefill.launches - n_fwd,
-                    FP.flash_prefill_bwd.launches - n_bwd)
+        launched = (wrappers[fwd].launches - n[0],
+                    wrappers[bwd].launches - n[1])
         if launched != (1, 1) or not all(ok for ok, _, _ in shares):
-            fail(f"flash_prefill f32 D {D}: launches (forward, backward) "
-                 f"{launched}, gradients {shares}")
-        log(f"flash_prefill f32 D {D} causal={causal} on inputs that "
-            f"require grad: grad_fn {type(out.grad_fn).__name__}, "
-            f"launches forward 1, backward 1; dq, dk, dv at "
+            fail(f"{what}: launches (forward, backward) {launched}, "
+                 f"gradients {shares}")
+        log(f"{what} on inputs that require grad: grad_fn "
+            f"{type(outs[0].grad_fn).__name__}, launches forward 1, "
+            f"backward 1; gradients at "
             + ", ".join(f"{sh:.3f}" for _, _, sh in shares)
             + f" of their limits ({tol_text('grad')}): ok")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    for D, causal in ((64, True), (80, False), (128, True), (256, True)):
+        q, k, v = (rn(*s).requires_grad_() for s in (
+            (2, 77, 8, D), (2, 77, 2, D), (2, 77, 2, D)))
+        carried(f"flash_prefill f32 D {D} causal={causal}", "flash_prefill",
+                "flash_prefill_bwd",
+                lambda q, k, v: FP.flash_prefill(q, k, v, causal=causal),
+                (q, k, v), (rn(2, 77, 8, D),),
+                lambda q, k, v, do: FP.flash_prefill_bwd_plain(
+                    q, k, v, do, causal=causal))
+    w = 0.6 + 0.39 * torch.rand((2, 77, 4, 64), generator=gen,
+                                device="cuda")
+    leaves = tuple(x.requires_grad_() for x in (
+        rn(2, 77, 4, 64, scale=0.5), rn(2, 77, 4, 64, scale=0.5),
+        rn(2, 77, 4, 64, scale=0.5), w, rn(4, 64, scale=0.1),
+        rn(2, 4, 64, 64)))
+    carried("rwkv6_scan D 64 with s0 and a final-state cotangent",
+            "rwkv6_scan", "rwkv6_scan_bwd", RS.rwkv6_scan, leaves,
+            (rn(2, 77, 4, 64), rn(2, 4, 64, 64)), RS.rwkv6_scan_bwd_plain)
+    leaves = tuple(x.requires_grad_() for x in (
+        -torch.rand((2, 77, 96), generator=gen, device="cuda") * 2.0,
+        rn(2, 77, 96), rn(2, 96)))
+    carried("rglru_scan with h0", "rglru_scan", "rglru_scan_bwd",
+            RG.rglru_scan, leaves, (rn(2, 77, 96),), RG.rglru_scan_bwd_plain)
 
 
 BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
@@ -628,6 +669,12 @@ BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
     (None, 1, 100, 260, 4, 1, 64, False, 0),        # S != T, G 4
     (None, 1, 65, 65, 16, 1, 80, True, 0),          # G 16 at D 80
     (None, 1, 200, 60, 4, 2, 64, True, 20),         # rows with no key
+    # head_dim 256 (32-key tiles): recurrentgemma-2b's training shape, its
+    # window off the tiles, bidirectional at G 2, rows with no key
+    ((TRAIN_RG,), 1, 4096, 4096, 10, 1, 256, True, 2048),
+    (None, 1, 300, 300, 10, 1, 256, True, 100),
+    (None, 1, 333, 333, 4, 2, 256, False, 0),
+    (None, 1, 200, 60, 10, 1, 256, True, 20),
 ]
 
 
@@ -718,7 +765,9 @@ RWKV_CASES = [  # B, T, H, D, carried-in state, decay
     (1, 256, 8, 128, False, "slow"),            # D = 128
     (1, 190, 4, 64, True, "fast"),              # plain form overflows
     (1, 190, 4, 128, True, "fast"),             # the same at D = 128
+    (4, 1024, 40, 64, False, "slow"),           # rwkv6-3b training
 ]
+RWKV_TRAIN_CASE = RWKV_CASES[-1]
 
 
 def rwkv6_ops(B, T, H, D) -> int:
@@ -751,9 +800,9 @@ def rwkv6_form_bytes(B, T, H, D, carried) -> int:
 
 def wkv6_steps(torch, r, k, v, w, u, s0):
     """The recurrence one step at a time (``repro.kernels.ref.rwkv6_ref``):
-    an oracle that stays finite at any decay."""
+    an oracle that stays finite at any decay, in the inputs' dtype."""
     B, T, H, D = r.shape
-    S = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    S = (torch.zeros((B, H, D, D), dtype=r.dtype, device=r.device)
          if s0 is None else s0.clone())
     outs = []
     for t in range(T):
@@ -814,8 +863,9 @@ def run_rwkv6_kernel(torch, rng, results) -> bool:
             f"computes WKV6) bound_ms={b_ms:.4f} ({b_by}; the kernel's "
             f"passes move {rwkv6_form_bytes(B, T, H, D, carried) / 1e6:.1f}"
             f" MB)")
-        if case is RWKV_CASES[0]:
-            record(results, "rwkv6_scan", ("rwkv6-3b",),
+        if case is RWKV_CASES[0] or case is RWKV_TRAIN_CASE:
+            record(results, "rwkv6_scan", ("rwkv6-3b",) if case is
+                   RWKV_CASES[0] else (TRAIN_RWKV,),
                    max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
                    device_ms=dev_ms, library_device_ms=None)
@@ -838,7 +888,9 @@ RGLRU_CASES = [  # B, T, d, carried-in h0, decay
     # share of its carried h (in the model's range the product underflows)
     (1, 1024, 2560, False, "slow"),
     (2, 300, 2560, True, "slow"),
+    (1, 4096, 2560, False, "model"),    # recurrentgemma-2b training
 ]
+RGLRU_TRAIN_CASE = RGLRU_CASES[-1]
 
 
 def rglru_form_bytes(B, T, d, carried) -> int:
@@ -902,11 +954,198 @@ def run_rglru_kernel(torch, rng, results) -> bool:
             f"library_ms=null (no single PyTorch call computes this scan) "
             f"bound_ms={b_ms:.4f} ({b_by}; the kernel's passes move "
             f"{rglru_form_bytes(B, T, d, carried) / 1e6:.1f} MB)")
-        if case is RGLRU_CASES[0]:
-            record(results, "rglru_scan", ("recurrentgemma-2b",),
+        if case is RGLRU_CASES[0] or case is RGLRU_TRAIN_CASE:
+            record(results, "rglru_scan", ("recurrentgemma-2b",) if case is
+                   RGLRU_CASES[0] else (TRAIN_RG,),
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=None, device_ms=dev_ms,
                    library_device_ms=None)
+    return all_ok
+
+
+RWKV_BWD_CASES = [  # B, T, H, carried-in state, final-state cotangent, decay
+    (4, 1024, 40, False, False, "slow"),   # rwkv6-3b training (main)
+    (1, 1000, 40, False, False, "slow"),   # T not a chunk multiple
+    (2, 130, 2, True, True, "slow"),       # s0 and dS_T, a ragged chunk
+    (1, 1, 4, True, True, "slow"),         # T = 1
+    # against the float64 step-by-step recurrence: fast decays (the plain
+    # chunked form overflows) and 1% of w under the 1e-12 clamp
+    (1, 190, 4, True, True, "fast"),
+    (1, 300, 3, True, False, "clamp"),
+]
+
+
+def rwkv6_bwd_ops(B, T, H, D) -> int:
+    """f32 operations of WKV6's gradient in the chunked form at the
+    kernel's chunk: per step and head 2 D^2 each for the local state term,
+    r's and k's state terms and v's; per causal (t, s) pair of a chunk 2 D
+    each for the score, do . v, and the three intra-chunk sums."""
+    from repro_torch.kernels.rwkv6_scan import KERNEL_CHUNK as c
+    full, rest = divmod(T, c)
+    pairs = full * c * (c + 1) // 2 + rest * (rest + 1) // 2
+    return B * H * (8 * D * D * T + 10 * D * pairs)
+
+
+def wkv6_step_grads(torch, r, k, v, w, u, s0, do, ds_final):
+    """Autograd of ``wkv6_steps`` in float64 from w clamped at 1e-12, as
+    the kernels clamp it: (dr, dk, dv, dw, du, ds0 or None), f32."""
+    ins = [x.double().requires_grad_() for x in (r, k, v, w, u)]
+    if s0 is not None:
+        ins.append(s0.double().requires_grad_())
+    o, S = wkv6_steps(torch, *ins[:3], torch.clamp(ins[3], min=1e-12),
+                      ins[4], ins[5] if s0 is not None else None)
+    outs, cots = [o], [do.double()]
+    if ds_final is not None:
+        outs.append(S)
+        cots.append(ds_final.double())
+    grads = [g.float() for g in torch.autograd.grad(outs, ins, cots)]
+    return (*grads[:5], grads[5] if s0 is not None else None)
+
+
+def run_rwkv6_bwd_kernel(torch, rng, results) -> bool:
+    """``rwkv6_scan_bwd`` (from the forward kernel's scratch) against
+    autograd of the plain version, or of the float64 step recurrence where
+    the plain chunked form overflows or w falls under its clamp."""
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    dev = torch.device("cuda")
+
+    def arr(x):
+        return torch.from_numpy(x.astype("float32")).to(dev)
+
+    all_ok = True
+    for case in RWKV_BWD_CASES:
+        B, T, H, carried, with_ds, decay = case
+        D = 64
+        shape = (B, T, H, D)
+        r, k, v = (arr(rng.standard_normal(shape) * 0.5) for _ in range(3))
+        lo, hi = (1e-3, 0.05) if decay == "fast" else (0.6, 0.999)
+        wn = rng.uniform(lo, hi, shape)
+        if decay == "clamp":
+            wn[rng.random(shape) < 0.01] = 1e-14
+        w = arr(wn)
+        u = arr(rng.standard_normal((H, D)) * 0.1)
+        s0 = arr(rng.standard_normal((B, H, D, D))) if carried else None
+        do = arr(rng.standard_normal(shape))
+        ds = arr(rng.standard_normal((B, H, D, D))) if with_ds else None
+        _, _, scratch = RS._forward_kernel(r, k, v, w, u, s0)
+
+        def kern():
+            return RS.rwkv6_scan_bwd(r, k, v, w, u, s0, do, ds, s_in=scratch)
+        got, got2 = kern(), kern()
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, got2))
+        if decay == "slow":
+            want = RS.rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds)
+            against = "plain"
+        else:
+            p_got = RS.rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds)
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in p_got if g is not None)
+            want = wkv6_step_grads(torch, r, k, v, w, u, s0, do, ds)
+            against = ("float64 step recurrence; plain chunked form's "
+                       f"gradients finite: {finite}")
+        torch.cuda.synchronize()
+        checks = [compare(torch, g, x, "grad") for g, x in zip(got, want)
+                  if x is not None]
+        ok = same and all(c[0] for c in checks)
+        ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+        plain_ms = cuda_ms(torch, lambda: RS.rwkv6_scan_bwd_plain(
+            r, k, v, w, u, s0, do, ds), iters=3, warmup=1)
+        x = B * T * H * D
+        state = B * H * D * D
+        nbytes = 4 * (9 * x + 2 * H * D + (2 * state if carried else 0)
+                      + (state if with_ds else 0))
+        b_ms, b_by = bound(nbytes, rwkv6_bwd_ops(B, T, H, D), "float32")
+        err = max(c[1] for c in checks)
+        all_ok &= ok
+        log(f"rwkv6_scan_bwd float32 B={B} T={T} H={H} D={D} s0={carried} "
+            f"dS_T={with_ds} decay={decay} (against {against}): dr/dk/dv/"
+            "dw/du" + ("/ds0" if carried else "") + " max_abs_err "
+            + "/".join(f"{c[1]:.3e}" for c in checks) + " (worst elements "
+            "at " + "/".join(f"{c[2]:.3f}" for c in checks) + " of their "
+            f"limits; {tol_text('grad')}), two calls bit-identical: {same} "
+            f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
+            f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} (autograd of the plain "
+            "forward, forward included) library_ms=null (no single PyTorch "
+            f"call computes WKV6's gradient) bound_ms={b_ms:.4f} ({b_by}; "
+            f"share {100 * b_ms / dev_ms:.0f}%)")
+        if case is RWKV_BWD_CASES[0]:
+            record(results, "rwkv6_scan_bwd", (TRAIN_RWKV,), max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, device_ms=dev_ms, library_device_ms=None)
+    return all_ok
+
+
+RGLRU_BWD_CASES = [  # B, T, d, carried-in h0, decay
+    (1, 4096, 2560, False, "model"),   # recurrentgemma-2b training (main)
+    (1, 4096, 2560, True, "model"),    # the same with h0
+    (2, 300, 2560, True, "model"),     # h0, T off the time chunk
+    (1, 300, 98, True, "model"),       # d off the 4-channel vector
+    (1, 1, 2560, True, "model"),       # T = 1
+    (1, 1024, 2560, False, "slow"),    # a carry between chunks that matters
+    (2, 300, 2560, True, "slow"),
+]
+
+
+def run_rglru_bwd_kernel(torch, rng, results) -> bool:
+    """``rglru_scan_bwd`` (from the forward's h) against autograd of the
+    plain version."""
+    import numpy as np
+
+    from repro_torch.kernels import rglru_scan as RG
+
+    dev = torch.device("cuda")
+
+    def arr(x):
+        return torch.from_numpy(x.astype("float32")).to(dev)
+
+    all_ok = True
+    for case in RGLRU_BWD_CASES:
+        B, T, d, carried, decay = case
+        shape = (B, T, d)
+        if decay == "model":            # as in RGLRU_CASES
+            gate = 1.0 / (1.0 + np.exp(-rng.standard_normal(shape)))
+            log_a = -8.0 * np.log1p(np.e) * gate
+        else:
+            log_a = -np.abs(rng.standard_normal(shape)) * 0.1
+        la, b = arr(log_a), arr(rng.standard_normal(shape))
+        h0 = arr(rng.standard_normal((B, d))) if carried else None
+        dy = arr(rng.standard_normal(shape))
+        h = RG._forward_kernel(la, b, h0)
+
+        def kern():
+            return RG.rglru_scan_bwd(la, b, h0, h, dy)
+        got, got2 = kern(), kern()
+        same = all(a is None or torch.equal(a, c) for a, c in zip(got, got2))
+        want = RG.rglru_scan_bwd_plain(la, b, h0, dy)
+        torch.cuda.synchronize()
+        checks = [compare(torch, g, x, "grad") for g, x in zip(got, want)
+                  if x is not None]
+        ok = same and all(c[0] for c in checks)
+        ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+        plain_ms = cuda_ms(torch, lambda: RG.rglru_scan_bwd_plain(
+            la, b, h0, dy), iters=2, warmup=1)
+        # log_a, h, dy in, dlog_a and db out (h0 in, dh0 out); per element
+        # an exp, a sum and three products
+        nbytes = 4 * (5 * B * T * d + (2 * B * d if carried else 0))
+        b_ms, b_by = bound(nbytes, 5 * B * T * d, "float32")
+        err = max(c[1] for c in checks)
+        all_ok &= ok
+        log(f"rglru_scan_bwd float32 B={B} T={T} d={d} h0={carried} "
+            f"decay={decay}: dlog_a/db" + ("/dh0" if carried else "")
+            + " max_abs_err " + "/".join(f"{c[1]:.3e}" for c in checks)
+            + " (worst elements at " + "/".join(f"{c[2]:.3f}" for c in checks)
+            + f" of their limits; {tol_text('grad')}), two calls "
+            f"bit-identical: {same} {'ok' if ok else 'MISMATCH'} kernel_ms="
+            f"{ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+            "(autograd of the plain forward, forward included) "
+            "library_ms=null (no single PyTorch call computes this scan's "
+            f"gradient) bound_ms={b_ms:.4f} ({b_by}; share "
+            f"{100 * b_ms / dev_ms:.0f}%)")
+        if case is RGLRU_BWD_CASES[0]:
+            record(results, "rglru_scan_bwd", (TRAIN_RG,), max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None, device_ms=dev_ms, library_device_ms=None)
     return all_ok
 
 
@@ -1103,8 +1342,30 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     torch.cuda.empty_cache()
 
 
-# train parity: one training step, kernels on the card vs plain on the CPU
-TRAIN_PARITY = (("hubert-xlarge", 256), ("llama3-8b", 256))  # arch, length
+# train parity: one training step, kernels on the card vs plain on the CPU;
+# arch, layers, length (recurrentgemma-2b: one RG-LRU, RG-LRU, local
+# attention cycle)
+TRAIN_PARITY = (("hubert-xlarge", 2, 256), ("llama3-8b", 2, 256),
+                ("rwkv6-3b", 2, 256), ("recurrentgemma-2b", 3, 256))
+# the forward and backward kernel of each block kind
+KIND_KERNELS = {"attn": ("flash_prefill", "flash_prefill_bwd"),
+                "local": ("flash_prefill", "flash_prefill_bwd"),
+                "rwkv6": ("rwkv6_scan", "rwkv6_scan_bwd"),
+                "rglru": ("rglru_scan", "rglru_scan_bwd")}
+
+
+def step_launches(cfg) -> dict:
+    """Kernel launches of one training step: per layer its forward kernel
+    twice (the forward and its recomputation under the block's checkpoint)
+    and its backward kernel once."""
+    from repro_torch.models.model import layer_kinds
+    counts = {}
+    for kind in layer_kinds(cfg):
+        fwd, bwd = KIND_KERNELS[kind]
+        counts[fwd] = counts.get(fwd, 0) + 2
+        counts[bwd] = counts.get(bwd, 0) + 1
+    return counts
+
 # the loss: f32 sums in another order (cuBLAS and the kernels vs the CPU)
 TRAIN_LOSS_RTOL = 1e-5
 # each gradient leaf: |card - cpu| <= 1e-3 * rms(cpu leaf) + 1e-3 * |cpu|,
@@ -1125,11 +1386,11 @@ def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt):
     return opt.lr * (du + 1e-5) + p_cpu.double().abs() * 2.0 ** -22
 
 
-def run_train_parity(torch, rng, seed, arch, length):
-    """One ``train_step``-equivalent at full width, 2 layers, f32, batch 1
-    x ``length``: on the card (kernels) and on the CPU (plain versions)
-    from the same weights; the card's backward and AdamW update under
-    ``set_sync_debug_mode("error")``."""
+def run_train_parity(torch, rng, seed, arch, layers, length):
+    """One ``train_step``-equivalent at full width, ``layers`` layers, f32,
+    batch 1 x ``length``: on the card (kernels) and on the CPU (plain
+    versions) from the same weights; the card's backward and AdamW update
+    under ``set_sync_debug_mode("error")``."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1138,7 +1399,7 @@ def run_train_parity(torch, rng, seed, arch, length):
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_loop import loss_and_grads, to_batch
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, torch.float32, "cuda")
     p_cpu = tree_unflatten(p_gpu, iter(
@@ -1206,7 +1467,8 @@ def run_train_parity(torch, rng, seed, arch, length):
             log(f"train parity {arch}: leaf {i} {tuple(gc.shape)} gradient "
                 f"at {sh:.3f} of its limit, parameter at {sh_p:.3f}")
             ok = False
-    log(f"train parity {arch} full width, 2 layers, f32, batch 1 x {length}: "
+    log(f"train parity {arch} full width, {layers} layers, f32, batch 1 x "
+        f"{length}: "
         f"loss card {lg:.6f} cpu {lc:.6f} (rtol {TRAIN_LOSS_RTOL}); "
         f"gradients: {len(g_cpu)} leaves, worst element at {g_share:.3f} of "
         f"its limit ({tol_text('train_grad')}), global norm card {n_gpu:.6f}"
@@ -1218,11 +1480,11 @@ def run_train_parity(torch, rng, seed, arch, length):
         "(host clock)")
     if not ok or not np.isfinite(lg):
         fail(f"train parity {arch}: card and CPU steps differ (lines above)")
-    if launches.get("flash_prefill") != 4 or \
-            launches.get("flash_prefill_bwd") != 2:
-        fail(f"train parity {arch}: launches {launches}, expected "
-             "flash_prefill 4 (2 layers, forward and recomputation) and "
-             "flash_prefill_bwd 2")
+    want = step_launches(cfg)
+    if launches != want:
+        fail(f"train parity {arch}: launches {launches}, expected {want} "
+             "(per layer the forward kernel twice, for the forward and its "
+             "recomputation, and the backward kernel once)")
     del p_gpu, g_gpu, leaves, state
     torch.cuda.empty_cache()
 
@@ -1280,12 +1542,14 @@ def kernel_wrappers():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_bwd)
-    from repro_torch.kernels.rglru_scan import rglru_scan
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
     return {"flash_prefill": flash_prefill,
             "decode_attention": decode_attention,
             "rwkv6_scan": rwkv6_scan, "rglru_scan": rglru_scan,
-            "flash_prefill_bwd": flash_prefill_bwd}
+            "flash_prefill_bwd": flash_prefill_bwd,
+            "rwkv6_scan_bwd": rwkv6_scan_bwd,
+            "rglru_scan_bwd": rglru_scan_bwd}
 
 
 def run_serve(torch, rng, seed, arch):
@@ -1434,10 +1698,16 @@ def run_api(torch, seed, arch=API_ARCH):
 # --------------------------------------------------------------------- #
 # run name -> (arch, layers or None for the full depth, batch, length,
 # steps); each run's kernels are TRAIN_KERNELS'
+# (recurrentgemma-2b at 4096 positions, so that its 2048 window bites)
 TRAIN_RUNS = {TRAIN_HUBERT: ("hubert-xlarge", None, 8, 1024, 5),
-              TRAIN_LLAMA: ("llama3-8b", 4, 4, 1024, 3)}
+              TRAIN_LLAMA: ("llama3-8b", 4, 4, 1024, 3),
+              TRAIN_RWKV: ("rwkv6-3b", None, 4, 1024, 3),
+              TRAIN_RG: ("recurrentgemma-2b", None, 1, 4096, 3)}
 TRAIN_KERNELS = {TRAIN_HUBERT: ("flash_prefill", "flash_prefill_bwd"),
-                 TRAIN_LLAMA: ("flash_prefill", "flash_prefill_bwd")}
+                 TRAIN_LLAMA: ("flash_prefill", "flash_prefill_bwd"),
+                 TRAIN_RWKV: ("rwkv6_scan", "rwkv6_scan_bwd"),
+                 TRAIN_RG: ("rglru_scan", "rglru_scan_bwd", "flash_prefill",
+                            "flash_prefill_bwd")}
 # AdamW's lr in the training runs.  ``train`` (like the reference's) has no
 # warmup: at 3e-4 and 1e-3 the first update lowers the loss and the next
 # ones overshoot, until hubert-xlarge (48 layers) and llama3-8b end above
@@ -1578,29 +1848,33 @@ def run_train(torch, rng, seed, name, smi):
         f"port's kernels: {own}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train {arch}: losses {losses} not finite and falling")
-    want = {"flash_prefill": [2 * cfg.num_layers],
-            "flash_prefill_bwd": [cfg.num_layers]}
+    want = {n: [c] for n, c in step_launches(cfg).items()}
     if per_step != want:
         fail(f"train {arch}: launches per step {per_step}, expected {want}")
     return {n: sum(c[n] for c in launches) for n in TRAIN_KERNELS[name]}
 
 
+TRAIN_CLI_ARCHS = ("llama3-8b", "rwkv6-3b")
+
+
 def run_train_cli(torch):
     """The launcher's own check: ``python -m repro_torch.launch.train
-    --arch llama3-8b --steps 3 --device cuda`` (its smoke config)."""
+    --arch <arch> --steps 3 --device cuda`` (its smoke config) for each of
+    ``TRAIN_CLI_ARCHS``."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "llama3-8b", "--steps", "3", "--device", "cuda"], cwd=ROOT,
-        env=env, capture_output=True, text=True, timeout=600)
-    for line in out.stdout.strip().splitlines():
-        log(f"train cli: {line}")
-    if out.returncode != 0 or "(improved)" not in out.stdout:
-        fail(f"python -m repro_torch.launch.train failed "
-             f"(exit {out.returncode}): {out.stderr[-2000:]}")
-    log(f"train cli: exit 0 in {time.perf_counter() - t0:.1f} s")
+    for arch in TRAIN_CLI_ARCHS:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             arch, "--steps", "3", "--device", "cuda"], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        for line in out.stdout.strip().splitlines():
+            log(f"train cli {arch}: {line}")
+        if out.returncode != 0 or "(improved)" not in out.stdout:
+            fail(f"python -m repro_torch.launch.train --arch {arch} failed "
+                 f"(exit {out.returncode}): {out.stderr[-2000:]}")
+        log(f"train cli {arch}: exit 0 in {time.perf_counter() - t0:.1f} s")
 
 
 # --------------------------------------------------------------------- #
@@ -1624,6 +1898,14 @@ KERNEL_META = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/flash_prefill_bwd.cu",
         replaces="src/repro/kernels/flash_prefill.py:82"),
+    # the scans' gradients (JAX differentiates rwkv6_chunked_jnp and
+    # rglru_scan_jnp)
+    "rwkv6_scan_bwd": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:71"),
+    "rglru_scan_bwd": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:47"),
 }
 NUMBER_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "device_ms", "library_device_ms")
@@ -1698,9 +1980,9 @@ def main() -> None:
         for arch, window, n_patches in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
                        arch, window, n_patches)
-        for arch, length in TRAIN_PARITY:
+        for arch, layers, length in TRAIN_PARITY:
             run_train_parity(torch, np.random.default_rng(args.seed),
-                             args.seed, arch, length)
+                             args.seed, arch, layers, length)
     if "serve" in phases:
         for arch in PATH_KERNELS:
             counts = run_serve(torch, np.random.default_rng(args.seed),

@@ -40,7 +40,9 @@ SIGNATURES = {
                                 _I, _F, _I, _P),
     "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
+    "rwkv6_scan_bwd_launch": (*(_P,) * 15, _I, _I, _I, _I, _P),
     "rglru_scan_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rglru_scan_bwd_launch": (*(_P,) * 8, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -16,13 +16,13 @@
 //
 // Layout.  For kv head h the G = Hq/Hkv query heads are flattened into
 // T*G rows, row r = t*G + g, so a 64-row tile holds any G and K/V are
-// never repeated.  Two launches, no atomics (results are the same bits on
-// every run):
+// never repeated.  Key tiles hold BK = 64 keys, 32 at D 256 (below).  Two
+// launches, no atomics (results are the same bits on every run):
 //   1. dq_kernel, one block per (64-row q tile, kv head, batch): computes
 //      delta for its rows (written out for launch 2), then loops over the
 //      key tiles its rows can see: S, dP, dS in registers, dS to shared
 //      memory (transposed), dQ += dS K.
-//   2. dkdv_kernel, one block per (64-key tile, kv head, batch): loops over
+//   2. dkdv_kernel, one block per (BK-key tile, kv head, batch): loops over
 //      the q tiles (all G heads of the kv head) that can see its keys:
 //      S, P, dP, dS in registers, P and dS to shared memory, then
 //      dV += P^T dO and dK += dS^T Q, held in registers until the end.
@@ -34,16 +34,23 @@
 // and 6 D of products); this design does 14 D (S and dP are computed in
 // both launches), as IEEE f32 FMAs on the CUDA cores (67 TFLOP/s; no
 // TF32, so that training holds the f32 reference).  Each thread owns a
-// 4 x 4 micro-tile of S and dP (rows ty + 16i, keys tx + 16j) and reads
+// 4 x BK/16 micro-tile of S and dP (rows ty + 16i, keys tx + 16j) and reads
 // its operands as 16-byte vectors from shared memory (8 FMAs per load);
 // rows are padded by 4 floats so that 8 consecutive rows fall on 8
 // distinct 16-byte bank groups.  Simple by design: a later PR can move
 // the products to the tensor cores.
 //
+// Head dim 256 (recurrentgemma-2b): with 64-key tiles both launches would
+// need ~266 KB of shared memory (over the 227 KB a block may take), and
+// dkdv 128 accumulators a thread for dK and dV.  So key tiles hold 32 keys
+// at D 256: dq's tiles take 209 KB and dkdv's 219 KB, and a dkdv thread
+// owns 2 keys x 16 columns of each of dK and dV (64 accumulators).
+//
 // ptxas (-Xptxas -v, sm_90a), registers and dynamic shared memory, no
 // spills: dq<64> 122, 87,552 B; dq<80> 128, 103,936 B; dq<128> 166,
 // 153,088 B; dkdv<64> 168, 104,960 B; dkdv<80> 168, 121,344 B; dkdv<128>
-// 204, 170,496 B (1 block of 8 warps per SM, except dq<64> and dq<80>: 2).
+// 204, 170,496 B; dq<256> 166, 208,896 B; dkdv<256> 168, 218,624 B (1
+// block of 8 warps per SM, except dq<64> and dq<80>: 2).
 #include <math.h>
 #include <stdint.h>
 
@@ -55,13 +62,15 @@ namespace bwd {
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;       // flattened (position, head) rows per q tile
-constexpr int kBK = 64;       // keys per kv tile
-constexpr int kLP = kBK + 4;  // padded row of a 64 x 64 score tile
+constexpr int kLQ = kBQ + 4;  // padded row of a [key][row] score tile
 
 template <int D>
 struct Tile {
   static constexpr int LD = D + 4;   // padded row of a Q / dO / K / V tile
   static constexpr int NC = D / 16;  // output columns a thread owns
+  static constexpr int BK = D > 128 ? 32 : 64;  // keys per kv tile
+  static constexpr int MJ = BK / 16;  // keys of a thread's score micro-tile
+  static constexpr int LK = BK + 4;   // padded row of a [row][key] score tile
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
 };
 
@@ -111,12 +120,12 @@ __device__ __forceinline__ void load_q_rows(float* dst, const float* __restrict_
   }
 }
 
-// keys k0 .. k0+63 of kv head h of a (B, S, Hkv, D) tensor; zeros past S
+// keys k0 .. k0+BK-1 of kv head h of a (B, S, Hkv, D) tensor; zeros past S
 template <int D>
 __device__ __forceinline__ void load_k_rows(float* dst, const float* __restrict__ src,
                                             const Args& a, int b, int h, int k0) {
   constexpr int LD = Tile<D>::LD, CH = D / 4;
-  for (int c = threadIdx.x; c < kBK * CH; c += kThreads) {
+  for (int c = threadIdx.x; c < Tile<D>::BK * CH; c += kThreads) {
     const int j = c / CH, cc = c % CH;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (k0 + j < a.S)
@@ -130,27 +139,31 @@ __device__ __forceinline__ void load_k_rows(float* dst, const float* __restrict_
 // keys tx + 16j; sums over d in order
 template <int D>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
-                                       const float* Vs, int ty, int tx, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int LD = Tile<D>::LD;
+                                       const float* Vs, int ty, int tx,
+                                       float (&s)[4][Tile<D>::MJ],
+                                       float (&dp)[4][Tile<D>::MJ]) {
+  constexpr int LD = Tile<D>::LD, MJ = Tile<D>::MJ;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < MJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
-    float4 qv[4], ov[4], kv[4], vv[4];
+    float4 qv[4], ov[4], kv[MJ], vv[MJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       qv[i] = ld4(Qs + (ty + 16 * i) * LD + d);
       ov[i] = ld4(dOs + (ty + 16 * i) * LD + d);
-      kv[i] = ld4(Ks + (tx + 16 * i) * LD + d);
-      vv[i] = ld4(Vs + (tx + 16 * i) * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      kv[j] = ld4(Ks + (tx + 16 * j) * LD + d);
+      vv[j] = ld4(Vs + (tx + 16 * j) * LD + d);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MJ; ++j) {
         s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
         s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
         s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
@@ -174,19 +187,20 @@ __device__ __forceinline__ bool visible(const Args& a, int r, int kp) {
 
 template <int D>
 constexpr size_t dq_smem_floats() {
-  return (size_t)(2 * kBQ + 2 * kBK) * Tile<D>::LD + kBK * kLP + 2 * kBQ;
+  return (size_t)(2 * kBQ + 2 * Tile<D>::BK) * Tile<D>::LD + Tile<D>::BK * kLQ + 2 * kBQ;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
   constexpr int LD = Tile<D>::LD, NC = Tile<D>::NC;
+  constexpr int BK = Tile<D>::BK, MJ = Tile<D>::MJ;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + kBQ * LD;
   float* Ks = dOs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* dSt = Vs + kBK * LD;      // [key][row]
-  float* lse_s = dSt + kBK * kLP;
+  float* Vs = Ks + BK * LD;
+  float* dSt = Vs + BK * LD;       // [key][row]
+  float* lse_s = dSt + BK * kLQ;
   float* delta_s = lse_s + kBQ;
 
   const int n_qt = gridDim.x;
@@ -231,7 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
   // keys this tile's positions can see
   const int t_lo = r0 / a.G, t_hi = (min(r0 + kBQ, TG) - 1) / a.G;
   const int k_end = a.causal ? min(a.S, t_hi + 1) : a.S;
-  const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / kBK * kBK;
+  const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / BK * BK;
 
   const int ty = tid >> 4, tx = tid & 15;  // score stage: rows ty+16i, keys tx+16j
   const int rq = tid >> 4, cy = tid & 15;  // dQ stage: rows 4rq..4rq+3, columns cy+16m
@@ -241,28 +255,28 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
 #pragma unroll
     for (int m = 0; m < NC; ++m) acc[i][m] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's Ks / dSt reads are done
     load_k_rows<D>(Ks, a.k, a, b, h, k0);
     load_k_rows<D>(Vs, a.v, a, b, h, k0);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[4][MJ], dp[4][MJ];
     scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MJ; ++j) {
         const int key = tx + 16 * j;
         const float p = visible(a, r0 + row, k0 + key)
                             ? expf(fmaf(s[i][j], a.scale, -lse_s[row])) : 0.f;
-        dSt[key * kLP + row] = p * (dp[i][j] - delta_s[row]);
+        dSt[key * kLQ + row] = p * (dp[i][j] - delta_s[row]);
       }
     }
     __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 ds = ld4(dSt + j * kLP + 4 * rq);
+    for (int j = 0; j < BK; ++j) {
+      const float4 ds = ld4(dSt + j * kLQ + 4 * rq);
 #pragma unroll
       for (int m = 0; m < NC; ++m) {
         const float kv = Ks[j * LD + cy + 16 * m];
@@ -286,23 +300,38 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
 
 template <int D>
 constexpr size_t dkdv_smem_floats() {
-  return (size_t)(2 * kBQ + 2 * kBK) * Tile<D>::LD + 2 * kBQ * kLP + 2 * kBQ;
+  return (size_t)(2 * kBQ + 2 * Tile<D>::BK) * Tile<D>::LD + 2 * kBQ * Tile<D>::LK + 2 * kBQ;
+}
+
+// KPT contiguous floats of a score tile's row (16 bytes or 8)
+template <int KPT>
+__device__ __forceinline__ void ld_keys(const float* p, float (&x)[KPT]) {
+  if constexpr (KPT == 4) {
+    const float4 v = ld4(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+    static_assert(KPT == 2, "4 or 2 keys a thread");
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
   constexpr int LD = Tile<D>::LD, NC = Tile<D>::NC;
+  constexpr int BK = Tile<D>::BK, MJ = Tile<D>::MJ, LK = Tile<D>::LK;
+  constexpr int KPT = BK / 16;     // keys a thread owns in the dK/dV stage
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kBK * LD;
-  float* Qs = Vs + kBK * LD;
+  float* Vs = Ks + BK * LD;
+  float* Qs = Vs + BK * LD;
   float* dOs = Qs + kBQ * LD;
   float* Ps = dOs + kBQ * LD;     // [row][key]
-  float* dSs = Ps + kBQ * kLP;    // [row][key]
-  float* lse_s = dSs + kBQ * kLP;
+  float* dSs = Ps + kBQ * LK;     // [row][key]
+  float* lse_s = dSs + kBQ * LK;
   float* delta_s = lse_s + kBQ;
 
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y, b = blockIdx.z;
   const int TG = a.T * a.G;
   const int tid = threadIdx.x;
@@ -310,17 +339,17 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
   load_k_rows<D>(Vs, a.v, a, b, h, k0);
 
   // positions that can see this tile's keys, as flattened row tiles
-  const int k_last = min(k0 + kBK, a.S) - 1;
+  const int k_last = min(k0 + BK, a.S) - 1;
   const int t_begin = a.causal ? k0 : 0;
   const int t_end = a.window > 0 ? min(a.T, k_last + a.window) : a.T;
   const int rt_begin = t_begin * a.G / kBQ;
   const int rt_end = t_end > t_begin ? (t_end * a.G + kBQ - 1) / kBQ : rt_begin;
 
   const int ty = tid >> 4, tx = tid & 15;  // score stage: rows ty+16i, keys tx+16j
-  const int kx = tid >> 4, cy = tid & 15;  // dK/dV stage: keys 4kx..4kx+3, columns cy+16m
-  float dk[4][NC], dv[4][NC];
+  const int kx = tid >> 4, cy = tid & 15;  // dK/dV stage: keys KPT kx + i, columns cy+16m
+  float dk[KPT][NC], dv[KPT][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < KPT; ++i)
 #pragma unroll
     for (int m = 0; m < NC; ++m) dk[i][m] = dv[i][m] = 0.f;
 
@@ -337,43 +366,41 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
       delta_s[tid] = ok ? a.delta[si] : 0.f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[4][MJ], dp[4][MJ];
     scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MJ; ++j) {
         const int key = tx + 16 * j;
         const float p = visible(a, r0 + row, k0 + key)
                             ? expf(fmaf(s[i][j], a.scale, -lse_s[row])) : 0.f;
-        Ps[row * kLP + key] = p;
-        dSs[row * kLP + key] = p * (dp[i][j] - delta_s[row]);
+        Ps[row * LK + key] = p;
+        dSs[row * LK + key] = p * (dp[i][j] - delta_s[row]);
       }
     }
     __syncthreads();
 #pragma unroll 2
     for (int r = 0; r < kBQ; ++r) {
-      const float4 p4 = ld4(Ps + r * kLP + 4 * kx);
-      const float4 d4 = ld4(dSs + r * kLP + 4 * kx);
+      float pk[KPT], dsk[KPT];
+      ld_keys<KPT>(Ps + r * LK + KPT * kx, pk);
+      ld_keys<KPT>(dSs + r * LK + KPT * kx, dsk);
 #pragma unroll
       for (int m = 0; m < NC; ++m) {
         const float o = dOs[r * LD + cy + 16 * m];
         const float qv = Qs[r * LD + cy + 16 * m];
-        dv[0][m] = fmaf(p4.x, o, dv[0][m]);
-        dv[1][m] = fmaf(p4.y, o, dv[1][m]);
-        dv[2][m] = fmaf(p4.z, o, dv[2][m]);
-        dv[3][m] = fmaf(p4.w, o, dv[3][m]);
-        dk[0][m] = fmaf(d4.x, qv, dk[0][m]);
-        dk[1][m] = fmaf(d4.y, qv, dk[1][m]);
-        dk[2][m] = fmaf(d4.z, qv, dk[2][m]);
-        dk[3][m] = fmaf(d4.w, qv, dk[3][m]);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          dv[i][m] = fmaf(pk[i], o, dv[i][m]);
+          dk[i][m] = fmaf(dsk[i], qv, dk[i][m]);
+        }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * kx + i;
+  for (int i = 0; i < KPT; ++i) {
+    const int key = k0 + KPT * kx + i;
     if (key < a.S) {
       const size_t off = ((size_t)(b * a.S + key) * a.Hkv + h) * D;
 #pragma unroll
@@ -395,7 +422,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   err = allow_dynamic_smem(dkdv_kernel<D>, dkdv_smem, dkdv_set);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (a.T * a.G + kBQ - 1) / kBQ;
-  const int n_kt = (a.S + kBK - 1) / kBK;
+  const int n_kt = (a.S + Tile<D>::BK - 1) / Tile<D>::BK;
   if (n_qt > 0) {  // dQ, and delta for launch 2
     dq_kernel<D><<<dim3(n_qt, a.Hkv, B), kThreads, dq_smem, stream>>>(a);
     err = cudaGetLastError();
@@ -412,7 +439,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 // Plain C entry point, bound with ctypes.  All tensors f32 and contiguous:
 // q, o, dout, dq (B,T,Hq,D); k, v, dk, dv (B,S,Hkv,D); lse and the scratch
-// delta (B,Hq,T).  D is 64, 80 or 128; Hq a multiple of Hkv; q_offset 0.
+// delta (B,Hq,T).  D is 64, 80, 128 or 256; Hq a multiple of Hkv; q_offset 0.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
@@ -432,5 +459,6 @@ extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void
   if (D == 64) return bwd::launch<64>(a, B, st);
   if (D == 80) return bwd::launch<80>(a, B, st);
   if (D == 128) return bwd::launch<128>(a, B, st);
+  if (D == 256) return bwd::launch<256>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

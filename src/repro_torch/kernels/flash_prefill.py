@@ -25,9 +25,9 @@ registers, 116 B of spill stores at D 256 (the table in the CUDA source).
 The gradient: the JAX package trains by differentiating the jnp attention
 its forward calls; here that call is the kernel, so ``FlashPrefillFn``
 (a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
-backward launches ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128,
-``q_offset`` 0; see ``flash_prefill_bwd``).  Inputs without a backward
-kernel (bf16, D 256, ``q_offset``) raise when autograd would record them.
+backward launches ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128 /
+256, ``q_offset`` 0; see ``flash_prefill_bwd``).  Inputs without a backward
+kernel (bf16, ``q_offset``) raise when autograd would record them.
 
 A row with no valid key returns zeros, as ``repro.kernels.ref`` does.
 """
@@ -41,7 +41,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the forward kernel by dtype (bf16's wgmma layout takes 64-
 # column blocks), and of the backward kernel (f32 only)
 HEAD_DIMS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256)}
-BWD_HEAD_DIMS = (64, 80, 128)
+BWD_HEAD_DIMS = (64, 80, 128, 256)
 MAX_GROUP = 64            # query heads per kv head in one tile
 
 
@@ -99,15 +99,23 @@ def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):
         return torch.autograd.grad(o, (qq, kk, vv), dout)
 
 
+def bwd_key_tile(D: int) -> int:
+    """Keys per kv tile of the backward kernel at head dim D (its q tiles
+    hold 64 rows): 32 at D 256, where 64-key tiles would not fit a block's
+    shared memory, else 64."""
+    return 32 if D > 128 else 64
+
+
 def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
-                                  window=0, block=64):
+                                  window=0):
     """The backward kernel's own algorithm in plain f32 PyTorch: the G
     query heads of a kv head flattened into T*G rows (row t*G + g), P
-    recomputed from ``lse`` on 64 x 64 tiles, delta = rowsum(dO*O); dK and
-    dV summed over the q tiles that can see each key tile (launch 2), dQ
-    over the key tiles each q tile can see (launch 1), each tile range
-    chosen as the kernel chooses it."""
+    recomputed from ``lse`` on 64-row x ``bwd_key_tile(D)``-key tiles,
+    delta = rowsum(dO*O); dK and dV summed over the q tiles that can see
+    each key tile (launch 2), dQ over the key tiles each q tile can see
+    (launch 1), each tile range chosen as the kernel chooses it."""
     B, T, Hq, D = q.shape
+    bq, bk = 64, bwd_key_tile(D)
     S, Hkv = k.shape[1], k.shape[2]
     G, TG, scale = Hq // Hkv, T * (Hq // Hkv), D ** -0.5
 
@@ -137,24 +145,24 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
         return p, p * (dp - delta[:, :, r0:r1, None])
 
     dq = torch.zeros_like(qf)
-    for r0 in range(0, TG, block):                  # launch 1: dQ
-        r1 = min(r0 + block, TG)
+    for r0 in range(0, TG, bq):                     # launch 1: dQ
+        r1 = min(r0 + bq, TG)
         t_lo, t_hi = r0 // G, (r1 - 1) // G
         k_end = min(S, t_hi + 1) if causal else S
-        k_begin = (max(0, t_lo - window + 1) if window else 0) // block
-        for k0 in range(k_begin * block, k_end, block):
-            k1 = min(k0 + block, S)
+        k_begin = (max(0, t_lo - window + 1) if window else 0) // bk
+        for k0 in range(k_begin * bk, k_end, bk):
+            k1 = min(k0 + bk, S)
             _, ds = tile(r0, r1, k0, k1)
             dq[:, :, r0:r1] += ds @ kf[:, :, k0:k1]
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for k0 in range(0, S, block):                   # launch 2: dK, dV
-        k1 = min(k0 + block, S)
+    for k0 in range(0, S, bk):                      # launch 2: dK, dV
+        k1 = min(k0 + bk, S)
         t_begin = k0 if causal else 0
         t_end = min(T, k1 - 1 + window) if window else T
         if t_end <= t_begin:
             continue
-        for r0 in range(t_begin * G // block * block, t_end * G, block):
-            r1 = min(r0 + block, TG)
+        for r0 in range(t_begin * G // bq * bq, t_end * G, bq):
+            r1 = min(r0 + bq, TG)
             p, ds = tile(r0, r1, k0, k1)
             dv[:, :, k0:k1] += p.transpose(-1, -2) @ df[:, :, r0:r1]
             dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qf[:, :, r0:r1]
@@ -262,7 +270,7 @@ def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
     (B,T,Hq,D) in q's dtype.  CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise.  Where autograd records the call
     (an input requires grad), a CUDA call goes through ``FlashPrefillFn``
-    and its backward kernel, or raises where there is none (bf16, D 256,
+    and its backward kernel, or raises where there is none (bf16,
     ``q_offset``)."""
     _check(q, k, v)
     if _on_cpu(q, k, v):
@@ -286,7 +294,7 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
     from its output ``o``, the output's gradient ``dout`` and the forward's
     row log-sum-exp ``lse`` (B, Hq, T).  CPU tensors take the plain version
     (autograd of ``flash_prefill_plain``); CUDA tensors launch
-    ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128) or raise."""
+    ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128 / 256) or raise."""
     _check(q, k, v)
     B, T, Hq, D = q.shape
     if o.shape != q.shape or dout.shape != q.shape or \

@@ -31,6 +31,15 @@ decay factor is <= 1 (see the source note), so the kernel stays finite
 where the reference's ``k * exp(-cum)`` overflows, and every sum is taken
 in a fixed order, so two calls give the same bits.
 ``rwkv6_scan.launches`` counts calls, each of them three grid launches.
+
+The gradient: the JAX package trains by differentiating
+``rwkv6_chunked_jnp``; here that call is the kernel, so ``Rwkv6ScanFn``
+saves the forward's scratch (the state entering each chunk), and its
+backward launches ``csrc/rwkv6_scan_bwd.cu``
+(``rwkv6_scan_bwd``, D 64): the state gradients entering each chunk, last
+chunk first, then dr, dk, dv, dw and du chunk by chunk (see the source
+note), with every exponent <= 0 as in the forward.
+``rwkv6_scan_bwd.launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64,)   # head dims of the backward kernel (rwkv6-3b's)
 RWKV_CHUNK = 128        # chunk of ``rwkv6_chunked_jnp`` (layers.py RWKV_CHUNK)
 KERNEL_CHUNK = 64       # time steps per chunk of csrc/rwkv6_scan.cu
 
@@ -89,14 +99,29 @@ def rwkv6_scan_plain(r, k, v, w, u, s0=None):
     return o, S
 
 
-def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """WKV6 over a whole sequence: r, k, v, w (B,T,H,D) float32, u (H,D)
-    float32, optional initial state s0 (B,H,D,D) float32.  Returns (o
-    (B,T,H,D), final state (B,H,D,D)), float32.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise (on an input that
-    requires grad while grad is enabled, too: the kernel has no
-    backward)."""
+def rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds_final=None):
+    """(dr, dk, dv, dw, du, ds0 or None): autograd of ``rwkv6_scan_plain``
+    with the cotangents ``do`` of o and ``ds_final`` (or none) of the final
+    state."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        if s0 is not None:
+            ins.append(s0.detach().requires_grad_())
+        o, state = rwkv6_scan_plain(*ins[:5], ins[5] if s0 is not None
+                                    else None)
+        outs, cots = [o], [do]
+        if ds_final is not None:
+            outs.append(state)
+            cots.append(ds_final)
+        grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, ins)]
+    return (*grads[:5], grads[5] if s0 is not None else None)
+
+
+def _check(r, k, v, w, u, s0):
+    """The inputs' tensors (s0 left out when None); raises on shapes that do
+    not match."""
     if r.ndim != 4 or not (r.shape == k.shape == v.shape == w.shape):
         raise ValueError(f"bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} w{tuple(w.shape)}")
@@ -106,32 +131,96 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
         raise ValueError(f"u{tuple(u.shape)} / s0"
                          f"{None if s0 is None else tuple(s0.shape)} do not "
                          f"match r{tuple(r.shape)}")
-    tensors = [t for t in (r, k, v, w, u, s0) if t is not None]
-    if all(t.device.type == "cpu" for t in tensors):
-        return rwkv6_scan_plain(r, k, v, w, u, s0)
+    return [t for t in (r, k, v, w, u, s0) if t is not None]
+
+
+def _check_cuda(name, tensors, head_dims):
+    r = tensors[0]
     if not (r.is_cuda and all(t.device == r.device for t in tensors)):
-        raise ValueError("rwkv6_scan: all inputs must lie on one CUDA device "
+        raise ValueError(f"{name}: all inputs must lie on one CUDA device "
                          "(or all on the CPU)")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("rwkv6_scan: float32 inputs; got "
+        raise TypeError(f"{name}: float32 inputs; got "
                         f"{[str(t.dtype) for t in tensors]}")
-    if D not in HEAD_DIMS:
+    D = r.shape[3]
+    if D not in head_dims:
         raise NotImplementedError(
-            f"rwkv6_scan kernel: head_dim in {HEAD_DIMS}; got D={D}")
+            f"{name} kernel: head_dim in {head_dims}; got D={D}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
-        raise ValueError("rwkv6_scan: inputs must be contiguous and 16-byte "
+        raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
                          "aligned (the kernel moves 16 bytes at a time)")
-    _build.refuse_grad("rwkv6_scan", *tensors)
+
+
+def _aligned(x):
+    """x contiguous and 16-byte aligned (a copy where it is not)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+class Rwkv6ScanFn(torch.autograd.Function):
+    """``rwkv6_scan`` with a gradient: the forward launches the kernel and
+    saves its scratch (the states entering the chunks), the backward
+    launches the backward kernel (``rwkv6_scan_bwd``).  CPU tensors
+    take the plain versions on both sides."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        if r.device.type == "cpu":
+            o, state = rwkv6_scan_plain(r, k, v, w, u, s0)
+            scratch = None
+        else:
+            o, state, scratch = _forward_kernel(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0, scratch)
+        return o, state
+
+    @staticmethod
+    def backward(ctx, do, ds_final):
+        r, k, v, w, u, s0, scratch = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        return rwkv6_scan_bwd(r, k, v, w, u, s0, _aligned(do),
+                              None if ds_final is None
+                              else _aligned(ds_final), s_in=scratch)
+
+
+def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV6 over a whole sequence: r, k, v, w (B,T,H,D) float32, u (H,D)
+    float32, optional initial state s0 (B,H,D,D) float32.  Returns (o
+    (B,T,H,D), final state (B,H,D,D)), float32.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise.  Where autograd
+    records a CUDA call (an input requires grad), it goes through
+    ``Rwkv6ScanFn`` and the backward kernel, or raises at a head dim the
+    backward kernel does not take (``BWD_HEAD_DIMS``)."""
+    tensors = _check(r, k, v, w, u, s0)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rwkv6_scan_plain(r, k, v, w, u, s0)
+    _check_cuda("rwkv6_scan", tensors, HEAD_DIMS)
+    if _build.wants_grad(*tensors):
+        D = r.shape[3]
+        if D not in BWD_HEAD_DIMS:
+            _build.refuse_grad("rwkv6_scan", *tensors, why=(
+                f" at head_dim {D} (only {BWD_HEAD_DIMS})"))
+        return Rwkv6ScanFn.apply(r, k, v, w, u, s0)
+    return _forward_kernel(r, k, v, w, u, s0)[:2]
+
+
+def _forward_kernel(r, k, v, w, u, s0):
+    """Launch the forward kernel on checked CUDA inputs, counting it: (o,
+    final state, scratch), the scratch's first B*H*n*D*D floats the state
+    entering each chunk."""
+    B, T, H, D = r.shape
     o = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
-    if B == 0 or H == 0:
-        return o, state
     # per chunk: its state delta, then the state entering it (D*D), and its
     # decay (D)
     n = -(-T // KERNEL_CHUNK)
     scratch = torch.empty(B * H * n * (D * D + D), dtype=torch.float32,
                           device=r.device)
+    if B == 0 or H == 0:
+        return o, state, scratch
     lib = _build.load()
     with torch.cuda.device(r.device):
         err = lib.rwkv6_scan_launch(
@@ -141,7 +230,61 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
-    return o, state
+    return o, state, scratch
 
 
 rwkv6_scan.launches = 0    # calls (3 grid launches each) since the last reset
+
+
+def rwkv6_scan_bwd(r, k, v, w, u, s0, do, ds_final=None, *, s_in=None):
+    """The gradient (dr, dk, dv, dw, du, ds0 or None) of ``rwkv6_scan(r, k,
+    v, w, u, s0)`` from the cotangents ``do`` (B,T,H,D) of o and
+    ``ds_final`` (B,H,D,D, or None for zero) of the final state.  CPU
+    tensors take the plain version (autograd of ``rwkv6_scan_plain``);
+    CUDA tensors launch ``csrc/rwkv6_scan_bwd.cu`` (D 64) or raise, and
+    need ``s_in``: the forward kernel's scratch, as ``_forward_kernel``
+    returns it."""
+    tensors = _check(r, k, v, w, u, s0)
+    if do.shape != r.shape or (ds_final is not None and tuple(
+            ds_final.shape) != (r.shape[0], r.shape[2], r.shape[3],
+                                r.shape[3])):
+        raise ValueError(f"rwkv6_scan_bwd: do{tuple(do.shape)} / ds_final"
+                         f"{None if ds_final is None else tuple(ds_final.shape)}"
+                         f" do not match r{tuple(r.shape)}")
+    extra = [t for t in (do, ds_final) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors + extra):
+        return rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds_final)
+    if s_in is None:
+        raise ValueError("rwkv6_scan_bwd: CUDA inputs need the forward "
+                         "kernel's scratch")
+    _check_cuda("rwkv6_scan_bwd", tensors + extra + [s_in], BWD_HEAD_DIMS)
+    B, T, H, D = r.shape
+    n = -(-T // KERNEL_CHUNK)
+    if s_in.numel() < B * H * n * D * D:
+        raise ValueError("rwkv6_scan_bwd: the forward's scratch is too small")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if B == 0 or H == 0:
+        du.zero_()
+        return dr, dk, dv, dw, du, ds0
+    # per chunk: the local state term, then dS_out (D*D); its decay and its
+    # share of du (D each)
+    bwd_scratch = torch.empty(B * H * n * (D * D + 2 * D),
+                              dtype=torch.float32, device=r.device)
+    lib = _build.load()
+    with torch.cuda.device(r.device):
+        err = lib.rwkv6_scan_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), do.data_ptr(),
+            None if ds_final is None else ds_final.data_ptr(),
+            s_in.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            None if ds0 is None else ds0.data_ptr(), bwd_scratch.data_ptr(),
+            B, T, H, D, torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "rwkv6_scan_bwd")
+    rwkv6_scan_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+rwkv6_scan_bwd.launches = 0    # calls (4 grid launches each) since the last reset

@@ -251,8 +251,9 @@ def _grad_calls():
 def test_plain_paths_carry_gradients(name):
     """On CPU tensors each wrapper runs its plain version, which autograd
     records: every input that requires grad gets a finite, non-zero
-    gradient.  (On CUDA tensors the wrappers refuse such inputs: the
-    kernels have no backward; chip_smoke.py checks that on the card.)"""
+    gradient.  (On CUDA tensors flash_prefill in f32 and the scans go
+    through their backward kernels, and decode_attention refuses such
+    inputs; chip_smoke.py checks both on the card.)"""
     call, inputs = _grad_calls()[name]
     out = call()
     assert out.grad_fn is not None
@@ -263,11 +264,12 @@ def test_plain_paths_carry_gradients(name):
 
 
 def test_refuse_grad_raises_only_where_autograd_would_record():
-    """The wrappers of kernels without a backward (decode_attention and the
-    scans; flash_prefill where ``no_backward_reason`` gives one) raise
-    through this on CUDA inputs, only where autograd would record the
-    call; flash_prefill's backward kernel covers f32 at D 64 / 80 / 128
-    without a q_offset and nothing else."""
+    """The wrappers of kernels without a backward for their inputs
+    (decode_attention; flash_prefill where ``no_backward_reason`` gives
+    one; rwkv6_scan outside ``BWD_HEAD_DIMS``) raise through this on CUDA
+    inputs, only where autograd would record the call; flash_prefill's
+    backward kernel covers f32 at D 64 / 80 / 128 / 256 without a q_offset
+    and nothing else."""
     from repro_torch.kernels import _build
     x, y = torch.zeros(3, requires_grad=True), torch.zeros(3)
     with pytest.raises(RuntimeError, match="no backward for bf16"):
@@ -277,10 +279,10 @@ def test_refuse_grad_raises_only_where_autograd_would_record():
     with torch.no_grad():
         assert not _build.wants_grad(y, x)
         _build.refuse_grad("k", y, x)
-    for D in (64, 80, 128):
+    for D in (64, 80, 128, 256):
         assert FP.no_backward_reason(torch.float32, D, 0) == ""
     assert FP.no_backward_reason(torch.bfloat16, 128, 0)
-    assert FP.no_backward_reason(torch.float32, 256, 0)
+    assert FP.no_backward_reason(torch.float32, 96, 0)
     assert FP.no_backward_reason(torch.float32, 128, 64)
 
 
@@ -408,13 +410,13 @@ BWD_RTOL = 1e-5
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 24)])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2)])
-@pytest.mark.parametrize("D", [64, 80])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (10, 1)])
+@pytest.mark.parametrize("D", [64, 80, 256])
 def test_flash_prefill_bwd_tiled_plain_matches_autograd(causal, window, Hq,
                                                         Hkv, D):
-    """T and S off the 64-row / 64-key tiles (T*G rows as the kernel
-    flattens them); at S < T under a window, rows with no valid key
-    (log-sum-exp -inf) get zero gradients."""
+    """T and S off the 64-row / 64-key tiles (32-key at D 256; T*G rows as
+    the kernel flattens them, G 1 / 4 / 10); at S < T under a window, rows
+    with no valid key (log-sum-exp -inf) get zero gradients."""
     rng = np.random.default_rng(3)
     B, T, S = 2, 90, 90 if causal else 70
     q, do = (torch.from_numpy(rng.normal(size=(B, T, Hq, D)).astype(

@@ -144,7 +144,8 @@ def test_loss_and_grads_match_the_reference(arch):
                                    err_msg=f"{arch} gradient leaf {i}")
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "hubert-xlarge", "rwkv6-3b",
+                                  "recurrentgemma-2b"])
 def test_train_step_loss_curve_matches_step_fn(arch):
     """Three steps of the port's ``train_step`` against the reference's
     ``step_fn`` (``jax.value_and_grad`` of its loss, then its AdamW, as
