@@ -31,7 +31,9 @@ Phases, in order (all by default):
    (o and state).  Prints the error
    against the tolerance and the kernel's, the plain version's and (for
    attention) ``scaled_dot_product_attention``'s times beside the least
-   time the card could take (``bound_ms``).  ``ms``, ``plain_ms`` and
+   time the card could take (``bound_ms``; f32 operations at 3xTF32 on the
+   tensor cores, 165 TFLOP/s, the rate of the f32 attention kernels'
+   products; the share is bound / device time).  ``ms``, ``plain_ms`` and
    ``library_ms`` are means of back-to-back calls, host launch overhead
    included where a call is shorter on the card than on the host;
    ``device_ms`` and ``library_device_ms`` time the same calls behind a
@@ -44,8 +46,10 @@ Phases, in order (all by default):
    window).  The backward kernel (``flash_prefill_bwd``: dQ, dK, dV)
    against autograd of the plain version on the card, at D 64 / 80 / 128 /
    256, G 1 / 4 / 10 / 16, causal / bidirectional / window, T off the
-   tiles, and at the three training shapes, with the time of autograd's
-   backward through ``scaled_dot_product_attention`` beside it.  The scans'
+   tiles, at D 256 with its dK/dV launch split over 4 and 3 q-tile ranges
+   and not split, and at the three training shapes, with the time of
+   autograd's backward through ``scaled_dot_product_attention`` beside
+   it.  The scans'
    backward kernels (``rwkv6_scan_bwd``, ``rglru_scan_bwd``) at their
    training shapes and off them, against autograd of the plain versions,
    and ``rwkv6_scan_bwd`` under fast decays and w under its clamp against
@@ -134,10 +138,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("build", "kernels", "parity", "serve", "train")
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them,
-# HBM3 rate.  f32 work is counted at the f32 rate: rwkv6_scan's 3xTF32
-# products on the tensor cores cost three TF32 products (495 TFLOP/s) each.
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 rate.  f32
+# work is counted at 3xTF32 on the tensor cores, 495 TFLOP/s / 3: the least
+# time the card takes for a product that holds f32 accuracy (the attention
+# kernels and rwkv6_scan's run their products so; the CUDA cores' 67 TFLOP/s
+# of IEEE f32 is slower)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # |kernel - plain| <= atol + atol_rms * rms(plain) + rtol * |plain| per
 # element, for both kernels.  Both sides round p to the input dtype before
@@ -159,10 +165,12 @@ TOL["rwkv6"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
 TOL["rglru"] = dict(atol=1e-5, atol_rms=0.0, rtol=1e-5)
 # flash_prefill_bwd (f32) against autograd of the plain version: both sum
 # the same products over up to T*G rows or S keys in another order (the
-# kernel over 64 x 64 tiles, with P recomputed from the log-sum-exp), so
-# the error scales with each gradient's size: 1e-4 of its rms, and of
-# |plain| (the CPU emulation of the kernel's algorithm agrees with
-# autograd to 1e-6 of the largest element: tests/test_torch_kernels.py)
+# kernel over its own tiles, 32-128 rows by 16-128 keys, with P recomputed
+# from the log-sum-exp, dK/dV split over q-tile ranges where the card would
+# not fill, every product in 3xTF32 on the tensor cores), so the error
+# scales with each gradient's size: 1e-4 of its rms, and of |plain| (the
+# CPU emulation of the kernel's algorithm, TF32 rounding included, holds
+# it with a worst element near 0.05: tests/test_torch_attention_design.py)
 TOL["grad"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
 # model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
 # products (and rwkv6_scan its T*D-term sums) in another order than the CPU
@@ -471,7 +479,8 @@ def run_kernels(torch, rng, results):
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"(device: kernel {dev_ms:.4f}, library {lib_dev_ms:.4f}) "
-                f"bound_ms={b_ms:.4f} ({b_by}) achieved on the device "
+                f"bound_ms={b_ms:.4f} ({b_by}; share "
+                f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
                 f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
                 f"{ops / lib_dev_ms * 1e-9:.1f})")
             if dtype == torch.bfloat16 or case in FLASH_F32_CASES:
@@ -669,12 +678,17 @@ BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
     (None, 1, 100, 260, 4, 1, 64, False, 0),        # S != T, G 4
     (None, 1, 65, 65, 16, 1, 80, True, 0),          # G 16 at D 80
     (None, 1, 200, 60, 4, 2, 64, True, 20),         # rows with no key
-    # head_dim 256 (32-key tiles): recurrentgemma-2b's training shape, its
-    # window off the tiles, bidirectional at G 2, rows with no key
+    # head_dim 256 (two warps a 16-row or 16-key group, each over half of
+    # D): recurrentgemma-2b's training shape, its window off the tiles,
+    # bidirectional at G 2, rows with no key; the dK/dV launch split over
+    # 4 q-tile ranges (all of these), over 3 (128 blocks), and not split
+    # (320 blocks: two waves)
     ((TRAIN_RG,), 1, 4096, 4096, 10, 1, 256, True, 2048),
     (None, 1, 300, 300, 10, 1, 256, True, 100),
     (None, 1, 333, 333, 4, 2, 256, False, 0),
     (None, 1, 200, 60, 10, 1, 256, True, 20),
+    (None, 1, 1024, 1024, 8, 8, 256, False, 0),
+    (None, 2, 1024, 1024, 10, 10, 256, True, 0),
 ]
 
 
@@ -688,6 +702,7 @@ def run_bwd_kernel(torch, rng, results) -> bool:
     from repro_torch.kernels import flash_prefill as FP
 
     dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape):
         x = rng.standard_normal(shape, "float32")
@@ -732,7 +747,9 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         err = max(c[1] for c in checks)
         all_ok &= ok
         log(f"flash_prefill_bwd float32 B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
-            f"D={D} causal={causal} window={window}: dq/dk/dv max_abs_err "
+            f"D={D} causal={causal} window={window} (dK/dV over "
+            f"{FP.bwd_split(B, Hkv, S, D, n_sm)} q-tile ranges): dq/dk/dv "
+            f"max_abs_err "
             + "/".join(f"{c[1]:.3e}" for c in checks) + " (worst elements at "
             + "/".join(f"{c[2]:.3f}" for c in checks) + f" of their limits; "
             f"{tol_text('grad')}), two calls bit-identical: {same} "

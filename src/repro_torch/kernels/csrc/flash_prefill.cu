@@ -11,16 +11,20 @@
 //
 // Layout (both kernels).  One thread block per (q tile, kv head, batch).
 // The tile holds the G = Hq/Hkv query heads of that kv head for
-// block_q = 64/G query positions, stacked as rows (row = i*G + g), so K/V
-// are read once per tile and never repeated; rows past G*block_q are
-// masked (G 10 uses 60 of 64).  The TPU grid's sequential kv axis, with
-// m/l/acc in VMEM scratch, becomes a loop over key tiles inside the block;
-// only the key tiles that the causal and window masks leave open are
-// visited, and the masks are applied only on the tiles that straddle them.
+// block_q = R/G query positions (R = 64 rows, 128 for f32 below D 256),
+// stacked as rows (row = i*G + g), so K/V are read once per tile and never
+// repeated; rows past G*block_q are not written (G 10 uses 60 of 64).  The
+// TPU grid's sequential kv axis, with m/l/acc in VMEM scratch, becomes a
+// loop over key tiles inside the block; only the key tiles that the causal
+// and window masks leave open are visited, and the masks are applied only
+// on the tiles that straddle them.  Under causal masks the heaviest q tiles
+// are launched first (the q-tile index is the slowest-moving part of a flat
+// grid, reversed).
 //
 // What bounds it on the H100: operations.  At llama3-8b (T=1024, causal)
 // the work is ~8.6 GFLOP, ~9 us at the 989 TFLOP/s bf16 tensor-core peak,
-// against ~21 MB (~6 us at 3.35 TB/s).
+// against ~21 MB (~6 us at 3.35 TB/s); in f32 at the f32-accurate rate of
+// the tensor cores (3xTF32, 495 / 3 TFLOP/s) ~52 us.
 //
 // bf16 (`tc::`, every served path): QK^T and P.V on the tensor cores with
 // wgmma (bf16 operands, f32 sums), one warpgroup per block, warp w owning
@@ -36,27 +40,38 @@
 // generic-proxy copies to wgmma's async proxy).  Each tile's two GEMMs are
 // issued and waited for in turn; overlapping one tile's softmax with the
 // next tile's Q K^T (two warpgroups in ping-pong, TMA loads) is the next
-// step.  Under causal masks the heaviest q tiles are launched first (the
-// q-tile index is the slowest-moving part of a flat grid, reversed).
+// step.
 //
-// f32 (`f32::`, no served path; the models' f32 parity runs and training):
-// products are IEEE f32 FMAs on the CUDA cores (no TF32), 32-key tiles
-// widened to f32 in shared memory, 256 threads (320 at D 80, hubert-xlarge:
-// see Shape): lane j holds key j of the tile and warp w the rows w, w+8,
-// ...; in P.V thread (row group, d) owns column d.  On request it writes
-// each row's log-sum-exp m + log l (f32, (B, Hq, T); -inf for a row with
-// no valid key), which flash_prefill_bwd.cu reads.
+// f32 (`f32::`, no served path; the models' f32 parity runs and training,
+// head_dim 64, 80, 128, 256): both products on the tensor cores as
+// mma.sync m16n8k8 TF32 in the 3xTF32 split (common.cuh), which keeps ~22
+// bits of each operand and so the f32 limit (one TF32 pass misses it 17-55
+// times: tests/test_torch_attention_design.py).  8 warps (4 at D 256), warp
+// w owning rows 16w..16w+15; Q and a 2-stage cp.async ring of 64-key K/V
+// tiles (32 at D 256, where shared memory and the 128-register output
+// accumulator run out) stay f32 in shared memory, rows padded to D + 4
+// floats so that the lanes of each fragment load hit 32 banks; operands
+// are split into big and small TF32 parts as the fragments are loaded (a
+// split tile would not fit at D 256).  The softmax of a row stays in the 4
+// lanes that hold it; P passes from the score accumulator to the A
+// fragment of P V in registers, its key order taken as the fragment's
+// column order (keys 2q, 2q+1 as columns q, q+4) and V's rows read alike.
+// Each tile's P V is summed in a fresh accumulator and added to O in f32
+// (round to nearest): the tensor cores' own sums truncate, and chained over
+// every key tile that bias grows with S.  On request it writes each row's
+// log-sum-exp m + log l (f32, (B, Hq, T); -inf for a row with no valid
+// key), which flash_prefill_bwd.cu reads.  wgmma in TF32 (it wants both
+// operands K-major, so V transposed in shared memory) is the next step.
 //
 // ptxas (-Xptxas -v, sm_90a) and the dynamic shared memory of each
 // instantiation; no static shared memory:
 //   tc<64>   117 registers, no spills,  41,984 B
 //   tc<128>  150 registers, no spills,  82,944 B (2 blocks per SM)
 //   tc<256>  213 registers, no spills, 164,864 B (1 block per SM)
-//   f32<64>   88 registers, no spills,  41,600 B
-//   f32<80>   94 registers, no spills,  57,088 B (320 threads)
-//   f32<128> 128 registers, no spills,  74,368 B
-//   f32<256> 128 registers, 116 B of spill stores, 404 B of spill loads,
-//            139,904 B
+//   f32<64>  182 registers, no spills, 104,448 B (1 block of 8 warps per SM)
+//   f32<80>  195 registers, no spills, 129,024 B (1 block of 8 warps)
+//   f32<128> 255 registers, no spills, 202,752 B (1 block of 8 warps)
+//   f32<256> 255 registers, no spills, 199,680 B (1 block of 4 warps)
 #include <math.h>
 #include <stdint.h>
 
@@ -68,203 +83,244 @@ namespace {
 // ---------------------------------------------------------------- f32 --
 namespace f32 {
 
-// The block's shape at head_dim D: 256 threads and 64 rows where D divides
-// 256; at D 80 (hubert-xlarge), 320 threads (4 row groups of 80 columns in
-// the P.V stage) and 80 rows, so that every thread keeps 8 score rows and
-// 20 output rows as at D 64.
+// The block's shape at head_dim D: warps of 16 rows each, K/V tiles of kBK
+// keys in a 2-stage ring, every tile's rows padded to LD floats (LD = 4 or
+// 20 mod 32, so that the 32 lanes of a fragment load hit 32 banks).  At D
+// 256 the ring and the Q tile fill the shared memory with 4 warps and
+// 32-key tiles, and a warp's output accumulator takes 128 registers a lane.
 template <int D>
-struct Shape {
-  static constexpr int kThreads = (256 % D == 0) ? 256 : 4 * D;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kRows = (256 % D == 0) ? 64 : 80;  // G * block_q rows
-  static constexpr int kRowsPerWarp = kRows / kWarps;      // score rows a warp
-  static constexpr int kRG = kThreads / D;                 // P.V row groups
-  static constexpr int kAccRows = kRows / kRG;             // P.V rows a thread
-  static_assert(kThreads % D == 0 && kRows % kWarps == 0 && kRows % kRG == 0,
+struct Tile {
+  static constexpr int kWarps = D > 128 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // G * block_q rows
+  static constexpr int kBK = D > 128 ? 32 : 64;
+  static constexpr int LD = D + 4;
+  static constexpr int NT = kBK / 8;    // 8-key column tiles of S
+  static constexpr int ND = D / 8;      // 8-column tiles of O
+  // O column tiles summed per pass over a key tile (registers)
+  static constexpr int NC = ND <= 10 ? ND : (D > 128 ? 4 : 8);
+  static_assert(D % 8 == 0 && ND % NC == 0 && (LD % 32 == 4 || LD % 32 == 20),
                 "f32 flash_prefill: unsupported head_dim");
 };
-constexpr int kBK = 32;  // keys per tile, one per lane
 
 template <int D>
-constexpr size_t smem_floats() {
-  constexpr int R = Shape<D>::kRows;
-  return R * D             // Q tile
-         + kBK * (D + 1)   // K tile, padded: lane j reads row j conflict-free
-         + kBK * D         // V tile
-         + R * kBK         // P tile
-         + 2 * R;          // alpha, l
+constexpr size_t smem_bytes() {
+  return (size_t)(Tile<D>::kRows + 4 * Tile<D>::kBK) * Tile<D>::LD * sizeof(float);
 }
 
 // lse (nullable): the f32 (B, Hq, T) log-sum-exp m + log l of each row's
 // scaled scores, -inf for a row with no valid key (the backward's input).
-template <typename T, int D>
-__global__ void __launch_bounds__(Shape<D>::kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int T_len, int S, int Hq,
-                     int Hkv, int G, int block_q, int causal, int window,
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int B, int T_len, int S, int Hq,
+                     int Hkv, int G, int block_q, int n_qt, int causal, int window,
                      int q_offset, float scale) {
-  using Sh = Shape<D>;
-  constexpr int kThreads = Sh::kThreads, kWarps = Sh::kWarps;
-  constexpr int kRows = Sh::kRows, kRowsPerWarp = Sh::kRowsPerWarp;
-  constexpr int kRG = Sh::kRG, kAccRows = Sh::kAccRows;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kRows * D;
-  float* Vs = Ks + kBK * (D + 1);
-  float* Ps = Vs + kBK * D;
-  float* alpha_s = Ps + kRows * kBK;
-  float* l_s = alpha_s + kRows;
+  using Tl = Tile<D>;
+  constexpr int kThreads = Tl::kThreads, kRows = Tl::kRows, BK = Tl::kBK;
+  constexpr int LD = Tl::LD, NT = Tl::NT, ND = Tl::ND, NC = Tl::NC;
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kRows * LD;      // [2] stages of BK rows
+  float* Vs = Ks + 2 * BK * LD;     // [2] stages of BK rows
 
-  constexpr int V = vec_width<T>();
-  const int t0 = blockIdx.x * block_q;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nt = min(block_q, T_len - t0);  // query positions in this tile
+  const int hb = Hkv * B;
+  const int rank = blockIdx.x / hb;
+  const int qt = causal ? n_qt - 1 - rank : rank;  // heaviest causal tiles first
+  const int h = (blockIdx.x % hb) % Hkv;
+  const int b = (blockIdx.x % hb) / Hkv;
+  const int t0 = qt * block_q;
+  const int nt = min(block_q, T_len - t0);
   const int rows = nt * G;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // Q tile: for query i the G heads of kv head h are G*D contiguous values.
-  const int q_chunks = G * D / V;
-  for (int c = tid; c < block_q * q_chunks; c += kThreads) {
-    const int i = c / q_chunks, cc = c % q_chunks;
-    float* dst = Qs + i * G * D + cc * V;
-    if (i < nt) {
-      load_vec(q + ((size_t)(b * T_len + t0 + i) * Hq + h * G) * D + cc * V, dst);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) dst[e] = 0.f;
-    }
-  }
-
-  float m_r[kRowsPerWarp], l_r[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m_r[i] = -INFINITY;
-    l_r[i] = 0.f;
-  }
-  const int d = tid % D, rg = tid / D;
-  float acc[kAccRows];
-#pragma unroll
-  for (int i = 0; i < kAccRows; ++i) acc[i] = 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
 
   // keys that the masks can leave open for this tile's query positions
-  const int p_lo = q_offset + t0, p_hi = q_offset + t0 + nt - 1;
+  const int p_lo = q_offset + t0, p_hi = p_lo + nt - 1;
   const int k_end = causal ? min(S, p_hi + 1) : S;
   int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
-  k_begin = (k_begin / kBK) * kBK;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const int k_chunks = D / V;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // previous tile's Ks/Vs/Ps reads are done
-    for (int c = tid; c < kBK * k_chunks; c += kThreads) {
-      const int j = c / k_chunks, cc = c % k_chunks;
-      float tk[V], tv[V];
-      if (k0 + j < S) {
-        const size_t off = ((size_t)(b * S + k0 + j) * Hkv + h) * D + cc * V;
-        load_vec(k + off, tk);
-        load_vec(v + off, tv);
-      } else {  // zeros, so that p = 0 never meets a NaN of stale memory
-#pragma unroll
-        for (int e = 0; e < V; ++e) tk[e] = tv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        Ks[j * (D + 1) + cc * V + e] = tk[e];
-        Vs[j * D + cc * V + e] = tv[e];
-      }
-    }
-    __syncthreads();
-
-    // scores for (row, key lane), then the online-softmax update per row
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const float* krow = Ks + lane * (D + 1);
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      const float kv = krow[dd];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        s[i] = fmaf(Qs[(warp + kWarps * i) * D + dd], kv, s[i]);
-    }
-    const int kp = k0 + lane;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp + kWarps * i;
-      const int qp = q_offset + t0 + row / G;
-      bool ok = kp < S && row < rows;
-      if (causal) ok = ok && kp <= qp;
-      if (window > 0) ok = ok && kp > qp - window;
-      const float sv = ok ? s[i] * scale : -INFINITY;
-      const float m_new = fmaxf(m_r[i], warp_max(sv));
-      float p = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {
-        p = ok ? expf(sv - m_new) : 0.f;
-        alpha = expf(m_r[i] - m_new);
-      }
-      l_r[i] = alpha * l_r[i] + warp_sum(p);
-      m_r[i] = m_new;
-      Ps[row * kBK + lane] = round_to<T>(p);
-      if (lane == 0) alpha_s[row] = alpha;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P.V
-#pragma unroll
-    for (int i = 0; i < kAccRows; ++i) acc[i] *= alpha_s[rg + kRG * i];
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float vv = Vs[j * D + d];
-#pragma unroll
-      for (int i = 0; i < kAccRows; ++i)
-        acc[i] = fmaf(Ps[(rg + kRG * i) * kBK + j], vv, acc[i]);
-    }
+  // Q rows (row r: position t0 + r / G, head h * G + r % G), zeros past
+  // `rows`; K/V rows zero past S, so that p = 0 never meets stale memory
+  for (int c = tid; c < kRows * CH; c += kThreads) {
+    const int r = c / CH, cc = c % CH;
+    const bool ok = r < rows;
+    const float* src =
+        ok ? q + ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 4 : q;
+    cp_async16(Qs + r * LD + cc * 4, src, ok);
   }
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = k_begin + tile * BK;
+    for (int c = tid; c < BK * CH; c += kThreads) {
+      const int j = c / CH, cc = c % CH;
+      const bool ok = k0 + j < S;
+      const size_t off = ok ? ((size_t)(b * S + k0 + j) * Hkv + h) * D + cc * 4 : 0;
+      cp_async16(Ks + (stage * BK + j) * LD + cc * 4, k + off, ok);
+      cp_async16(Vs + (stage * BK + j) * LD + cc * 4, v + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_kv(1, 1);
+  cp_async_commit();
 
-  if (lane == 0) {
+  // this lane's rows r0 and r0 + 8 of the warp's 16
+  const int r0 = warp * 16 + g;
+  const int qp0 = q_offset + t0 + r0 / G, qp1 = q_offset + t0 + (r0 + 8) / G;
+  const float* qa = Qs + r0 * LD + q4;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  float o[ND][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = warp + kWarps * i;
-      l_s[row] = l_r[i];
-      if (lse != nullptr && row < rows) {
-        const int qi = row / G, g = row % G;
-        lse[((size_t)b * Hq + h * G + g) * T_len + t0 + qi] =
-            l_r[i] > 0.f ? m_r[i] + logf(l_r[i]) : -INFINITY;
+  for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = Ks + (it & 1) * BK * LD;
+    const float* vs = Vs + (it & 1) * BK * LD;
+
+    // S = Q K^T: A = Q rows, B = K rows read as columns
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* qk = qa + 8 * kk;
+      const FragA a = frag_a(qk[0], qk[8 * LD], qk[4], qk[8 * LD + 4]);
+      FragB bf[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* kr = ks + (8 * j + g) * LD + 8 * kk + q4;
+        bf[j] = frag_b(kr[0], kr[4]);
+      }
+      mma3(s, a, bf);
+    }
+
+    // masks, only on the tiles that straddle them
+    const int k0 = k_begin + it * BK;
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > p_lo) ||
+                      (window > 0 && k0 <= p_hi - window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * q4 + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok = kp < S;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          if (!ok) s[j][e] = -INFINITY;
+        }
       }
     }
-  }
-  __syncthreads();
+    // online softmax: a row's 4 lanes hold its scores
+    float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-  for (int i = 0; i < kAccRows; ++i) {
-    const int row = rg + kRG * i;
-    if (row < rows) {
-      const int qi = row / G, g = row % G;
-      const float l = l_s[row];
-      const float o = l > 0.f ? acc[i] / l : 0.f;
-      out[((size_t)(b * T_len + t0 + qi) * Hq + h * G + g) * D + d] = from_f32<T>(o);
+    for (int j = 0; j < NT; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
     }
+    float msc[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      msc[i] = mx[i] == -INFINITY ? 0.f : mx[i] * scale_log2;
+      alpha[i] = exp2f(m_r[i] * scale_log2 - msc[i]);
+      m_r[i] = mx[i];
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -msc[e >> 1]));
+      rs[0] += s[j][0] + s[j][1];
+      rs[1] += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = alpha[i] * l_r[i] + rs[i];
+
+    // O = alpha O + P V.  The accumulator holds keys 2q, 2q+1 of each 8-key
+    // tile where an A fragment wants q, q+4: so k-step kk takes key 8kk + 2q
+    // as its column q and 8kk + 2q + 1 as q + 4, and V's rows in that
+    // order.  Each tile's product is summed in a fresh accumulator and
+    // added in f32 (round to nearest): the tensor cores' own sums truncate,
+    // and chained over every key tile that bias would grow with S.
+    FragA pa[NT];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) pa[kk] = frag_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+#pragma unroll
+    for (int n0 = 0; n0 < ND; n0 += NC) {
+      float t[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        const float* va = vs + (8 * kk + 2 * q4) * LD + 8 * n0 + g;
+        FragB bf[NC];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) bf[n] = frag_b(va[8 * n], va[LD + 8 * n]);
+        mma3(t, pa[kk], bf);
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n0 + n][e] = fmaf(o[n0 + n][e], alpha[e >> 1], t[n][e]);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_tiles) load_kv(it + 2, it & 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    inv[i] = l_r[i] > 0.f ? 1.f / l_r[i] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= rows) continue;
+    const int qi = r / G, gi = r % G;
+    float* dst = out + ((size_t)(b * T_len + t0 + qi) * Hq + h * G + gi) * D + 2 * q4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * i] * inv[i], o[n][2 * i + 1] * inv[i]);
+    if (lse != nullptr && q4 == 0)
+      lse[((size_t)b * Hq + h * G + gi) * T_len + t0 + qi] =
+          l_r[i] > 0.f ? m_r[i] * scale + logf(l_r[i]) : -INFINITY;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int T_len, int S, int Hq, int Hkv, int causal, int window,
            int q_offset, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const int block_q = Shape<D>::kRows / G;
+  const int block_q = Tile<D>::kRows / G;
+  const int n_qt = (T_len + block_q - 1) / block_q;
+  const long long blocks = (long long)n_qt * Hkv * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   static bool smem_set[kMaxDevices] = {};
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err =
-      allow_dynamic_smem(flash_prefill_kernel<T, D>, smem, smem_set);
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = allow_dynamic_smem(flash_prefill_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T_len + block_q - 1) / block_q, Hkv, B);
-  flash_prefill_kernel<T, D><<<grid, Shape<D>::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, T_len, S, Hq, Hkv, G,
-      block_q, causal, window, q_offset, scale);
+  flash_prefill_kernel<D><<<(unsigned)blocks, Tile<D>::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, B, T_len, S, Hq,
+      Hkv, G, block_q, n_qt, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -634,13 +690,13 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0 && D == 64)
-    return f32::launch<float, 64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 80)
-    return f32::launch<float, 80>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<80>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 128)
-    return f32::launch<float, 128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 256)
-    return f32::launch<float, 256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return f32::launch<256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (l != nullptr) return (int)cudaErrorInvalidValue;  // bf16 writes no lse
   if (dtype == 1 && D == 64)
     return tc::launch<64>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);

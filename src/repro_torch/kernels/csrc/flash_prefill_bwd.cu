@@ -15,42 +15,67 @@
 //   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
 //
 // Layout.  For kv head h the G = Hq/Hkv query heads are flattened into
-// T*G rows, row r = t*G + g, so a 64-row tile holds any G and K/V are
-// never repeated.  Key tiles hold BK = 64 keys, 32 at D 256 (below).  Two
-// launches, no atomics (results are the same bits on every run):
-//   1. dq_kernel, one block per (64-row q tile, kv head, batch): computes
-//      delta for its rows (written out for launch 2), then loops over the
-//      key tiles its rows can see: S, dP, dS in registers, dS to shared
-//      memory (transposed), dQ += dS K.
-//   2. dkdv_kernel, one block per (BK-key tile, kv head, batch): loops over
-//      the q tiles (all G heads of the kv head) that can see its keys:
-//      S, P, dP, dS in registers, P and dS to shared memory, then
-//      dV += P^T dO and dK += dS^T Q, held in registers until the end.
+// T*G rows, row r = t*G + g, so a tile holds any G and K/V are never
+// repeated.  Two launches of 8 warps, no atomics (two calls give the same
+// bits):
+//   1. dq_kernel, one block per (q tile of 128 rows, 64 at D 256; kv head;
+//      batch), heaviest causal tiles first: delta for its rows (written out
+//      for launch 2), then a loop over the key tiles (32 keys, 16 at D 256)
+//      its rows can see, K/V copied with cp.async into a 2-stage ring: each
+//      warp owns 16 rows and computes S = Q K^T and dP = dO V^T, then P and
+//      dS in registers, then dQ += dS K.
+//   2. dkdv_kernel, one block per (key tile of 128 keys, 64 at D 256; range
+//      of q tiles; kv head; batch): K and V stay in shared memory; q tiles
+//      of 32 rows (16 at D >= 128: registers) stream through a 2-stage
+//      cp.async ring with their lse and delta.  Each warp owns 16 keys and
+//      computes S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in
+//      registers, then dV += P^T dO and dK += dS^T Q, held in registers to
+//      the end.
+// At D 256 a warp's accumulated gradient (16 x 256) would take 128
+// registers a lane beside the rest, and Q/dO (launch 1) or K/V (launch 2)
+// fill the shared memory: so two warps share each 16 rows (16 keys), each
+// summing S and dP over its half of D and owning that half of dQ (dK, dV);
+// the halves of S and dP are swapped through shared memory and added, the
+// same bits in both warps.
 // Only the tiles the causal and window masks leave open are visited; the
-// element masks apply everywhere.
+// element masks apply on the tiles that straddle them.
+//
+// A full card.  Where launch 2 would have fewer than two waves of blocks
+// (n_kt * Hkv * B < 2 * SMs: recurrentgemma-2b's 64 key tiles at T 4096,
+// Hkv 1, B 1), the wrapper splits each key tile's q tiles into n_split =
+// min(4, ceil(2 * SMs / blocks)) contiguous ranges (flash_prefill.py,
+// `bwd_split`); each range's block writes its partial dK and dV (unscaled)
+// into scratch (2, n_split, B, S, Hkv, D), and a third launch sums the
+// partials in range order and scales dK.
 //
 // What bounds it on the H100: operations.  The function needs about 10 D
 // operations per open (query, key) pair and head (4 D forward recomputed
 // and 6 D of products); this design does 14 D (S and dP are computed in
-// both launches), as IEEE f32 FMAs on the CUDA cores (67 TFLOP/s; no
-// TF32, so that training holds the f32 reference).  Each thread owns a
-// 4 x BK/16 micro-tile of S and dP (rows ty + 16i, keys tx + 16j) and reads
-// its operands as 16-byte vectors from shared memory (8 FMAs per load);
-// rows are padded by 4 floats so that 8 consecutive rows fall on 8
-// distinct 16-byte bank groups.  Simple by design: a later PR can move
-// the products to the tensor cores.
+// both launches).  All products run on the tensor cores as mma.sync
+// m16n8k8 TF32 in the 3xTF32 split (common.cuh: three TF32 products each,
+// ~22 bits of each operand kept, so that training holds the f32 reference;
+// one TF32 pass misses the gradient limit 28-53 times:
+// tests/test_torch_attention_design.py).  Operands are split into big and
+// small parts as the fragments are read from shared memory (a split tile
+// would not fit at D 256).  Every tile's rows are padded to D + 4 floats,
+// so that the lanes of a fragment load, read along rows (Q, dO, K, V as A
+// or as K^T-style B) or across them (K in dS K, dO and Q in P^T dO and
+// dS^T Q, the key or row order permuted to the accumulator's so that P and
+// dS pass from accumulator to A fragment in registers), hit 32 banks.
 //
-// Head dim 256 (recurrentgemma-2b): with 64-key tiles both launches would
-// need ~266 KB of shared memory (over the 227 KB a block may take), and
-// dkdv 128 accumulators a thread for dK and dV.  So key tiles hold 32 keys
-// at D 256: dq's tiles take 209 KB and dkdv's 219 KB, and a dkdv thread
-// owns 2 keys x 16 columns of each of dK and dV (64 accumulators).
+// The tensor cores' sums truncate rather than round.  Chained in one
+// accumulator over a long loop, that bias grows with the loop: over the
+// 768 mma's of dQ's keys at recurrentgemma-2b's shape, or the 96 of S and
+// dP at D 256, it took dQ past its limit.  So each tile's dS K, P^T dO and
+// dS^T Q is summed in a fresh accumulator and added in f32 (round to
+// nearest), and the small cross terms of S and dP are summed apart from
+// big*big (mma3_lo).
 //
 // ptxas (-Xptxas -v, sm_90a), registers and dynamic shared memory, no
-// spills: dq<64> 122, 87,552 B; dq<80> 128, 103,936 B; dq<128> 166,
-// 153,088 B; dkdv<64> 168, 104,960 B; dkdv<80> 168, 121,344 B; dkdv<128>
-// 204, 170,496 B; dq<256> 166, 208,896 B; dkdv<256> 168, 218,624 B (1
-// block of 8 warps per SM, except dq<64> and dq<80>: 2).
+// spills, 1 block of 8 warps per SM: dq<64> 164, 105,472 B; dq<80> 172,
+// 130,048 B; dq<128> 214, 203,776 B; dq<256> 195, 216,576 B; dkdv<64>
+// 219, 104,960 B; dkdv<80> 249, 129,536 B; dkdv<128> 255, 169,216 B;
+// dkdv<256> 255, 216,320 B; sum_parts 42, none.
 #include <math.h>
 #include <stdint.h>
 
@@ -60,19 +85,7 @@ namespace repro_torch {
 namespace {
 namespace bwd {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;       // flattened (position, head) rows per q tile
-constexpr int kLQ = kBQ + 4;  // padded row of a [key][row] score tile
-
-template <int D>
-struct Tile {
-  static constexpr int LD = D + 4;   // padded row of a Q / dO / K / V tile
-  static constexpr int NC = D / 16;  // output columns a thread owns
-  static constexpr int BK = D > 128 ? 32 : 64;  // keys per kv tile
-  static constexpr int MJ = BK / 16;  // keys of a thread's score micro-tile
-  static constexpr int LK = BK + 4;   // padded row of a [row][key] score tile
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-};
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;
@@ -85,8 +98,39 @@ struct Args {
   float* dq;
   float* dk;
   float* dv;
-  int T, S, Hq, Hkv, G, causal, window;
+  float* part;  // (2, n_split, B, S, Hkv, D) partial dK, dV; null at n_split 1
+  int B, T, S, Hq, Hkv, G, causal, window, n_split;
   float scale;
+};
+
+// Both launches run 8 warps, each owning 16 rows (launch 1) or 16 keys
+// (launch 2); at D 256 DS = 2 warps share them, each summing S and dP over
+// its half of D and owning that half of the accumulated gradient.
+constexpr int kThreads = 256;
+template <int D>
+struct Split {
+  static constexpr int DS = D > 128 ? 2 : 1;
+};
+
+// Launch 1's tiles: kRows rows, kBK keys a step.
+template <int D>
+struct DqTile {
+  static constexpr int kRows = 16 * 8 / Split<D>::DS;
+  static constexpr int kBK = D > 128 ? 16 : 32;
+};
+
+// Launch 2's tiles: kBK keys, kBQ rows a step.
+template <int D>
+struct KvTile {
+  static constexpr int kBK = 16 * 8 / Split<D>::DS;
+  static constexpr int kBQ = D > 80 ? 16 : 32;
+};
+
+template <int D>
+struct Cols {
+  static constexpr int LD = D + 4;  // padded row of every tile (floats)
+  static_assert(D % 8 == 0 && (LD % 32 == 4 || LD % 32 == 20),
+                "flash_prefill_bwd: unsupported head_dim");
 };
 
 // element offset of flattened row r (position r / G, head r % G of kv
@@ -100,126 +144,191 @@ __device__ __forceinline__ size_t stat_index(const Args& a, int b, int h, int r)
   return ((size_t)b * a.Hq + h * a.G + g) * a.T + t;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// rows r0 .. r0+63 of a (B, T, Hq, D) tensor into a padded tile; zeros past
-// T*G
-template <int D>
-__device__ __forceinline__ void load_q_rows(float* dst, const float* __restrict__ src,
-                                            const Args& a, int b, int h, int r0) {
-  constexpr int LD = Tile<D>::LD, CH = D / 4;
+// rows r0 .. r0+R-1 of a (B, T, Hq, D) tensor into a padded tile, zeros
+// past T*G (cp.async; the caller commits)
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+                                          const Args& a, int b, int h, int r0) {
+  constexpr int LD = Cols<D>::LD, CH = D / 4;
   const int TG = a.T * a.G;
-  for (int c = threadIdx.x; c < kBQ * CH; c += kThreads) {
+  for (int c = threadIdx.x; c < R * CH; c += kThreads) {
     const int i = c / CH, cc = c % CH;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + i < TG)
-      x = __ldg(reinterpret_cast<const float4*>(src + row_offset(a, b, h, r0 + i, D)) + cc);
-    *reinterpret_cast<float4*>(dst + i * LD + cc * 4) = x;
+    const bool ok = r0 + i < TG;
+    cp_async16(dst + i * LD + cc * 4, ok ? src + row_offset(a, b, h, r0 + i, D) + cc * 4 : src,
+               ok);
   }
 }
 
-// keys k0 .. k0+BK-1 of kv head h of a (B, S, Hkv, D) tensor; zeros past S
-template <int D>
-__device__ __forceinline__ void load_k_rows(float* dst, const float* __restrict__ src,
-                                            const Args& a, int b, int h, int k0) {
-  constexpr int LD = Tile<D>::LD, CH = D / 4;
-  for (int c = threadIdx.x; c < Tile<D>::BK * CH; c += kThreads) {
+// keys k0 .. k0+N-1 of kv head h of a (B, S, Hkv, D) tensor, zeros past S
+template <int D, int N, int kThreads>
+__device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ src,
+                                          const Args& a, int b, int h, int k0) {
+  constexpr int LD = Cols<D>::LD, CH = D / 4;
+  for (int c = threadIdx.x; c < N * CH; c += kThreads) {
     const int j = c / CH, cc = c % CH;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + j < a.S)
-      x = __ldg(reinterpret_cast<const float4*>(
-                    src + ((size_t)(b * a.S + k0 + j) * a.Hkv + h) * D) + cc);
-    *reinterpret_cast<float4*>(dst + j * LD + cc * 4) = x;
+    const bool ok = k0 + j < a.S;
+    cp_async16(dst + j * LD + cc * 4,
+               ok ? src + ((size_t)(b * a.S + k0 + j) * a.Hkv + h) * D + cc * 4 : src, ok);
   }
 }
 
-// s = Q K^T and dp = dO V^T on the thread's micro-tile: rows ty + 16i,
-// keys tx + 16j; sums over d in order
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
-                                       const float* Vs, int ty, int tx,
-                                       float (&s)[4][Tile<D>::MJ],
-                                       float (&dp)[4][Tile<D>::MJ]) {
-  constexpr int LD = Tile<D>::LD, MJ = Tile<D>::MJ;
+// acc[N][4] += A (16 x 8K) * B (8K x 8N) where A is an accumulator-layout
+// tile s (16 x 8K, k-step kk in s[kk]) and B's rows 8kk + 2q, 8kk + 2q + 1
+// are read at `b` + (8kk + 2q) * LD + 8n: the accumulator's column order
+// (2q, 2q + 1) taken as the A fragment's (q, q + 4), B's rows permuted
+// alike.  Each call's product is summed in a fresh accumulator and added
+// to acc in f32 (round to nearest): the tensor cores' own sums truncate,
+// and chained over a long loop (dQ over 2048 keys: 768 mma's) that bias
+// took dQ past the gradient limit.
+template <int K, int N, int LD>
+__device__ __forceinline__ void acc_times_rows(float (&acc)[N][4], const float (&s)[K][4],
+                                               const float* b) {
+  constexpr int NC = N % 4 == 0 ? 4 : 5;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n0 = 0; n0 < N; n0 += NC) {
+    float t[NC][4];
 #pragma unroll
-    for (int j = 0; j < MJ; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int n = 0; n < NC; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      const FragA a = frag_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* bk = b + 8 * kk * LD + 8 * n0;
+      FragB bf[NC];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) bf[n] = frag_b(bk[8 * n], bk[LD + 8 * n]);
+      mma3(t, a, bf);
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += t[n][e];
+  }
+}
+
+// s (16 x 8N) = A B^T and dp = A2 B2^T over K k-steps of 8 columns: A, A2
+// rows of 16 read at a, a2 (lane offset included), B, B2 rows of 8N at b,
+// b2.  big*big and the small cross terms are summed apart (mma3_lo): in
+// one accumulator, the truncation of 96 chained mma's (D 256) biased dP
+// enough to take dQ past its limit.
+template <int LD, int K, int N>
+__device__ __forceinline__ void two_products(float (&s)[N][4], float (&dp)[N][4],
+                                             const float* a, const float* a2, const float* b,
+                                             const float* b2) {
+  float s_lo[N][4], dp_lo[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = s_lo[j][e] = dp_lo[j][e] = 0.f;
 #pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qv[4], ov[4], kv[MJ], vv[MJ];
+  for (int kk = 0; kk < K; ++kk) {
+    const float* x = a + 8 * kk;
+    const float* y = a2 + 8 * kk;
+    const FragA fa = frag_a(x[0], x[8 * LD], x[4], x[8 * LD + 4]);
+    const FragA fa2 = frag_a(y[0], y[8 * LD], y[4], y[8 * LD + 4]);
+    FragB fb[N], fb2[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = ld4(Qs + (ty + 16 * i) * LD + d);
-      ov[i] = ld4(dOs + (ty + 16 * i) * LD + d);
+    for (int j = 0; j < N; ++j) {
+      const float* u = b + 8 * j * LD + 8 * kk;
+      const float* w = b2 + 8 * j * LD + 8 * kk;
+      fb[j] = frag_b(u[0], u[4]);
+      fb2[j] = frag_b(w[0], w[4]);
     }
+    mma3_lo(s, s_lo, fa, fb);
+    mma3_lo(dp, dp_lo, fa2, fb2);
+  }
 #pragma unroll
-    for (int j = 0; j < MJ; ++j) {
-      kv[j] = ld4(Ks + (tx + 16 * j) * LD + d);
-      vv[j] = ld4(Vs + (tx + 16 * j) * LD + d);
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] += s_lo[j][e];
+      dp[j][e] += dp_lo[j][e];
     }
+}
+
+// Where two warps (w and w ^ 4) each summed s and dp over half of D: add
+// the other warp's halves through shared memory xs (2 N float4 a lane and
+// warp); x + y == y + x, so both warps hold the same bits after.  Contains
+// a __syncthreads.
+template <int N>
+__device__ __forceinline__ void add_other_half(float (&s)[N][4], float (&dp)[N][4],
+                                               float4* xs, int warp, int lane) {
+  float4* mine = xs + warp * 2 * N * 32 + lane;
+  const float4* other = xs + (warp ^ 4) * 2 * N * 32 + lane;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < N; ++j) {
+    mine[j * 32] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    mine[(N + j) * 32] = make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+  }
+  __syncthreads();
 #pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        dp[i][j] = fmaf(ov[i].x, vv[j].x, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].y, vv[j].y, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].z, vv[j].z, dp[i][j]);
-        dp[i][j] = fmaf(ov[i].w, vv[j].w, dp[i][j]);
-      }
+  for (int j = 0; j < N; ++j) {
+    const float4 x = other[j * 32], y = other[(N + j) * 32];
+    s[j][0] += x.x; s[j][1] += x.y; s[j][2] += x.z; s[j][3] += x.w;
+    dp[j][0] += y.x; dp[j][1] += y.y; dp[j][2] += y.z; dp[j][3] += y.w;
   }
 }
 
-// whether flattened row r (position r / G) sees key kp
-__device__ __forceinline__ bool visible(const Args& a, int r, int kp) {
-  const int t = r / a.G;
-  bool ok = r < a.T * a.G && kp < a.S;
-  if (a.causal) ok = ok && kp <= t;
-  if (a.window > 0) ok = ok && kp > t - a.window;
-  return ok;
+// floats of add_other_half's exchange for N column tiles, or none
+template <int D, int N>
+constexpr int exchange_floats() { return Split<D>::DS > 1 ? 8 * 2 * N * 32 * 4 : 0; }
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  using Tl = DqTile<D>;
+  return ((size_t)(2 * Tl::kRows + 4 * Tl::kBK) * Cols<D>::LD + 2 * Tl::kRows +
+          exchange_floats<D, Tl::kBK / 8>()) * sizeof(float);
 }
 
 template <int D>
-constexpr size_t dq_smem_floats() {
-  return (size_t)(2 * kBQ + 2 * Tile<D>::BK) * Tile<D>::LD + Tile<D>::BK * kLQ + 2 * kBQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
-  constexpr int LD = Tile<D>::LD, NC = Tile<D>::NC;
-  constexpr int BK = Tile<D>::BK, MJ = Tile<D>::MJ;
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
+  using Tl = DqTile<D>;
+  constexpr int kRows = Tl::kRows, BK = Tl::kBK, DS = Split<D>::DS;
+  constexpr int LD = Cols<D>::LD, NT = BK / 8, DW = D / DS, NW = DW / 8;
+  constexpr int TPR = kThreads / kRows;  // threads a row in the delta pass
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kBQ * LD;
-  float* Ks = dOs + kBQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSt = Vs + BK * LD;       // [key][row]
-  float* lse_s = dSt + BK * kLQ;
-  float* delta_s = lse_s + kBQ;
+  float* dOs = Qs + kRows * LD;
+  float* Ks = dOs + kRows * LD;     // [2] stages
+  float* Vs = Ks + 2 * BK * LD;     // [2] stages
+  float* lse_s = Vs + 2 * BK * LD;  // lse * log2(e)
+  float* delta_s = lse_s + kRows;
+  float4* xs = reinterpret_cast<float4*>(delta_s + kRows);  // add_other_half
 
-  const int n_qt = gridDim.x;
+  const int hb = a.Hkv * a.B;
+  const int rank = blockIdx.x / hb;
   // under a causal mask the last q tiles see the most keys: launch them first
-  const int qt = a.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = a.causal ? n_qt - 1 - rank : rank;
+  const int h = (blockIdx.x % hb) % a.Hkv, b = (blockIdx.x % hb) / a.Hkv;
   const int TG = a.T * a.G;
-  const int r0 = qt * kBQ;
-  const int tid = threadIdx.x;
+  const int rb = qt * kRows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
 
-  load_q_rows<D>(Qs, a.q, a, b, h, r0);
-  load_q_rows<D>(dOs, a.dout, a, b, h, r0);
-  {  // delta = rowsum(dO * O) and lse of this tile's rows, 4 threads a row
-    const int i = tid >> 2, part = tid & 3;
-    const int r = r0 + i;
+  // keys this tile's positions can see
+  const int t_lo = rb / a.G, t_hi = (min(rb + kRows, TG) - 1) / a.G;
+  const int k_end = a.causal ? min(a.S, t_hi + 1) : a.S;
+  const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  load_rows<D, kRows, kThreads>(Qs, a.q, a, b, h, rb);
+  load_rows<D, kRows, kThreads>(dOs, a.dout, a, b, h, rb);
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = k_begin + tile * BK;
+    load_keys<D, BK, kThreads>(Ks + stage * BK * LD, a.k, a, b, h, k0);
+    load_keys<D, BK, kThreads>(Vs + stage * BK * LD, a.v, a, b, h, k0);
+  };
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_kv(1, 1);
+  cp_async_commit();
+
+  {  // delta = rowsum(dO * O) and lse of this tile's rows, TPR threads a row
+    const int i = tid / TPR, part = tid % TPR;
+    const int r = rb + i;
     float sum = 0.f;
     if (r < TG) {
       const size_t off = row_offset(a, b, h, r, D);
-      for (int d = 4 * part; d < D; d += 16) {
+      for (int d = 4 * part; d < D; d += 4 * TPR) {
         const float4 x = __ldg(reinterpret_cast<const float4*>(a.o + off + d));
         const float4 y = __ldg(reinterpret_cast<const float4*>(a.dout + off + d));
         sum = fmaf(x.x, y.x, sum);
@@ -228,13 +337,13 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
         sum = fmaf(x.w, y.w, sum);
       }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (part == 0) {
       float l = 0.f;
       if (r < TG) {
         const size_t si = stat_index(a, b, h, r);
-        l = a.lse[si];
+        l = a.lse[si] * kLog2e;
         a.delta[si] = sum;
       }
       lse_s[i] = l;
@@ -242,194 +351,252 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
     }
   }
 
-  // keys this tile's positions can see
-  const int t_lo = r0 / a.G, t_hi = (min(r0 + kBQ, TG) - 1) / a.G;
-  const int k_end = a.causal ? min(a.S, t_hi + 1) : a.S;
-  const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / BK * BK;
+  const int dh = warp / (8 / DS);  // this warp's half of D (DS = 2)
+  const int r0 = warp % (8 / DS) * 16 + g;  // this lane's rows r0, r0 + 8 of the tile
+  const int c0 = dh * DW;
+  const int tp0 = (rb + r0) / a.G, tp1 = (rb + r0 + 8) / a.G;
+  const float scale_log2 = a.scale * kLog2e;
+  float acc[NW][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int ty = tid >> 4, tx = tid & 15;  // score stage: rows ty+16i, keys tx+16j
-  const int rq = tid >> 4, cy = tid & 15;  // dQ stage: rows 4rq..4rq+3, columns cy+16m
-  float acc[4][NC];
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<1>();
+    __syncthreads();  // (the first also publishes lse_s and delta_s)
+    const float* ks = Ks + (it & 1) * BK * LD;
+    const float* vs = Vs + (it & 1) * BK * LD;
+    float s[NT][4], dp[NT][4];
+    two_products<LD, DW / 8, NT>(s, dp, Qs + r0 * LD + c0 + q4, dOs + r0 * LD + c0 + q4,
+                                 ks + g * LD + c0 + q4, vs + g * LD + c0 + q4);
+    if constexpr (DS == 2) add_other_half(s, dp, xs, warp, lane);
+    const float l2[2] = {lse_s[r0], lse_s[r0 + 8]};
+    const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
+    const int k0 = k_begin + it * BK;
+    const bool edge = k0 + BK > a.S || (a.causal && k0 + BK - 1 > t_lo) ||
+                      (a.window > 0 && k0 <= t_hi - a.window);
+    // dS in place of S: element e of column tile j is (row r0 + 8 (e >> 1),
+    // key k0 + 8 j + 2 q + (e & 1))
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-    for (int m = 0; m < NC; ++m) acc[i][m] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's Ks / dSt reads are done
-    load_k_rows<D>(Ks, a.k, a, b, h, k0);
-    load_k_rows<D>(Vs, a.v, a, b, h, k0);
-    __syncthreads();
-    float s[4][MJ], dp[4][MJ];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        const int key = tx + 16 * j;
-        const float p = visible(a, r0 + row, k0 + key)
-                            ? expf(fmaf(s[i][j], a.scale, -lse_s[row])) : 0.f;
-        dSt[key * kLQ + row] = p * (dp[i][j] - delta_s[row]);
+      for (int e = 0; e < 4; ++e) {
+        bool ok = true;
+        if (edge) {
+          const int kp = k0 + 8 * j + 2 * q4 + (e & 1);
+          const int tp = e < 2 ? tp0 : tp1;
+          ok = kp < a.S;
+          if (a.causal) ok = ok && kp <= tp;
+          if (a.window > 0) ok = ok && kp > tp - a.window;
+        }
+        const float p = ok ? exp2f(fmaf(s[j][e], scale_log2, -l2[e >> 1])) : 0.f;
+        s[j][e] = p * (dp[j][e] - dl[e >> 1]);
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 ds = ld4(dSt + j * kLQ + 4 * rq);
-#pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const float kv = Ks[j * LD + cy + 16 * m];
-        acc[0][m] = fmaf(ds.x, kv, acc[0][m]);
-        acc[1][m] = fmaf(ds.y, kv, acc[1][m]);
-        acc[2][m] = fmaf(ds.z, kv, acc[2][m]);
-        acc[3][m] = fmaf(ds.w, kv, acc[3][m]);
-      }
-    }
+    // dQ += dS K: K's rows read across, in the accumulator's key order
+    acc_times_rows<NT, NW, LD>(acc, s, ks + 2 * q4 * LD + c0 + g);
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_tiles) load_kv(it + 2, it & 1);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * rq + i;
-    if (r < TG) {
-      float* dst = a.dq + row_offset(a, b, h, r, D);
+  for (int i = 0; i < 2; ++i) {
+    const int r = rb + r0 + 8 * i;
+    if (r >= TG) continue;
+    float* dst = a.dq + row_offset(a, b, h, r, D) + c0 + 2 * q4;
 #pragma unroll
-      for (int m = 0; m < NC; ++m) dst[cy + 16 * m] = acc[i][m] * a.scale;
-    }
+    for (int n = 0; n < NW; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
   }
 }
 
 template <int D>
-constexpr size_t dkdv_smem_floats() {
-  return (size_t)(2 * kBQ + 2 * Tile<D>::BK) * Tile<D>::LD + 2 * kBQ * Tile<D>::LK + 2 * kBQ;
-}
-
-// KPT contiguous floats of a score tile's row (16 bytes or 8)
-template <int KPT>
-__device__ __forceinline__ void ld_keys(const float* p, float (&x)[KPT]) {
-  if constexpr (KPT == 4) {
-    const float4 v = ld4(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-    static_assert(KPT == 2, "4 or 2 keys a thread");
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    x[0] = v.x; x[1] = v.y;
-  }
+constexpr size_t dkdv_smem_bytes() {
+  using Tl = KvTile<D>;
+  return ((size_t)(2 * Tl::kBK + 4 * Tl::kBQ) * Cols<D>::LD + 4 * Tl::kBQ +
+          exchange_floats<D, Tl::kBQ / 8>()) * sizeof(float);
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
-  constexpr int LD = Tile<D>::LD, NC = Tile<D>::NC;
-  constexpr int BK = Tile<D>::BK, MJ = Tile<D>::MJ, LK = Tile<D>::LK;
-  constexpr int KPT = BK / 16;     // keys a thread owns in the dK/dV stage
+  using Tl = KvTile<D>;
+  constexpr int BK = Tl::kBK, BQ = Tl::kBQ, DS = Split<D>::DS, KG = 8 / DS;
+  constexpr int LD = Cols<D>::LD, NQ = BQ / 8, DW = D / DS, NW = DW / 8;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + kBQ * LD;
-  float* Ps = dOs + kBQ * LD;     // [row][key]
-  float* dSs = Ps + kBQ * LK;     // [row][key]
-  float* lse_s = dSs + kBQ * LK;
-  float* delta_s = lse_s + kBQ;
+  float* Qs = Vs + BK * LD;         // [2] stages
+  float* dOs = Qs + 2 * BQ * LD;    // [2] stages
+  float* lse_s = dOs + 2 * BQ * LD; // [2] stages
+  float* delta_s = lse_s + 2 * BQ;  // [2] stages
+  float4* xs = reinterpret_cast<float4*>(delta_s + 2 * BQ);  // add_other_half
 
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int hb = a.Hkv * a.B;
+  const int rank = blockIdx.x / hb;  // key tile, then range: key tile 0 first
+  const int kt = rank / a.n_split, sp = rank % a.n_split;
+  const int h = (blockIdx.x % hb) % a.Hkv, b = (blockIdx.x % hb) / a.Hkv;
+  const int k0 = kt * BK;
   const int TG = a.T * a.G;
-  const int tid = threadIdx.x;
-  load_k_rows<D>(Ks, a.k, a, b, h, k0);
-  load_k_rows<D>(Vs, a.v, a, b, h, k0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
 
-  // positions that can see this tile's keys, as flattened row tiles
+  // q tiles (of BQ flattened rows) that can see this key tile, and this
+  // block's contiguous range of them
   const int k_last = min(k0 + BK, a.S) - 1;
   const int t_begin = a.causal ? k0 : 0;
   const int t_end = a.window > 0 ? min(a.T, k_last + a.window) : a.T;
-  const int rt_begin = t_begin * a.G / kBQ;
-  const int rt_end = t_end > t_begin ? (t_end * a.G + kBQ - 1) / kBQ : rt_begin;
+  const int rt_begin = t_begin * a.G / BQ;
+  const int rt_end = t_end > t_begin ? (t_end * a.G + BQ - 1) / BQ : rt_begin;
+  const int n_rt = rt_end - rt_begin;
+  const int rt_lo = rt_begin + n_rt * sp / a.n_split;
+  const int n_tiles = rt_begin + n_rt * (sp + 1) / a.n_split - rt_lo;
 
-  const int ty = tid >> 4, tx = tid & 15;  // score stage: rows ty+16i, keys tx+16j
-  const int kx = tid >> 4, cy = tid & 15;  // dK/dV stage: keys KPT kx + i, columns cy+16m
-  float dk[KPT][NC], dv[KPT][NC];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) dk[i][m] = dv[i][m] = 0.f;
-
-  for (int rt = rt_begin; rt < rt_end; ++rt) {
-    const int r0 = rt * kBQ;
-    __syncthreads();  // the previous tile's Qs / dOs / Ps / dSs reads are done
-    load_q_rows<D>(Qs, a.q, a, b, h, r0);
-    load_q_rows<D>(dOs, a.dout, a, b, h, r0);
-    if (tid < kBQ) {
-      const int r = r0 + tid;
+  load_keys<D, BK, kThreads>(Ks, a.k, a, b, h, k0);
+  load_keys<D, BK, kThreads>(Vs, a.v, a, b, h, k0);
+  auto load_q = [&](int tile, int stage) {
+    const int r0 = (rt_lo + tile) * BQ;
+    load_rows<D, BQ, kThreads>(Qs + stage * BQ * LD, a.q, a, b, h, r0);
+    load_rows<D, BQ, kThreads>(dOs + stage * BQ * LD, a.dout, a, b, h, r0);
+    if (tid < 2 * BQ) {  // the rows' lse and delta (zeros past T*G)
+      const int i = tid % BQ, r = r0 + i;
       const bool ok = r < TG;
-      const size_t si = ok ? stat_index(a, b, h, r) : 0;
-      lse_s[tid] = ok ? a.lse[si] : 0.f;
-      delta_s[tid] = ok ? a.delta[si] : 0.f;
+      const float* src = tid < BQ ? a.lse : a.delta;
+      cp_async4((tid < BQ ? lse_s : delta_s) + stage * BQ + i,
+                ok ? src + stat_index(a, b, h, r) : src, ok);
     }
+  };
+  if (n_tiles > 0) load_q(0, 0);
+  cp_async_commit();
+  if (n_tiles > 1) load_q(1, 1);
+  cp_async_commit();
+
+  const int kg = warp % KG, dh = warp / KG;
+  const int kr = 16 * kg + g;  // this lane's keys kr, kr + 8 of the tile
+  const int kp[2] = {k0 + kr, k0 + kr + 8};
+  const float scale_log2 = a.scale * kLog2e;
+  float dk[NW][4], dv[NW][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<1>();
     __syncthreads();
-    float s[4][MJ], dp[4][MJ];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    const int stage = it & 1;
+    const float* qs = Qs + stage * BQ * LD;
+    const float* os = dOs + stage * BQ * LD;
+    const float* ls = lse_s + stage * BQ;
+    const float* ds = delta_s + stage * BQ;
+    const int r0 = (rt_lo + it) * BQ;
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by the tile's
+    // rows, summed over this warp's DW of the D columns
+    float s[NQ][4], dp[NQ][4];
+    const int c0 = dh * DW + q4;
+    two_products<LD, DW / 8, NQ>(s, dp, Ks + kr * LD + c0, Vs + kr * LD + c0,
+                                 qs + g * LD + c0, os + g * LD + c0);
+    if constexpr (DS == 2) add_other_half(s, dp, xs, warp, lane);
+    const bool edge = k0 + BK > a.S || r0 + BQ > TG ||
+                      (a.causal && k0 + BK - 1 > r0 / a.G) ||
+                      (a.window > 0 && k0 <= (r0 + BQ - 1) / a.G - a.window);
+    // P^T in s, dS^T in dp: element e of column tile j is (key kp[e >> 1],
+    // row r0 + 8 j + 2 q + (e & 1))
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
+    for (int j = 0; j < NQ; ++j) {
 #pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        const int key = tx + 16 * j;
-        const float p = visible(a, r0 + row, k0 + key)
-                            ? expf(fmaf(s[i][j], a.scale, -lse_s[row])) : 0.f;
-        Ps[row * LK + key] = p;
-        dSs[row * LK + key] = p * (dp[i][j] - delta_s[row]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int r = 0; r < kBQ; ++r) {
-      float pk[KPT], dsk[KPT];
-      ld_keys<KPT>(Ps + r * LK + KPT * kx, pk);
-      ld_keys<KPT>(dSs + r * LK + KPT * kx, dsk);
+      for (int c = 0; c < 2; ++c) {
+        const int row = 8 * j + 2 * q4 + c;
+        const float l2 = ls[row] * kLog2e, dl = ds[row];
+        const int tp = (r0 + row) / a.G;
 #pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const float o = dOs[r * LD + cy + 16 * m];
-        const float qv = Qs[r * LD + cy + 16 * m];
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          dv[i][m] = fmaf(pk[i], o, dv[i][m]);
-          dk[i][m] = fmaf(dsk[i], qv, dk[i][m]);
+        for (int kh = 0; kh < 2; ++kh) {
+          const int e = 2 * kh + c;
+          bool ok = true;
+          if (edge) {
+            ok = kp[kh] < a.S && r0 + row < TG;
+            if (a.causal) ok = ok && kp[kh] <= tp;
+            if (a.window > 0) ok = ok && kp[kh] > tp - a.window;
+          }
+          const float p = ok ? exp2f(fmaf(s[j][e], scale_log2, -l2)) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl);
         }
       }
     }
+    // dV += P^T dO, dK += dS^T Q over this warp's DW columns: dO's and Q's
+    // rows read across, in the accumulator's row order
+    acc_times_rows<NQ, NW, LD>(dv, s, os + 2 * q4 * LD + dh * DW + g);
+    acc_times_rows<NQ, NW, LD>(dk, dp, qs + 2 * q4 * LD + dh * DW + g);
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_tiles) load_q(it + 2, stage);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+
+  const size_t N = (size_t)a.B * a.S * a.Hkv * D;
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int key = k0 + KPT * kx + i;
-    if (key < a.S) {
-      const size_t off = ((size_t)(b * a.S + key) * a.Hkv + h) * D;
+  for (int i = 0; i < 2; ++i) {
+    if (kp[i] >= a.S) continue;
+    const size_t off = ((size_t)(b * a.S + kp[i]) * a.Hkv + h) * D + dh * DW + 2 * q4;
+    const float kscale = a.n_split == 1 ? a.scale : 1.f;
+    float* dkp = a.n_split == 1 ? a.dk + off : a.part + sp * N + off;
+    float* dvp = a.n_split == 1 ? a.dv + off : a.part + (a.n_split + sp) * N + off;
 #pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        a.dk[off + cy + 16 * m] = dk[i][m] * a.scale;
-        a.dv[off + cy + 16 * m] = dv[i][m];
-      }
+    for (int n = 0; n < NW; ++n) {
+      *reinterpret_cast<float2*>(dkp + 8 * n) =
+          make_float2(dk[n][2 * i] * kscale, dk[n][2 * i + 1] * kscale);
+      *reinterpret_cast<float2*>(dvp + 8 * n) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
 
+// Launch 3 (n_split > 1): dK = scale * sum of the partials, dV = their sum,
+// in range order; n4 = B*S*Hkv*D / 4
+__global__ void __launch_bounds__(256) sum_parts_kernel(Args a, size_t n4) {
+  const float4* pk = reinterpret_cast<const float4*>(a.part);
+  const float4* pv = pk + (size_t)a.n_split * n4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 sk = pk[i], sv = pv[i];
+    for (int p = 1; p < a.n_split; ++p) {
+      const float4 x = pk[p * n4 + i], y = pv[p * n4 + i];
+      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+    }
+    reinterpret_cast<float4*>(a.dk)[i] =
+        make_float4(sk.x * a.scale, sk.y * a.scale, sk.z * a.scale, sk.w * a.scale);
+    reinterpret_cast<float4*>(a.dv)[i] = sv;
+  }
+}
+
 template <int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   static bool dq_set[kMaxDevices] = {}, dkdv_set[kMaxDevices] = {};
-  constexpr size_t dq_smem = dq_smem_floats<D>() * sizeof(float);
-  constexpr size_t dkdv_smem = dkdv_smem_floats<D>() * sizeof(float);
+  constexpr size_t dq_smem = dq_smem_bytes<D>();
+  constexpr size_t dkdv_smem = dkdv_smem_bytes<D>();
   cudaError_t err = allow_dynamic_smem(dq_kernel<D>, dq_smem, dq_set);
   if (err != cudaSuccess) return (int)err;
   err = allow_dynamic_smem(dkdv_kernel<D>, dkdv_smem, dkdv_set);
   if (err != cudaSuccess) return (int)err;
-  const int n_qt = (a.T * a.G + kBQ - 1) / kBQ;
-  const int n_kt = (a.S + Tile<D>::BK - 1) / Tile<D>::BK;
-  if (n_qt > 0) {  // dQ, and delta for launch 2
-    dq_kernel<D><<<dim3(n_qt, a.Hkv, B), kThreads, dq_smem, stream>>>(a);
+  const long long hb = (long long)a.Hkv * a.B;
+  const int n_qt = (a.T * a.G + DqTile<D>::kRows - 1) / DqTile<D>::kRows;
+  const int n_kt = (a.S + KvTile<D>::kBK - 1) / KvTile<D>::kBK;
+  const long long dq_blocks = n_qt * hb, kv_blocks = (long long)n_kt * a.n_split * hb;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dq_blocks > 0) {  // dQ, and delta for launch 2
+    dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_smem, stream>>>(a, n_qt);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (n_kt > 0)
-    dkdv_kernel<D><<<dim3(n_kt, a.Hkv, B), kThreads, dkdv_smem, stream>>>(a);
+  if (kv_blocks == 0) return 0;
+  dkdv_kernel<D><<<(unsigned)kv_blocks, kThreads, dkdv_smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  const size_t n4 = (size_t)a.B * a.S * a.Hkv * D / 4;
+  const unsigned blocks = (unsigned)((n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024);
+  sum_parts_kernel<<<blocks, 256, 0, stream>>>(a, n4);
   return (int)cudaGetLastError();
 }
 
@@ -439,26 +606,32 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 // Plain C entry point, bound with ctypes.  All tensors f32 and contiguous:
 // q, o, dout, dq (B,T,Hq,D); k, v, dk, dv (B,S,Hkv,D); lse and the scratch
-// delta (B,Hq,T).  D is 64, 80, 128 or 256; Hq a multiple of Hkv; q_offset 0.
-// Returns the cudaError_t of the launches (0 on success).
+// delta (B,Hq,T); part: null at n_split 1, else the scratch (2, n_split, B,
+// S, Hkv, D) of launch 2's partial sums.  D is 64, 80, 128 or 256; Hq a
+// multiple of Hkv; q_offset 0; n_split in 1..4.  Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
-                                        void* delta, void* dq, void* dk, void* dv, int B,
-                                        int T, int S, int Hq, int Hkv, int D, int causal,
-                                        int window, float scale, void* stream) {
+                                        void* delta, void* dq, void* dk, void* dv, void* part,
+                                        int B, int T, int S, int Hq, int Hkv, int D,
+                                        int causal, int window, int n_split, float scale,
+                                        void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || T < 0 || S < 0) return (int)cudaErrorInvalidValue;
-  bwd::Args a{static_cast<const float*>(q),   static_cast<const float*>(k),
-              static_cast<const float*>(v),   static_cast<const float*>(o),
+  if (Hkv <= 0 || Hq % Hkv != 0 || T < 0 || S < 0 || n_split < 1 || n_split > 4 ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  bwd::Args a{static_cast<const float*>(q),    static_cast<const float*>(k),
+              static_cast<const float*>(v),    static_cast<const float*>(o),
               static_cast<const float*>(dout), static_cast<const float*>(lse),
-              static_cast<float*>(delta),     static_cast<float*>(dq),
-              static_cast<float*>(dk),        static_cast<float*>(dv),
-              T, S, Hq, Hkv, Hq / Hkv, causal, window, scale};
+              static_cast<float*>(delta),      static_cast<float*>(dq),
+              static_cast<float*>(dk),         static_cast<float*>(dv),
+              static_cast<float*>(part),       B, T, S, Hq, Hkv, Hq / Hkv, causal, window,
+              n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return bwd::launch<64>(a, B, st);
-  if (D == 80) return bwd::launch<80>(a, B, st);
-  if (D == 128) return bwd::launch<128>(a, B, st);
-  if (D == 256) return bwd::launch<256>(a, B, st);
+  if (D == 64) return bwd::launch<64>(a, st);
+  if (D == 80) return bwd::launch<80>(a, st);
+  if (D == 128) return bwd::launch<128>(a, st);
+  if (D == 256) return bwd::launch<256>(a, st);
   return (int)cudaErrorInvalidValue;
 }

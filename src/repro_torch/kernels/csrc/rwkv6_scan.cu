@@ -94,66 +94,10 @@ constexpr int kScanAhead = 8;                  // pass (b): chunks loaded ahead
 static_assert(kPairs <= kWarps, "cross scores: one warp per pair");
 static_assert(kWarps == (kChunk / 16) * (kDV / 32), "(c): one tile a warp");
 
-// ---------------------------------------------------------------- 3xTF32 --
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// An m16n8k8 A fragment (rows g, g+8; columns q, q+4; g = lane / 4,
-// q = lane % 4) and a B fragment (rows q, q+4; column g), each element split
-// into big + small TF32 parts.
-struct FragA { uint32_t big[4], small[4]; };
-struct FragB { uint32_t big[2], small[2]; };
-
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));   // x - big is exact
-}
-
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2, float a3) {
-  FragA f;
-  split(a0, f.big[0], f.small[0]);
-  split(a1, f.big[1], f.small[1]);
-  split(a2, f.big[2], f.small[2]);
-  split(a3, f.big[3], f.small[3]);
-  return f;
-}
-
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split(b0, f.big[0], f.small[0]);
-  split(b1, f.big[1], f.small[1]);
-  return f;
-}
-
-// d += a (16x8, row-major) * b (8x8, column-major), TF32 in, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[n] += a * b[n] in 3xTF32: the two small cross terms, then big*big
-template <int N>
-__device__ __forceinline__ void mma3(float (&acc)[N][4], const FragA& a,
-                                     const FragB (&b)[N]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.small, b[n].big);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.big, b[n].small);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(acc[n], a.big, b[n].big);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {

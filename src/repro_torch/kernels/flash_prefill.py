@@ -14,20 +14,23 @@ source).  bf16, the dtype of every served path, runs QK^T and P.V on the
 tensor cores with ``wgmma`` (one warpgroup per 64-row tile, Q, K and V
 bf16 in shared memory in wgmma's swizzled layout, P from registers, f32
 sums) with 64-key K/V tiles copied asynchronously into a 2-stage ring,
-heaviest causal q tiles first.  f32 keeps IEEE f32 FMAs on the CUDA
-cores (no TF32), for the models' f32 parity runs and training, at head_dim
-64, 80 (hubert-xlarge), 128 and 256; it can also write each row's
-log-sum-exp, which the backward reads.  ptxas (sm_90a): bf16
-117 / 150 / 213 registers at D 64 / 128 / 256, no spills, 41 / 81 / 161 KB
-of shared memory (2 blocks per SM at D 128, 1 at D 256); f32 88-128
-registers, 116 B of spill stores at D 256 (the table in the CUDA source).
+heaviest causal q tiles first.  f32, for the models' f32 parity runs and
+training, at head_dim 64, 80 (hubert-xlarge), 128 and 256, runs both
+products on the tensor cores too, as ``mma.sync`` m16n8k8 TF32 in the
+3xTF32 split (each operand x = big + small, both TF32, and small*big +
+big*small + big*big summed in f32: ~22 bits of each operand, where one
+TF32 pass would miss the f32 limit), one warp per 16 rows, 64-key K/V
+tiles (32 at D 256) in a 2-stage ``cp.async`` ring; ``fwd_tiles`` gives
+its tiles.  It can also write each row's log-sum-exp, which the
+backward reads.
 
 The gradient: the JAX package trains by differentiating the jnp attention
 its forward calls; here that call is the kernel, so ``FlashPrefillFn``
 (a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
 backward launches ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128 /
-256, ``q_offset`` 0; see ``flash_prefill_bwd``).  Inputs without a backward
-kernel (bf16, ``q_offset``) raise when autograd would record them.
+256, ``q_offset`` 0, its five products in 3xTF32 on the tensor cores; see
+``flash_prefill_bwd``).  Inputs without a backward kernel (bf16,
+``q_offset``) raise when autograd would record them.
 
 A row with no valid key returns zeros, as ``repro.kernels.ref`` does.
 """
@@ -99,23 +102,43 @@ def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):
         return torch.autograd.grad(o, (qq, kk, vv), dout)
 
 
-def bwd_key_tile(D: int) -> int:
-    """Keys per kv tile of the backward kernel at head dim D (its q tiles
-    hold 64 rows): 32 at D 256, where 64-key tiles would not fit a block's
-    shared memory, else 64."""
-    return 32 if D > 128 else 64
+def fwd_tiles(D: int):
+    """(rows a q tile, keys a K/V tile) of the f32 forward kernel at head
+    dim D: 8 warps of 16 rows and 64-key tiles; 4 warps and 32-key tiles
+    at D 256, where shared memory and registers run out."""
+    return (64, 32) if D > 128 else (128, 64)
+
+
+def bwd_tiles(D: int):
+    """The backward kernel's tiles at head dim D: (rows a dQ tile, keys a
+    dQ step, keys a dK/dV tile, rows a dK/dV step)."""
+    if D > 128:
+        return 64, 16, 64, 16
+    return 128, 32, 128, 32 if D <= 80 else 16
+
+
+def bwd_split(B: int, Hkv: int, S: int, D: int, n_sm: int) -> int:
+    """Ranges of q tiles that each dK/dV key tile is split over: 1 where
+    the dK/dV launch has at least two waves of blocks (n_kt * Hkv * B >=
+    2 * n_sm), else min(4, ceil(2 * n_sm / blocks))."""
+    blocks = -(-S // bwd_tiles(D)[2]) * Hkv * B
+    if blocks == 0 or blocks >= 2 * n_sm:
+        return 1
+    return min(4, -(-2 * n_sm // blocks))
 
 
 def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
-                                  window=0):
-    """The backward kernel's own algorithm in plain f32 PyTorch: the G
-    query heads of a kv head flattened into T*G rows (row t*G + g), P
-    recomputed from ``lse`` on 64-row x ``bwd_key_tile(D)``-key tiles,
-    delta = rowsum(dO*O); dK and dV summed over the q tiles that can see
-    each key tile (launch 2), dQ over the key tiles each q tile can see
-    (launch 1), each tile range chosen as the kernel chooses it."""
+                                  window=0, n_sm=132, mm=torch.matmul):
+    """The backward kernel's own algorithm in plain f32 PyTorch, its
+    products through ``mm``: the G query heads of a kv head flattened
+    into T*G rows (row t*G + g), P recomputed from ``lse`` tile by tile,
+    delta = rowsum(dO*O); dQ summed over the key tiles each q tile can see
+    (launch 1); dK and dV over the q tiles that can see each key tile
+    (launch 2), split into ``bwd_split(..., n_sm)`` ranges whose partial
+    sums are added in range order (launch 3); tiles (``bwd_tiles``) and
+    tile ranges chosen as the kernel chooses them."""
     B, T, Hq, D = q.shape
-    bq, bk = 64, bwd_key_tile(D)
+    dq_rows, dq_keys, kv_keys, kv_rows = bwd_tiles(D)
     S, Hkv = k.shape[1], k.shape[2]
     G, TG, scale = Hq // Hkv, T * (Hq // Hkv), D ** -0.5
 
@@ -138,37 +161,47 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
             ok &= kp <= t
         if window:
             ok &= kp > t - window
-        s = qf[:, :, r0:r1] @ kf[:, :, k0:k1].transpose(-1, -2)
+        s = mm(qf[:, :, r0:r1], kf[:, :, k0:k1].transpose(-1, -2))
         p = torch.where(ok, torch.exp(s * scale - lf[:, :, r0:r1, None]),
                         0.0)
-        dp = df[:, :, r0:r1] @ vf[:, :, k0:k1].transpose(-1, -2)
+        dp = mm(df[:, :, r0:r1], vf[:, :, k0:k1].transpose(-1, -2))
         return p, p * (dp - delta[:, :, r0:r1, None])
 
     dq = torch.zeros_like(qf)
-    for r0 in range(0, TG, bq):                     # launch 1: dQ
-        r1 = min(r0 + bq, TG)
+    for r0 in range(0, TG, dq_rows):                # launch 1: dQ
+        r1 = min(r0 + dq_rows, TG)
         t_lo, t_hi = r0 // G, (r1 - 1) // G
         k_end = min(S, t_hi + 1) if causal else S
-        k_begin = (max(0, t_lo - window + 1) if window else 0) // bk
-        for k0 in range(k_begin * bk, k_end, bk):
-            k1 = min(k0 + bk, S)
+        k_begin = (max(0, t_lo - window + 1) if window else 0) // dq_keys
+        for k0 in range(k_begin * dq_keys, k_end, dq_keys):
+            k1 = min(k0 + dq_keys, S)
             _, ds = tile(r0, r1, k0, k1)
-            dq[:, :, r0:r1] += ds @ kf[:, :, k0:k1]
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for k0 in range(0, S, bk):                      # launch 2: dK, dV
-        k1 = min(k0 + bk, S)
+            dq[:, :, r0:r1] += mm(ds, kf[:, :, k0:k1])
+    n_split = bwd_split(B, Hkv, S, D, n_sm)
+    dk, dv = (torch.zeros((n_split,) + kf.shape, device=q.device)
+              for _ in range(2))
+    for k0 in range(0, S, kv_keys):                 # launch 2: dK, dV
+        k1 = min(k0 + kv_keys, S)
         t_begin = k0 if causal else 0
         t_end = min(T, k1 - 1 + window) if window else T
-        if t_end <= t_begin:
-            continue
-        for r0 in range(t_begin * G // bq * bq, t_end * G, bq):
-            r1 = min(r0 + bq, TG)
-            p, ds = tile(r0, r1, k0, k1)
-            dv[:, :, k0:k1] += p.transpose(-1, -2) @ df[:, :, r0:r1]
-            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qf[:, :, r0:r1]
+        rt_begin = t_begin * G // kv_rows
+        n_rt = (-(-t_end * G // kv_rows) - rt_begin if t_end > t_begin
+                else 0)
+        for sp in range(n_split):
+            for rt in range(rt_begin + n_rt * sp // n_split,
+                            rt_begin + n_rt * (sp + 1) // n_split):
+                r0, r1 = rt * kv_rows, min(rt * kv_rows + kv_rows, TG)
+                p, ds = tile(r0, r1, k0, k1)
+                dv[sp, :, :, k0:k1] += mm(p.transpose(-1, -2),
+                                          df[:, :, r0:r1])
+                dk[sp, :, :, k0:k1] += mm(ds.transpose(-1, -2),
+                                          qf[:, :, r0:r1])
+    for sp in range(1, n_split):                    # launch 3, in order
+        dk[0] += dk[sp]
+        dv[0] += dv[sp]
     dq = (dq * scale).reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4)
-    return (dq.reshape(B, T, Hq, D), (dk * scale).permute(0, 2, 1, 3),
-            dv.permute(0, 2, 1, 3))
+    return (dq.reshape(B, T, Hq, D), (dk[0] * scale).permute(0, 2, 1, 3),
+            dv[0].permute(0, 2, 1, 3))
 
 
 def _check(q, k, v):
@@ -312,13 +345,19 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
     if B == 0:
         return dq, dk, dv
     delta = torch.empty_like(lse)       # scratch: rowsum(dO * O)
+    n_split = bwd_split(B, Hkv, S, D, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    # scratch: the dK/dV launch's partial sums where it is split
+    part = (torch.empty((2, n_split) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.flash_prefill_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, S, Hq, Hkv,
-            D, int(bool(causal)), int(window), D ** -0.5,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), B, T, S, Hq, Hkv,
+            D, int(bool(causal)), int(window), n_split, D ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill_bwd")
     flash_prefill_bwd.launches += 1

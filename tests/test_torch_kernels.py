@@ -403,8 +403,9 @@ def test_split_rows_at_the_served_shapes(B, Hkv, S, rows, n_split):
 # flash_prefill's backward: the kernel's algorithm in plain PyTorch
 # --------------------------------------------------------------------- #
 # |tiled - autograd| <= 1e-5 * max|autograd| per gradient: both are f32
-# sums of the same products in another order (64-row and 64-key tiles,
-# P recomputed from the log-sum-exp rather than normalised by l)
+# sums of the same products in another order (the kernel's tiles, its
+# dK/dV split over q-tile ranges, P recomputed from the log-sum-exp rather
+# than normalised by l)
 BWD_RTOL = 1e-5
 
 
@@ -414,9 +415,10 @@ BWD_RTOL = 1e-5
 @pytest.mark.parametrize("D", [64, 80, 256])
 def test_flash_prefill_bwd_tiled_plain_matches_autograd(causal, window, Hq,
                                                         Hkv, D):
-    """T and S off the 64-row / 64-key tiles (32-key at D 256; T*G rows as
-    the kernel flattens them, G 1 / 4 / 10); at S < T under a window, rows
-    with no valid key (log-sum-exp -inf) get zero gradients."""
+    """T and S off the kernel's tiles (``bwd_tiles``; T*G rows as the
+    kernel flattens them, G 1 / 4 / 10), the dK/dV launch split over 4
+    q-tile ranges at these sizes; at S < T under a window, rows with no
+    valid key (log-sum-exp -inf) get zero gradients."""
     rng = np.random.default_rng(3)
     B, T, S = 2, 90, 90 if causal else 70
     q, do = (torch.from_numpy(rng.normal(size=(B, T, Hq, D)).astype(
