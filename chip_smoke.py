@@ -53,8 +53,10 @@ Phases, in order (all by default):
    backward kernels (``rwkv6_scan_bwd``, ``rglru_scan_bwd``) at their
    training shapes and off them, against autograd of the plain versions,
    and ``rwkv6_scan_bwd`` under fast decays and w under its clamp against
-   autograd of the float64 step recurrence; each backward case called
-   twice, the same bits.  Each wrapper of a kernel without a backward for
+   autograd of the float64 step recurrence (dw exactly 0 under the
+   clamp); each backward case called
+   twice, the same bits; ``rwkv6_scan_bwd``'s four grid launches timed
+   one by one under ``torch.profiler`` at its training shape.  Each wrapper of a kernel without a backward for
    its inputs (``decode_attention``; ``flash_prefill`` in bf16 or with a
    ``q_offset``; ``rwkv6_scan`` at D 128) must raise on a CUDA input that
    requires grad and launch nothing; f32 ``flash_prefill`` (D 64 / 80 /
@@ -1019,6 +1021,28 @@ def wkv6_step_grads(torch, r, k, v, w, u, s0, do, ds_final):
     return (*grads[:5], grads[5] if s0 is not None else None)
 
 
+def launch_times(torch, fn, calls: int = 10):
+    """[(kernel name, device ms a call)] of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, in the order the kernels first ran."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    first = {}
+    for i, ev in enumerate(prof.events()):
+        if ev.device_type.name == "CUDA":
+            first.setdefault(ev.name, i)
+    times = {ev.key: ev.device_time_total / 1e3 / calls
+             for ev in prof.key_averages()
+             if ev.device_type.name == "CUDA" and ev.device_time_total}
+    return [(name.replace("(anonymous namespace)::", "").split("(")[0]
+             .split("::")[-1], times[name])
+            for name in sorted(times, key=lambda n: first.get(n, 0))]
+
+
 def run_rwkv6_bwd_kernel(torch, rng, results) -> bool:
     """``rwkv6_scan_bwd`` (from the forward kernel's scratch) against
     autograd of the plain version, or of the float64 step recurrence where
@@ -1051,6 +1075,7 @@ def run_rwkv6_bwd_kernel(torch, rng, results) -> bool:
             return RS.rwkv6_scan_bwd(r, k, v, w, u, s0, do, ds, s_in=scratch)
         got, got2 = kern(), kern()
         same = all(a is None or torch.equal(a, b) for a, b in zip(got, got2))
+        clamped = True
         if decay == "slow":
             want = RS.rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds)
             against = "plain"
@@ -1061,10 +1086,14 @@ def run_rwkv6_bwd_kernel(torch, rng, results) -> bool:
             want = wkv6_step_grads(torch, r, k, v, w, u, s0, do, ds)
             against = ("float64 step recurrence; plain chunked form's "
                        f"gradients finite: {finite}")
+            if decay == "clamp":
+                # no gradient passes the clamp: dw exactly 0 under it
+                clamped = bool((got[3][w < 1e-12] == 0).all())
+                against += f"; dw = 0 under the clamp: {clamped}"
         torch.cuda.synchronize()
         checks = [compare(torch, g, x, "grad") for g, x in zip(got, want)
                   if x is not None]
-        ok = same and all(c[0] for c in checks)
+        ok = same and clamped and all(c[0] for c in checks)
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
         plain_ms = cuda_ms(torch, lambda: RS.rwkv6_scan_bwd_plain(
             r, k, v, w, u, s0, do, ds), iters=3, warmup=1)
@@ -1087,6 +1116,9 @@ def run_rwkv6_bwd_kernel(torch, rng, results) -> bool:
             f"call computes WKV6's gradient) bound_ms={b_ms:.4f} ({b_by}; "
             f"share {100 * b_ms / dev_ms:.0f}%)")
         if case is RWKV_BWD_CASES[0]:
+            log(f"rwkv6_scan_bwd B={B} T={T} H={H} D={D}: device ms a call "
+                "by grid launch (torch.profiler, 10 calls): " + ", ".join(
+                    f"{name} {t:.4f}" for name, t in launch_times(torch, kern)))
             record(results, "rwkv6_scan_bwd", (TRAIN_RWKV,), max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, device_ms=dev_ms, library_device_ms=None)

@@ -38,36 +38,75 @@
 // w_j, and at strong decay misses the port's limit once divided by w_j.
 // (Factors written 2^x are e^x of natural-log sums; the kernel sums in log2.)
 //
+// Sub-blocks.  Each chunk is cut into four sub-blocks of 16 steps, as the
+// forward cuts it.  A pair s < t inside one sub-block is summed on the CUDA
+// cores, 4 x 120 pairs a chunk where the whole chunk has 2016: the
+// diagonal tiles of A with one exp per (t, s, d), as the forward forms
+// them, and dr's, dk's and d log w's pair sums in one loop per (sub-block,
+// channel) whose decay over s < m < t is a running product of
+// max(w_m, 1e-12), each factor <= 1 (one multiply a pair where an exp took
+// an add and an ex2, and exact to the f32 product's rounding, where the
+// exponent of a long cumulative sum carries that sum's rounding).  A pair
+// across sub-blocks
+// factors through a cumulative sum Y between s and t, 2^(E_t - C_s) =
+// 2^(E_t - Y) 2^(Y - C_s), both exponents <= 0, and runs as a product on
+// the tensor cores:
+//   A^T, s in sub-block j, t in i > j:  (k 2^(Y_j - C))_j (r 2^(E - Y_j))_i^T,
+//       Y_j = C at the end of sub-block j (the forward's cross scores);
+//   dr, t in sub-block i: 2^(E_t - Y') (dA[t, :16i] (k 2^(Y' - C))[:16i]),
+//       Y' = C at the end of sub-block i - 1: one product for every s before;
+//   dk, s in sub-block j: 2^(Y_j - C_s) (dA[16(j+1):, s]^T
+//       (r 2^(E - Y_j))[16(j+1):]), walked last sub-block first.
+// The pair sum of d log w_j, j in sub-block c, splits by where s and t lie:
+// both inside c (the intra loop's prefix sums); s before c, t inside c after
+// j (a suffix sum over t of r_t times dr's cross term); s inside c before j,
+// t after c (a prefix sum over s of k_s times dk's cross term); s before c,
+// t after c (the same for every j in c: k_s times dk's cross term summed
+// over s, taken from the dk product part way along its t walk).  Each piece
+// still spans j, so each still carries w_j.
+//
 // Four launches on one stream, no atomics (the same bits on every call):
 //   (a) rwkv6_bwd_chunk_dstate, one block per (chunk, head, batch): each
-//       chunk's local term sum_t (r_t 2^E_t) do_t^T and its decay 2^Z, into
-//       scratch (B, H, n, D, D) + (B, H, n, D);
+//       chunk's local term sum_t (r_t 2^E_t) do_t^T (a product) and its
+//       decay 2^Z, into scratch (B, H, n, D, D) + (B, H, n, D);
 //   (b) rwkv6_bwd_state_scan, one thread per (4 state entries, head, batch):
 //       the chunks last to first from dS_T (or 0), dS_out[c] = dS,
 //       dS = diag(2^Z_c) dS + local_c, storing dS_out[c] over local_c, and
 //       the last dS as ds0;
-//   (c) rwkv6_bwd_chunk_grads, one block per (chunk, head, batch): A and dA,
-//       then dv, dr, dk from the chunk's inputs, S_in (the forward's pass (b)
-//       scratch, which the autograd Function saves) and dS_out, then d log w
-//       (the last sum over pairs s < j < t kept as prefix sums over s, one
-//       per row t and state row d, walked along j) and dw, and the chunk's
-//       share of du;
+//   (c) rwkv6_bwd_chunk_grads, one block per (chunk, head, batch), in six
+//       tiles of shared memory that later terms take over: A^T's diagonal
+//       tiles, dv = A^T do + (k 2^(Z - C)) dS_out; dA = do v^T and the k
+//       state terms 2^(Z - C) (v dS_out^T); the r state terms
+//       2^E (do S_in^T) (S_in: the forward's pass (b) scratch, which the
+//       autograd Function saves); the cross terms of dr and dk added to the
+//       state terms; then per (sub-block, channel) one thread: the intra
+//       pairs, dr, dk, d log w, dw and the chunk's share of du;
 //   (d) rwkv6_bwd_du: du summed over batches and chunks in order.
+// Every product (the local term, A^T's cross tiles, A^T do, (k 2^(Z-C))
+// dS_out, dA, the two state terms, the two cross terms) runs on the tensor
+// cores as mma.sync m16n8k8 TF32 in common.cuh's 3xTF32 split (its
+// rounding done in integer operations, split_rna below), each in a fresh
+// accumulator of at most 8 k-steps, added to the others in f32.
 //
 // Overflow.  Every exponent formed is a later cumulative sum minus an
-// earlier one (E_t - C_s for s < t, Z - C_s, E_t), so it is <= 0 and every
-// factor <= 1, as in the forward kernel: the kernel is finite wherever its
-// inputs are, where the reference's k exp(-cum) overflows under strong decay.
+// earlier one (E_t - C_s for s < t, Z - C_s, E_t, and the Y factorings
+// above), so it is <= 0 and every factor <= 1, as in the forward kernel:
+// the kernel is finite wherever its inputs are, where the reference's
+// k exp(-cum) overflows under strong decay.
 //
-// What bounds it on the H100: operations, on paper.  At rwkv6-3b's training
-// shape (B 4, T 1024, H 40, D 64) it moves ~0.38 GB (r, k, v, w, do in; dr,
-// dk, dv, dw out; ~0.11 ms at 3.35 TB/s) against ~8.8 GFLOP of products
-// (~0.13 ms at the f32 CUDA-core peak).  This first kernel is simple, not
-// fast: f32 FMAs on the CUDA cores (no TF32), one exp per (t, s, d) of the
-// four intra-chunk sums, one block of 8 warps a chunk with its whole working
-// set in 176 KB of shared memory (one block a SM).  D is 64 (rwkv6-3b's).
-// On an H100 (700 W) the four launches take 1.83 ms at that shape (7% of
-// the bound), (c) 1.58 ms of it; ptxas: (c) 118 registers, no spills.
+// What bounds it on the H100: bytes.  At rwkv6-3b's training shape (B 4,
+// T 1024, H 40, D 64) it moves ~0.38 GB (r, k, v, w, do in; dr, dk, dv, dw
+// out; ~0.11 ms at 3.35 TB/s) against ~8.8 GFLOP of products (~0.05 ms at
+// 165 TFLOP/s, the 3xTF32 rate).  Launch (c) holds 113 KB of shared memory
+// and 128 registers a thread (ptxas, no spills), so two blocks of 8 warps
+// share an SM; (a) 56 KB and 52 registers.  D is 64 (rwkv6-3b's).  On an
+// NVIDIA H100 80GB HBM3 at 700 W the four launches take 0.563 ms at that
+// shape (20% of the bound): (a) 0.078, (b) 0.036, (c) 0.436, (d) 0.008.
+// Variants with one stage of (c) cut out, timed side by side, put the most
+// time in the intra loop and in dv, then in dA with the k state terms,
+// A^T's diagonal tiles and the cross terms: (c) is bound by instruction
+// issue and latency (fragment loads with their exps and TF32 splits, the
+// intra loop), not by its bytes.
 #include <math.h>
 #include <stdint.h>
 
@@ -79,12 +118,17 @@ namespace wkv_bwd {
 
 constexpr int kThreads = 256;                  // 8 warps
 constexpr int kChunk = 64;                     // the forward's chunk
+constexpr int kSub = 16;                       // steps per sub-block
+constexpr int kNSub = kChunk / kSub;           // 4
 constexpr int kD = 64;                         // head dim
-constexpr int kP = kD + 4;                     // pitch of every tile
+constexpr int kP = kD + 4;                     // (c): pitch of every tile
 constexpr int kTile = kChunk * kP;             // floats of a 64-row tile
+constexpr int kPT = kD + 8;                    // (a): pitch, tiles read down
+constexpr int kPD = 20;                        // (c): pitch of A^T's diagonal
 constexpr int kScanThreads = 256;              // pass (b)
 constexpr int kScanAhead = 8;                  // pass (b): chunks loaded ahead
-static_assert(kChunk == kD && kD * kD == 16 * kThreads, "16 outputs a thread");
+static_assert(kChunk == kD && kThreads == kNSub * kD, "one thread a (sub, d)");
+static_assert(kThreads / 32 == 2 * kNSub, "(c): a warp a (16 rows, 32 cols)");
 
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -103,15 +147,55 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+// The 3xTF32 split of common.cuh's frag_a / frag_b, with cvt.rna's rounding
+// (to nearest, ties away from zero) done in two integer operations on the
+// bit pattern: the same bits for finite x, where cvt.rna.tf32.f32 compiles
+// to a longer sequence that also handles NaN and infinity (launch (c) ran
+// clearly slower with it, in variants timed side by side).
+__device__ __forceinline__ void split_rna(float x, uint32_t& big,
+                                          uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ FragA int_frag_a(float a0, float a1, float a2,
+                                            float a3) {
+  FragA f;
+  split_rna(a0, f.big[0], f.small[0]);
+  split_rna(a1, f.big[1], f.small[1]);
+  split_rna(a2, f.big[2], f.small[2]);
+  split_rna(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB int_frag_b(float b0, float b1) {
+  FragB f;
+  split_rna(b0, f.big[0], f.small[0]);
+  split_rna(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+// Pair p of the entries s < t inside the chunk's sub-blocks, row by row:
+// sub-block p / 120, then (1,0), (2,0), (2,1), (3,0), ... (the forward's)
+__device__ __forceinline__ void pair(int p, int& t, int& s) {
+  constexpr int kTri = kSub * (kSub - 1) / 2;
+  const int q = p / kTri, l = p % kTri;
+  // tl (tl - 1) / 2 <= l < tl (tl + 1) / 2; sqrtf is exact on the squares
+  const int tl = (int)((1.f + sqrtf(1.f + 8.f * l)) * 0.5f);
+  t = q * kSub + tl;
+  s = q * kSub + l - tl * (tl - 1) / 2;
+}
+
 // Rows t < tv of a (kChunk x kD) tile of a (B, T, H, kD) tensor into shared
-// memory at pitch kP, 16 bytes a thread; rows past tv are zero-filled.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          size_t step, int tv, int tid) {
+// memory at `pitch`, 16 bytes a thread; rows past tv are zero-filled.
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const float* src, size_t step,
+                                          int tv, int tid) {
   constexpr int c4 = kD / 4;
   for (int i = tid; i < kChunk * c4; i += kThreads) {
     const int t = i / c4, c = (i % c4) * 4;
     const bool ok = t < tv;
-    cp_async16(dst + t * kP + c, src + (ok ? (size_t)t * step + c : 0), ok);
+    cp_async16(dst + t * pitch + c, src + (ok ? (size_t)t * step + c : 0), ok);
   }
 }
 
@@ -126,18 +210,19 @@ __device__ __forceinline__ void load_state(float* dst, const float* src,
 }
 
 // Cx[t + 1] = C_t, the inclusive sums of log2 max(w, 1e-12) from the chunk
-// start, and Cx[0] = 0 (so Cx[t] = E_t), from w at pitch kP, in four parts
-// of 16 steps whose offsets are summed in order: the forward's pass (c)
-// sums, bit for bit.
-__device__ __forceinline__ void cum_sums(float* Cx, const float* Ws,
-                                         float* Tot, int tv, int tid) {
+// start, in place over w loaded at rows 1..kChunk, and Cx[0] = 0 (so
+// Cx[t] = E_t), in four parts of 16 steps whose offsets are summed in
+// order: the forward's pass (c) sums, bit for bit.
+__device__ __forceinline__ void cum_sums(float* Cx, int pitch, float* Tot,
+                                         int tv, int tid) {
   constexpr int Q = kThreads / kD, LEN = kChunk / Q;
   const int d = tid % kD, q = tid / kD;
   float run = 0.f;
   for (int i = 0; i < LEN; ++i) {
     const int t = q * LEN + i;
-    run += t < tv ? log2f(fmaxf(Ws[t * kP + d], 1e-12f)) : 0.f;
-    Cx[(t + 1) * kP + d] = run;
+    float* p = Cx + (t + 1) * pitch + d;
+    run += t < tv ? log2f(fmaxf(*p, 1e-12f)) : 0.f;
+    *p = run;
   }
   Tot[q * kD + d] = run;
   if (q == 0) Cx[d] = 0.f;
@@ -145,63 +230,86 @@ __device__ __forceinline__ void cum_sums(float* Cx, const float* Ws,
   if (q > 0) {
     float off = 0.f;
     for (int p = 0; p < q; ++p) off += Tot[p * kD + d];
-    for (int i = 0; i < LEN; ++i) Cx[(q * LEN + i + 1) * kP + d] += off;
+    for (int i = 0; i < LEN; ++i) Cx[(q * LEN + i + 1) * pitch + d] += off;
   }
 }
 
+// The sum over the 16 rows of a warp's accumulator tile (rows g, g + 8 of
+// each lane, g = lane / 4) of x[n][i]: on return every lane with g = 0
+// holds its columns' sums.
+__device__ __forceinline__ void col_sums(float (&x)[4][2]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      x[n][c] += __shfl_xor_sync(0xffffffffu, x[n][c], 4);
+      x[n][c] += __shfl_xor_sync(0xffffffffu, x[n][c], 8);
+      x[n][c] += __shfl_xor_sync(0xffffffffu, x[n][c], 16);
+    }
+}
+
 // ------------------------------------- (a) each chunk's local state term --
+// r (then r 2^E), do, and w (then the sums) at pitch kPT, read down their
+// columns as the product's operands: 56 KB, four blocks a SM.
+constexpr int kDstateFloats = 3 * kChunk * kPT + kPT + kThreads;
+
 __global__ void __launch_bounds__(kThreads)
 rwkv6_bwd_chunk_dstate(const float* __restrict__ r, const float* __restrict__ w,
                        const float* __restrict__ dout, float* __restrict__ local,
                        float* __restrict__ ddec, int T, int H, int n) {
   extern __shared__ __align__(16) float smem[];
   float* Rs = smem;                    // r, then r 2^E
-  float* Os = Rs + kTile;              // do
-  float* Ws = Os + kTile;              // w
-  float* Cx = Ws + kTile;              // (kChunk + 1) rows
-  float* Tot = Cx + kTile + kP;
+  float* Os = Rs + kChunk * kPT;       // do
+  float* Cx = Os + kChunk * kPT;       // (kChunk + 1) rows
+  float* Tot = Cx + (kChunk + 1) * kPT;
 
   const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q4 = lane % 4;
   const int t0 = chunk * kChunk, tv = min(kChunk, T - t0);
   const size_t step = (size_t)H * kD;
   const size_t base = (((size_t)b * T + t0) * H + h) * kD;
 
-  load_rows(Rs, r + base, step, tv, tid);
-  load_rows(Os, dout + base, step, tv, tid);
-  load_rows(Ws, w + base, step, tv, tid);
+  load_rows(Rs, kPT, r + base, step, tv, tid);
+  load_rows(Os, kPT, dout + base, step, tv, tid);
+  load_rows(Cx + kPT, kPT, w + base, step, tv, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  cum_sums(Cx, Ws, Tot, tv, tid);
+  cum_sums(Cx, kPT, Tot, tv, tid);
   __syncthreads();
   for (int i = tid; i < kChunk * kD; i += kThreads) {
     const int t = i / kD, d = i % kD;
-    Rs[t * kP + d] *= exp2_ftz(Cx[t * kP + d]);
+    Rs[t * kPT + d] *= exp2_ftz(Cx[t * kPT + d]);
   }
   const size_t bhc = ((size_t)b * H + h) * n + chunk;
-  if (tid < kD) ddec[bhc * kD + tid] = exp2_ftz(Cx[kChunk * kP + tid]);
+  if (tid < kD) ddec[bhc * kD + tid] = exp2_ftz(Cx[kChunk * kPT + tid]);
   __syncthreads();
 
-  // local[d, e] = sum_t r_dec[t, d] do[t, e]: row d, 16 columns a thread
-  const int d = tid / 4, e0 = (tid % 4) * 16;
-  float acc[16] = {};
-  for (int t = 0; t < tv; ++t) {
-    const float a = Rs[t * kP + d];
+  // local[d, e] = sum_t r_dec[t, d] do[t, e]: warp (16 rows d, 32 columns)
+  const int d0 = (warp / 2) * 16, nc = (warp % 2) * 32;
+  float acc[4][4] = {};
+  for (int ts = 0; ts < tv; ts += 8) {
+    const int ta = ts + q4, tb = ta + 4;
+    const FragA a = int_frag_a(Rs[ta * kPT + d0 + g], Rs[ta * kPT + d0 + g + 8],
+                           Rs[tb * kPT + d0 + g], Rs[tb * kPT + d0 + g + 8]);
+    FragB bf[4];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const float4 o = ld4(Os + t * kP + e0 + 4 * m);
-      acc[4 * m] = fmaf(a, o.x, acc[4 * m]);
-      acc[4 * m + 1] = fmaf(a, o.y, acc[4 * m + 1]);
-      acc[4 * m + 2] = fmaf(a, o.z, acc[4 * m + 2]);
-      acc[4 * m + 3] = fmaf(a, o.w, acc[4 * m + 3]);
+    for (int j = 0; j < 4; ++j) {
+      const int e = nc + j * 8 + g;
+      bf[j] = int_frag_b(Os[ta * kPT + e], Os[tb * kPT + e]);
     }
+    mma3(acc, a, bf);
   }
-  float* out = local + bhc * kD * kD + (size_t)d * kD + e0;
+  float* out = local + bhc * kD * kD;
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
-    *reinterpret_cast<float4*>(out + 4 * m) =
-        make_float4(acc[4 * m], acc[4 * m + 1], acc[4 * m + 2], acc[4 * m + 3]);
+  for (int j = 0; j < 4; ++j) {
+    const int e = nc + j * 8 + 2 * q4;
+    *reinterpret_cast<float2*>(out + (size_t)(d0 + g) * kD + e) =
+        make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(out + (size_t)(d0 + g + 8) * kD + e) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
 }
 
 // ------------------------- (b) the state gradients, last chunk to first --
@@ -241,12 +349,25 @@ rwkv6_bwd_state_scan(float* __restrict__ local, const float* __restrict__ ddec,
 }
 
 // ------------------------------------------- (c) each chunk's gradients --
-// Tiles at pitch kP: r, k, v (then the forward sums of d log w), do, w;
-// S_in (then its k-state terms), dS_out; A (then its r-state terms), dA;
-// the sums Cx (kChunk + 1 rows); u; diag(S_in dS_out^T); part totals.
-constexpr int kGradFloats = 9 * kTile + (kTile + kP) + 2 * kD + kThreads;
+// Six tiles at pitch kP: r, k, the sums Cx (kChunk + 1 rows), and three
+// that later terms take over: do then RX (dr's state and cross terms), v
+// then dA, dS_out then S_in then KX (dk's state and cross terms, then d log
+// w's sums over s inside each sub-block); then A^T's diagonal tiles (first
+// the sums' part totals, last du's parts), u, diag(S_in dS_out^T), the
+// sub-blocks' sums of r RX's state part and of k KX's, and the three pair
+// sums that span a whole sub-block.  113 KB: two blocks a SM.
+struct GradSmem {
+  static constexpr int R = 0, K = R + kTile, CX = K + kTile;
+  static constexpr int S4 = CX + kTile + kP, S5 = S4 + kTile, S6 = S5 + kTile;
+  static constexpr int ATD = S6 + kTile;
+  static constexpr int U = ATD + kNSub * kSub * kPD;
+  static constexpr int GZ = U + kD, RSUM = GZ + kD, KSUM = RSUM + kNSub * kD;
+  static constexpr int SPAN = KSUM + kNSub * kD;
+  static constexpr int kFloats = SPAN + 3 * kD;
+};
+static_assert(kNSub * kSub * kPD >= kThreads, "ATD holds the part totals");
 
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 rwkv6_bwd_chunk_grads(const float* __restrict__ r, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ w,
                       const float* __restrict__ u, const float* __restrict__ dout,
@@ -255,231 +376,498 @@ rwkv6_bwd_chunk_grads(const float* __restrict__ r, const float* __restrict__ k,
                       float* __restrict__ dk, float* __restrict__ dv,
                       float* __restrict__ dw, float* __restrict__ du_part,
                       int T, int H, int n) {
+  using L = GradSmem;
   extern __shared__ __align__(16) float smem[];
-  float* Rs = smem;
-  float* Ks = Rs + kTile;
-  float* Vs = Ks + kTile;
-  float* Os = Vs + kTile;
-  float* Ws = Os + kTile;
-  float* Si = Ws + kTile;      // S_in[d][e]; then k_s 2^(Z - C_s) (dS_out v_s)
-  float* So = Si + kTile;      // dS_out[d][e]
-  float* As = So + kTile;      // A[t][s]; then r_t 2^E_t (S_in do_t)
-  float* dAs = As + kTile;     // dA[t][s], zero above the diagonal
-  float* Cx = dAs + kTile;     // Cx[t] = E_t, Cx[t + 1] = C_t, Cx[kChunk] = Z
-  float* Us = Cx + kTile + kP;
-  float* Gz = Us + kD;         // diag(S_in dS_out^T)
-  float* Tot = Gz + kD;
+  float* Rs = smem + L::R;
+  float* Ks = smem + L::K;
+  float* Cx = smem + L::CX;    // Cx[t] = E_t, Cx[t + 1] = C_t, Cx[kChunk] = Z
+  float* Os = smem + L::S4;    // do, then RX
+  float* RX = smem + L::S4;
+  float* Vs = smem + L::S5;    // v, then dA (rows t, columns s)
+  float* dAs = smem + L::S5;
+  float* So = smem + L::S6;    // dS_out, then S_in, then KX
+  float* Si = smem + L::S6;
+  float* KX = smem + L::S6;
+  float* ATd = smem + L::ATD;  // ATd[(16 j + s) kPD + t] = A[16j + t, 16j + s]
+  float* Us = smem + L::U;
+  float* Gz = smem + L::GZ;    // diag(S_in dS_out^T)
+  float* Rsum = smem + L::RSUM;
+  float* Ksum = smem + L::KSUM;
+  float* Span = smem + L::SPAN;
 
   const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q4 = lane % 4;
   const int t0 = chunk * kChunk, tv = min(kChunk, T - t0);
   const size_t step = (size_t)H * kD;
   const size_t base = (((size_t)b * T + t0) * H + h) * kD;
   const size_t bhc = ((size_t)b * H + h) * n + chunk;
+  const float* sin_c = s_in + bhc * kD * kD;
+  // the products' warp tile: 16 rows (sub-block mt), columns nc..nc + 31
+  const int mt = warp / 2, nc = (warp % 2) * 32;
+  const float* Z = Cx + kChunk * kP;
 
-  load_rows(Rs, r + base, step, tv, tid);
-  load_rows(Ks, k + base, step, tv, tid);
-  load_rows(Vs, v + base, step, tv, tid);
-  load_rows(Os, dout + base, step, tv, tid);
-  load_rows(Ws, w + base, step, tv, tid);
-  load_state(Si, s_in + bhc * kD * kD, tid);
-  load_state(So, ds_out + bhc * kD * kD, tid);
+  // r, k, w and u first; do, v and dS_out land under the sums and A^T's
+  // diagonal tiles
+  load_rows(Rs, kP, r + base, step, tv, tid);
+  load_rows(Ks, kP, k + base, step, tv, tid);
+  load_rows(Cx + kP, kP, w + base, step, tv, tid);
   for (int i = tid; i < kD / 4; i += kThreads)
     cp_async16(Us + 4 * i, u + (size_t)h * kD + 4 * i, true);
   cp_async_commit();
+  load_rows(Os, kP, dout + base, step, tv, tid);
+  load_rows(Vs, kP, v + base, step, tv, tid);
+  load_state(So, ds_out + bhc * kD * kD, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  cum_sums(Cx, kP, ATd, tv, tid);
+  __syncthreads();
+
+  // A^T's diagonal tiles on the CUDA cores, two entries a thread: warps 0-6
+  // two of the 480 pairs s < t, warp 7 one pair and two entries of the
+  // diagonal (r u k); zero where s > t
+  {
+    constexpr int kLower = kNSub * kSub * (kSub - 1) / 2;
+    static_assert(kLower == 2 * kThreads - 32 && kChunk == 2 * 32,
+                  "warps 0-6: two pairs; warp 7: a pair, two diagonal rows");
+    int ta, sa, tb, sb;
+    pair(tid, ta, sa);
+    const bool diag = tid + kThreads >= kLower;      // warp 7
+    if (diag) {
+      tb = 2 * (tid + kThreads - kLower);
+      sb = tb + 1;                                   // the next diagonal row
+    } else {
+      pair(tid + kThreads, tb, sb);
+    }
+    float acc_a = 0.f, acc_b = 0.f, acc_c = 0.f;
+    for (int d = 0; d < kD; d += 4) {
+      const float4 ra = ld4(Rs + ta * kP + d), ea = ld4(Cx + ta * kP + d);
+      const float4 ka = ld4(Ks + sa * kP + d);
+      const float4 ca = ld4(Cx + (sa + 1) * kP + d);
+      acc_a = fmaf(ra.x, ka.x * exp2_ftz(ea.x - ca.x), acc_a);
+      acc_a = fmaf(ra.y, ka.y * exp2_ftz(ea.y - ca.y), acc_a);
+      acc_a = fmaf(ra.z, ka.z * exp2_ftz(ea.z - ca.z), acc_a);
+      acc_a = fmaf(ra.w, ka.w * exp2_ftz(ea.w - ca.w), acc_a);
+      if (diag) {
+        const float4 uv = ld4(Us + d);
+        const float4 r0 = ld4(Rs + tb * kP + d), k0 = ld4(Ks + tb * kP + d);
+        const float4 r1 = ld4(Rs + sb * kP + d), k1 = ld4(Ks + sb * kP + d);
+        acc_b = fmaf(r0.x, uv.x * k0.x, acc_b);
+        acc_b = fmaf(r0.y, uv.y * k0.y, acc_b);
+        acc_b = fmaf(r0.z, uv.z * k0.z, acc_b);
+        acc_b = fmaf(r0.w, uv.w * k0.w, acc_b);
+        acc_c = fmaf(r1.x, uv.x * k1.x, acc_c);
+        acc_c = fmaf(r1.y, uv.y * k1.y, acc_c);
+        acc_c = fmaf(r1.z, uv.z * k1.z, acc_c);
+        acc_c = fmaf(r1.w, uv.w * k1.w, acc_c);
+      } else {
+        const float4 rb = ld4(Rs + tb * kP + d), eb = ld4(Cx + tb * kP + d);
+        const float4 kb = ld4(Ks + sb * kP + d);
+        const float4 cb = ld4(Cx + (sb + 1) * kP + d);
+        acc_b = fmaf(rb.x, kb.x * exp2_ftz(eb.x - cb.x), acc_b);
+        acc_b = fmaf(rb.y, kb.y * exp2_ftz(eb.y - cb.y), acc_b);
+        acc_b = fmaf(rb.z, kb.z * exp2_ftz(eb.z - cb.z), acc_b);
+        acc_b = fmaf(rb.w, kb.w * exp2_ftz(eb.w - cb.w), acc_b);
+      }
+    }
+    // (t, s) of one chunk -> ATd row 16 q + s_local, column t_local
+    auto at = [&](int t, int s) {
+      return ATd + ((t / kSub) * kSub + s % kSub) * kPD + t % kSub;
+    };
+    *at(ta, sa) = acc_a;
+    if (diag) {
+      *at(tb, tb) = acc_b;
+      *at(sb, sb) = acc_c;
+    } else {
+      *at(tb, sb) = acc_b;
+    }
+    for (int i = tid; i < kNSub * kSub * kSub; i += kThreads) {
+      const int q = i / (kSub * kSub), tl = i / kSub % kSub, sl = i % kSub;
+      if (sl > tl) ATd[(q * kSub + sl) * kPD + tl] = 0.f;
+    }
+  }
   cp_async_wait<0>();
   __syncthreads();
-  cum_sums(Cx, Ws, Tot, tv, tid);
 
-  // diag(S_in dS_out^T): row d, four threads a row
+  // dv_s = sum_{t>=s} A[t,s] do_t + dS_out^T (k_s 2^(Z - C_s)): warp (16
+  // rows s of sub-block j, 32 columns e), with j = 0, 1, 3, 2 for warps
+  // 0-1, 2-3, 4-5, 6-7, so that warps w and w + 4 (one scheduler's) have
+  // 3 cross tiles between them.  A^T's cross tiles (j, i),
+  // i > j, are products through Y_j that share their k operand, formed once
+  // a k-step; each passes on in registers as the A operand of its product
+  // with do, whose rows are taken in the accumulator's column order
   {
+    const int j = warp < 4 ? mt : 5 - mt, sa = j * kSub + g, sb = sa + 8;
+    const float* Y = Cx + (j + 1) * kSub * kP;
+    float at[kNSub - 1][2][4] = {};      // A^T[s, 16i + 8m + 2q], i = j + 1 + x
+    for (int d0 = 0; d0 < kD; d0 += 8) {
+      const int da = d0 + q4, db = da + 4;
+      const FragA fa = int_frag_a(
+          Ks[sa * kP + da] * exp2_ftz(Y[da] - Cx[(sa + 1) * kP + da]),
+          Ks[sb * kP + da] * exp2_ftz(Y[da] - Cx[(sb + 1) * kP + da]),
+          Ks[sa * kP + db] * exp2_ftz(Y[db] - Cx[(sa + 1) * kP + db]),
+          Ks[sb * kP + db] * exp2_ftz(Y[db] - Cx[(sb + 1) * kP + db]));
+#pragma unroll
+      for (int x = 0; x < kNSub - 1; ++x) {
+        if (j + 1 + x >= kNSub) break;
+        FragB bf[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int t = (j + 1 + x) * kSub + m * 8 + g;
+          bf[m] = int_frag_b(
+              Rs[t * kP + da] * exp2_ftz(Cx[t * kP + da] - Y[da]),
+              Rs[t * kP + db] * exp2_ftz(Cx[t * kP + db] - Y[db]));
+        }
+        mma3(at[x], fa, bf);
+      }
+    }
+    float acc[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kSub; kk += 8) {           // the diagonal tile
+      const float* a = ATd + (j * kSub + g) * kPD + kk + q4;
+      const FragA fa = int_frag_a(a[0], a[8 * kPD], a[4], a[8 * kPD + 4]);
+      const int ta = j * kSub + kk + q4, tb = ta + 4;
+      FragB bf[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int e = nc + nt * 8 + g;
+        bf[nt] = int_frag_b(Os[ta * kP + e], Os[tb * kP + e]);
+      }
+      mma3(acc, fa, bf);
+    }
+#pragma unroll
+    for (int x = 0; x < kNSub - 1; ++x) {
+      if (j + 1 + x >= kNSub) break;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // k = q4 -> t = 16i + 8m + 2 q4, k = q4 + 4 -> the next t
+        const FragA fa =
+            int_frag_a(at[x][m][0], at[x][m][2], at[x][m][1], at[x][m][3]);
+        const int ta = (j + 1 + x) * kSub + m * 8 + 2 * q4, tb = ta + 1;
+        FragB bf[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int e = nc + nt * 8 + g;
+          bf[nt] = int_frag_b(Os[ta * kP + e], Os[tb * kP + e]);
+        }
+        mma3(acc, fa, bf);
+      }
+    }
+    float acc_k[4][4] = {};
+    for (int d0 = 0; d0 < kD; d0 += 8) {
+      const int da = d0 + q4, db = da + 4;
+      const FragA fa = int_frag_a(
+          Ks[sa * kP + da] * exp2_ftz(Z[da] - Cx[(sa + 1) * kP + da]),
+          Ks[sb * kP + da] * exp2_ftz(Z[da] - Cx[(sb + 1) * kP + da]),
+          Ks[sa * kP + db] * exp2_ftz(Z[db] - Cx[(sa + 1) * kP + db]),
+          Ks[sb * kP + db] * exp2_ftz(Z[db] - Cx[(sb + 1) * kP + db]));
+      FragB bf[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int e = nc + nt * 8 + g;
+        bf[nt] = int_frag_b(So[da * kP + e], So[db * kP + e]);
+      }
+      mma3(acc_k, fa, bf);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int e = nc + nt * 8 + 2 * q4;
+      if (sa < tv)
+        *reinterpret_cast<float2*>(dv + base + (size_t)sa * step + e) =
+            make_float2(acc[nt][0] + acc_k[nt][0], acc[nt][1] + acc_k[nt][1]);
+      if (sb < tv)
+        *reinterpret_cast<float2*>(dv + base + (size_t)sb * step + e) =
+            make_float2(acc[nt][2] + acc_k[nt][2], acc[nt][3] + acc_k[nt][3]);
+    }
+  }
+
+  // dA = do v^T (rows t of sub-block mt, columns s) and the k state terms
+  // v dS_out^T (rows s, columns d), both held in registers; diag(S_in
+  // dS_out^T), four threads a row, S_in read from device memory
+  float da_acc[4][4] = {}, ks_acc[4][4] = {};
+  {
+    const int ra = mt * kSub + g, rb = ra + 8;
+    // dA's n-tiles nt hold columns s of sub-block 2 (warp % 2) + nt / 2;
+    // those right of the diagonal sub-block are never read
+    const int n_da = nc / 16 > mt ? 0 : nc / 16 + 1 > mt ? 2 : 4;
+    for (int e0 = 0; e0 < kD; e0 += 8) {
+      const int ea = e0 + q4, eb = ea + 4;
+      const FragA fo = int_frag_a(Os[ra * kP + ea], Os[rb * kP + ea],
+                                  Os[ra * kP + eb], Os[rb * kP + eb]);
+      const FragA fv = int_frag_a(Vs[ra * kP + ea], Vs[rb * kP + ea],
+                                  Vs[ra * kP + eb], Vs[rb * kP + eb]);
+      FragB bv[4], bs[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = nc + nt * 8 + g;
+        if (nt < n_da) bv[nt] = int_frag_b(Vs[c * kP + ea], Vs[c * kP + eb]);
+        bs[nt] = int_frag_b(So[c * kP + ea], So[c * kP + eb]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt < n_da) {               // mma3's three passes, one n-tile
+          mma_tf32(da_acc[nt], fo.small, bv[nt].big);
+          mma_tf32(da_acc[nt], fo.big, bv[nt].small);
+          mma_tf32(da_acc[nt], fo.big, bv[nt].big);
+        }
+      mma3(ks_acc, fv, bs);
+    }
     const int d = tid / 4, part = tid % 4;
     float acc = 0.f;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int e = part * 16 + 4 * m;
-      acc = dot4(ld4(Si + d * kP + e), ld4(So + d * kP + e), acc);
+      acc = dot4(__ldg(reinterpret_cast<const float4*>(sin_c + d * kD + e)),
+                 ld4(So + d * kP + e), acc);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) Gz[d] = acc;
   }
+  __syncthreads();                     // v and dS_out are read no more
+
+  // S_in over dS_out; dA over v
+  load_state(Si, sin_c, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int s = nc + nt * 8 + 2 * q4, t = mt * kSub + g;
+    *reinterpret_cast<float2*>(dAs + t * kP + s) =
+        make_float2(da_acc[nt][0], da_acc[nt][1]);
+    *reinterpret_cast<float2*>(dAs + (t + 8) * kP + s) =
+        make_float2(da_acc[nt][2], da_acc[nt][3]);
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // A[t, s] = sum_d r_t k_s 2^(E_t - C_s) (s < t), r_t u k_t (s = t);
-  // dA[t, s] = do_t . v_s (s <= t); both 0 above the diagonal
-  for (int i = tid; i < kChunk * kChunk; i += kThreads) {
-    const int t = i / kChunk, s = i % kChunk;
-    float a = 0.f, da = 0.f;
-    if (s < t) {
-      for (int d = 0; d < kD; d += 4) {
-        const float4 rv = ld4(Rs + t * kP + d), kv = ld4(Ks + s * kP + d);
-        const float4 e = ld4(Cx + t * kP + d), c = ld4(Cx + (s + 1) * kP + d);
-        a = fmaf(rv.x, kv.x * exp2_ftz(e.x - c.x), a);
-        a = fmaf(rv.y, kv.y * exp2_ftz(e.y - c.y), a);
-        a = fmaf(rv.z, kv.z * exp2_ftz(e.z - c.z), a);
-        a = fmaf(rv.w, kv.w * exp2_ftz(e.w - c.w), a);
-        da = dot4(ld4(Os + t * kP + d), ld4(Vs + s * kP + d), da);
-      }
-    } else if (s == t) {
-      for (int d = 0; d < kD; d += 4) {
-        const float4 rv = ld4(Rs + t * kP + d), kv = ld4(Ks + t * kP + d);
-        const float4 uv = ld4(Us + d);
-        a = fmaf(rv.x, uv.x * kv.x, a);
-        a = fmaf(rv.y, uv.y * kv.y, a);
-        a = fmaf(rv.z, uv.z * kv.z, a);
-        a = fmaf(rv.w, uv.w * kv.w, a);
-        da = dot4(ld4(Os + t * kP + d), ld4(Vs + t * kP + d), da);
-      }
-    }
-    As[t * kP + s] = a;
-    dAs[t * kP + s] = da;
-  }
-  __syncthreads();
-
-  // The (row, column) outputs: thread (p, g) takes rows p and 63 - p (so
-  // every thread walks 63 pair steps) and columns g + 8i
-  const int p = warp * 4 + lane / 8, g = lane % 8;
-
-  // dv_s = sum_{t>=s} A[t,s] do_t + dS_out^T (k_s 2^(Z - C_s))
-  for (int half = 0; half < 2; ++half) {
-    const int s = half ? kChunk - 1 - p : p;
-    float acc[8] = {};
-    for (int t = s; t < tv; ++t) {
-      const float a = As[t * kP + s];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(a, Os[t * kP + g + 8 * i], acc[i]);
-    }
-    for (int d = 0; d < kD; ++d) {
-      const float ke = Ks[s * kP + d] *
-                       exp2_ftz(Cx[kChunk * kP + d] - Cx[(s + 1) * kP + d]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(ke, So[d * kP + g + 8 * i], acc[i]);
-    }
-    if (s < tv) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dv[base + (size_t)s * step + g + 8 * i] = acc[i];
-    }
-  }
-  __syncthreads();                     // A is read no more
-
-  // dr_t = 2^E_t (S_in do_t) + sum_{s<t} dA[t,s] k_s 2^(E_t - C_s) + u k_t dA[t,t]
-  for (int half = 0; half < 2; ++half) {
-    const int t = half ? kChunk - 1 - p : p;
-    float e[8], acc[8] = {}, st[8] = {};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = Cx[t * kP + g + 8 * i];
-    for (int s = 0; s < t; ++s) {
-      const float f = dAs[t * kP + s];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int d = g + 8 * i;
-        acc[i] = fmaf(f * Ks[s * kP + d], exp2_ftz(e[i] - Cx[(s + 1) * kP + d]),
-                      acc[i]);
-      }
-    }
-    for (int c = 0; c < kD; ++c) {
-      const float o = Os[t * kP + c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) st[i] = fmaf(Si[(g + 8 * i) * kP + c], o, st[i]);
-    }
-    const float dd = dAs[t * kP + t];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int d = g + 8 * i;
-      const float sp = exp2_ftz(e[i]) * st[i];
-      acc[i] += sp;
-      As[t * kP + d] = Rs[t * kP + d] * sp;
-      if (t < tv)
-        dr[base + (size_t)t * step + d] = fmaf(Us[d] * Ks[t * kP + d], dd, acc[i]);
-    }
-  }
-  __syncthreads();                     // S_in is read no more
-
-  // dk_s = 2^(Z - C_s) (dS_out v_s) + sum_{t>s} dA[t,s] r_t 2^(E_t - C_s)
-  //        + u r_s dA[s,s]
-  for (int half = 0; half < 2; ++half) {
-    const int s = half ? kChunk - 1 - p : p;
-    float cs[8], acc[8] = {}, st[8] = {};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cs[i] = Cx[(s + 1) * kP + g + 8 * i];
-    for (int t = s + 1; t < tv; ++t) {
-      const float f = dAs[t * kP + s];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int d = g + 8 * i;
-        acc[i] = fmaf(f * Rs[t * kP + d], exp2_ftz(Cx[t * kP + d] - cs[i]),
-                      acc[i]);
-      }
-    }
-    for (int c = 0; c < kD; ++c) {
-      const float x = Vs[s * kP + c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) st[i] = fmaf(So[(g + 8 * i) * kP + c], x, st[i]);
-    }
-    const float dd = dAs[s * kP + s];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int d = g + 8 * i;
-      const float sp = exp2_ftz(Cx[kChunk * kP + d] - cs[i]) * st[i];
-      acc[i] += sp;
-      Si[s * kP + d] = Ks[s * kP + d] * sp;
-      if (s < tv)
-        dk[base + (size_t)s * step + d] = fmaf(Us[d] * Rs[s * kP + d], dd, acc[i]);
-    }
-  }
-  __syncthreads();
-
-  // the forward sums of d log w_j (over s < j) into v's place: thread (d,
-  // q) keeps, for its rows t = q + 4m, the prefix sums over s < j of
-  // dA[t,s] r_t k_s 2^(E_t - C_s), and adds those of its rows t > j; four
-  // lanes a d
+  // The r state terms 2^E_t (S_in do_t): rows t of sub-block mt, columns d
+  float rs_acc[4][4] = {};
   {
-    const int d = tid / 4, q = tid % 4;
-    float e[16], rr[16], pre[16] = {}, run = 0.f;
+    const int ra = mt * kSub + g, rb = ra + 8;
+    for (int e0 = 0; e0 < kD; e0 += 8) {
+      const int ea = e0 + q4, eb = ea + 4;
+      const FragA fo = int_frag_a(Os[ra * kP + ea], Os[rb * kP + ea],
+                              Os[ra * kP + eb], Os[rb * kP + eb]);
+      FragB bf[4];
 #pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      e[m] = Cx[(q + 4 * m) * kP + d];
-      rr[m] = Rs[(q + 4 * m) * kP + d];
-    }
-    for (int j = 0; j < tv; ++j) {
-      if (j > 0) {
-        const int s = j - 1;
-        const float ks = Ks[s * kP + d], cs = Cx[(s + 1) * kP + d];
-#pragma unroll
-        for (int m = 0; m < 16; ++m)
-          if (q + 4 * m > s)
-            pre[m] = fmaf(exp2_ftz(e[m] - cs) * ks * rr[m],
-                          dAs[(q + 4 * m) * kP + s], pre[m]);
-        run += Si[s * kP + d];
+      for (int nt = 0; nt < 4; ++nt) {
+        const int d = nc + nt * 8 + g;
+        bf[nt] = int_frag_b(Si[d * kP + ea], Si[d * kP + eb]);
       }
-      float part = 0.f;
+      mma3(rs_acc, fo, bf);
+    }
+  }
+  __syncthreads();                     // do and S_in are read no more
+
+  // RX = 2^E (S_in do) over do and KX = 2^(Z - C) (dS_out v) over S_in,
+  // and the sums over each sub-block of r RX and k KX
+  {
+    const int ra = mt * kSub + g, rb = ra + 8;
+    float rsum[4][2], ksum[4][2];
 #pragma unroll
-      for (int m = 0; m < 16; ++m)
-        if (q + 4 * m > j) part += pre[m];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (q == 0) Vs[j * kP + d] = part + run;
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = nc + nt * 8 + 2 * q4;
+      float x[4], y[4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        x[c] = exp2_ftz(Cx[ra * kP + d + c]) * rs_acc[nt][c];
+        x[c + 2] = exp2_ftz(Cx[rb * kP + d + c]) * rs_acc[nt][c + 2];
+        y[c] = exp2_ftz(Z[d + c] - Cx[(ra + 1) * kP + d + c]) * ks_acc[nt][c];
+        y[c + 2] =
+            exp2_ftz(Z[d + c] - Cx[(rb + 1) * kP + d + c]) * ks_acc[nt][c + 2];
+        rsum[nt][c] = fmaf(Rs[ra * kP + d + c], x[c],
+                           Rs[rb * kP + d + c] * x[c + 2]);
+        ksum[nt][c] = fmaf(Ks[ra * kP + d + c], y[c],
+                           Ks[rb * kP + d + c] * y[c + 2]);
+      }
+      *reinterpret_cast<float2*>(RX + ra * kP + d) = make_float2(x[0], x[1]);
+      *reinterpret_cast<float2*>(RX + rb * kP + d) = make_float2(x[2], x[3]);
+      *reinterpret_cast<float2*>(KX + ra * kP + d) = make_float2(y[0], y[1]);
+      *reinterpret_cast<float2*>(KX + rb * kP + d) = make_float2(y[2], y[3]);
+    }
+    col_sums(rsum);
+    col_sums(ksum);
+    if (g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = nc + nt * 8 + 2 * q4 + c;
+          Rsum[mt * kD + d] = rsum[nt][c];
+          Ksum[mt * kD + d] = ksum[nt][c];
+        }
     }
   }
   __syncthreads();
 
-  // d log w_j = the whole decay's term + the reverse sum over t > j + the
-  // forward sums, last step first; dw = d log w / w above the clamp; the
-  // chunk's share of du
-  if (tid < kD) {
-    const int d = tid;
-    const float whole = exp2_ftz(Cx[kChunk * kP + d]) * Gz[d];
-    float run = 0.f, du = 0.f;
-    for (int j = tv - 1; j >= 0; --j) {
-      const float lam = whole + run + Vs[j * kP + d];
-      const float wj = Ws[j * kP + d];
-      dw[base + (size_t)j * step + d] = wj >= 1e-12f ? lam / wj : 0.f;
-      run += As[j * kP + d];
-      du = fmaf(Rs[j * kP + d] * Ks[j * kP + d], dAs[j * kP + j], du);
+  // The cross terms, warp (sub-block mt, 32 columns d): dr's for t in
+  // sub-block i = mt through Y' = C at the end of sub-block i - 1, and dk's
+  // for s in sub-block j = mt through Y_j = C at its end, its t walked from
+  // the last sub-block back, with the sums over s of k_s 2^(Y_j - C_s) times
+  // the part walked so far kept where they span a whole sub-block
+  if (mt > 0) {
+    const int i = mt, ta = i * kSub + g, tb = ta + 8;
+    const float* Yp = Cx + i * kSub * kP;
+    float acc[4][4] = {};
+    for (int s0 = 0; s0 < i * kSub; s0 += 8) {
+      const int sa = s0 + q4, sb = sa + 4;
+      const FragA fa = int_frag_a(dAs[ta * kP + sa], dAs[tb * kP + sa],
+                              dAs[ta * kP + sb], dAs[tb * kP + sb]);
+      FragB bf[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int d = nc + nt * 8 + g;
+        bf[nt] = int_frag_b(Ks[sa * kP + d] * exp2_ftz(Yp[d] - Cx[(sa + 1) * kP + d]),
+                        Ks[sb * kP + d] * exp2_ftz(Yp[d] - Cx[(sb + 1) * kP + d]));
+      }
+      mma3(acc, fa, bf);
     }
-    du_part[bhc * kD + d] = du;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = nc + nt * 8 + 2 * q4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        RX[ta * kP + d + c] +=
+            exp2_ftz(Cx[ta * kP + d + c] - Yp[d + c]) * acc[nt][c];
+        RX[tb * kP + d + c] +=
+            exp2_ftz(Cx[tb * kP + d + c] - Yp[d + c]) * acc[nt][c + 2];
+      }
+    }
   }
+  if (mt < kNSub - 1) {
+    const int j = mt, sa = j * kSub + g, sb = sa + 8;
+    const float* Y = Cx + (j + 1) * kSub * kP;
+    float f[4][4];                     // 2^(Y_j - C_s) at the lane's entries
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = nc + nt * 8 + 2 * q4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        f[nt][c] = exp2_ftz(Y[d + c] - Cx[(sa + 1) * kP + d + c]);
+        f[nt][c + 2] = exp2_ftz(Y[d + c] - Cx[(sb + 1) * kP + d + c]);
+      }
+    }
+    float acc[4][4] = {};
+    for (int lo = kNSub - 1; lo > j; --lo) {
+#pragma unroll
+      for (int kk = 0; kk < kSub; kk += 8) {
+        const int ta = lo * kSub + kk + q4, tb = ta + 4;
+        const FragA fa = int_frag_a(dAs[ta * kP + sa], dAs[ta * kP + sb],
+                                dAs[tb * kP + sa], dAs[tb * kP + sb]);
+        FragB bf[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int d = nc + nt * 8 + g;
+          bf[nt] = int_frag_b(Rs[ta * kP + d] * exp2_ftz(Cx[ta * kP + d] - Y[d]),
+                          Rs[tb * kP + d] * exp2_ftz(Cx[tb * kP + d] - Y[d]));
+        }
+        mma3(acc, fa, bf);
+      }
+      if (lo > j + 1) {                // pairs that span sub-block lo - 1
+        float x[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int d = nc + nt * 8 + 2 * q4;
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            x[nt][c] = fmaf(Ks[sa * kP + d + c] * f[nt][c], acc[nt][c],
+                            Ks[sb * kP + d + c] * f[nt][c + 2] * acc[nt][c + 2]);
+        }
+        col_sums(x);
+        // (j, lo): (0, 2) spans sub-block 1; (0, 3) and (1, 3) sub-block 2
+        const int slot = lo == 2 ? 0 : 1 + j;
+        if (g == 0) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              Span[slot * kD + nc + nt * 8 + 2 * q4 + c] = x[nt][c];
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int d = nc + nt * 8 + 2 * q4;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        KX[sa * kP + d + c] += f[nt][c] * acc[nt][c];
+        KX[sb * kP + d + c] += f[nt][c + 2] * acc[nt][c + 2];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Thread (sub-block c, channel d): the pairs inside the sub-block, the
+  // decay between them the running product of max(w, 1e-12) over s < m < t
+  // (w read again from device memory), for dr's, dk's and d log w's sums;
+  // dk with s ascending, each
+  // d log w_j's terms before j (the forward sums of k KX, the intra pairs'
+  // prefix sums) stored over KX_{j-1}, read no more; then dr, d log w and dw
+  // with j descending, adding the suffix sums of r RX
+  {
+    const int c = tid / kD, d = tid % kD, c0 = c * kSub;
+    const float* dA_c = dAs + c0 * kP + c0;
+    const float ud = Us[d];
+    float base_c = exp2_ftz(Z[d]) * Gz[d];
+    for (int i = c + 1; i < kNSub; ++i) base_c += Rsum[i * kD + d];
+    for (int i = 0; i < c; ++i) base_c += Ksum[i * kD + d];
+    if (c == 1) base_c += Span[d];
+    if (c == 2) base_c += Span[kD + d] + Span[2 * kD + d];
+    float wv[kSub], rr[kSub], dri[kSub];
+#pragma unroll
+    for (int t = 0; t < kSub; ++t) {
+      wv[t] = c0 + t < tv ? fmaxf(w[base + (size_t)(c0 + t) * step + d], 1e-12f)
+                          : 1.f;
+      rr[t] = Rs[(c0 + t) * kP + d];
+      dri[t] = 0.f;
+    }
+    float fw = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSub; ++s) {
+      const float ks = Ks[(c0 + s) * kP + d];
+      float dki = 0.f, f = 1.f;        // the decay over s < m < t
+#pragma unroll
+      for (int t = s + 1; t < kSub; ++t) {
+        if (t > s + 1) f *= wv[t - 1];
+        const float x = dA_c[t * kP + s] * f;
+        dri[t] = fmaf(x, ks, dri[t]);
+        dki = fmaf(x, rr[t], dki);
+      }
+      float* kx = KX + (c0 + s) * kP + d;
+      const float kxs = *kx;
+      if (c0 + s < tv)
+        dk[base + (size_t)(c0 + s) * step + d] =
+            fmaf(ud * rr[s], dA_c[s * kP + s], kxs + dki);
+      fw = fmaf(ks, kxs, fw);
+      // the intra pairs s' <= s < s + 1 < t: r_t times dr's sum so far
+      float p = 0.f;
+#pragma unroll
+      for (int t = s + 2; t < kSub; ++t) p = fmaf(rr[t], dri[t], p);
+      *kx = fw + p;                    // d log w_{s+1}'s terms before it
+    }
+    float suf = 0.f, du = 0.f;
+#pragma unroll
+    for (int j = kSub - 1; j >= 0; --j) {
+      const float rx = RX[(c0 + j) * kP + d], kj = Ks[(c0 + j) * kP + d];
+      const float djj = dA_c[j * kP + j];
+      if (c0 + j < tv) {
+        const size_t at = base + (size_t)(c0 + j) * step + d;
+        dr[at] = fmaf(ud * kj, djj, rx + dri[j]);
+        const float lam =
+            base_c + (j > 0 ? KX[(c0 + j - 1) * kP + d] : 0.f) + suf;
+        const float wj = w[at];
+        dw[at] = wj >= 1e-12f ? lam / wj : 0.f;
+      }
+      suf = fmaf(rr[j], rx, suf);
+      du = fmaf(rr[j] * kj, djj, du);
+    }
+    ATd[c * kD + d] = du;              // A^T's diagonal is read no more
+  }
+  __syncthreads();
+  if (tid < kD)
+    du_part[bhc * kD + tid] = ((ATd[tid] + ATd[kD + tid]) + ATd[2 * kD + tid]) +
+                              ATd[3 * kD + tid];
 }
 
 // ------------------------------------------------ (d) du, in fixed order --
@@ -495,8 +883,8 @@ __global__ void rwkv6_bwd_du(const float* __restrict__ du_part,
   du[i] = acc;
 }
 
-constexpr size_t kDstateSmem = (3 * kTile + kTile + kP + kThreads) * sizeof(float);
-constexpr size_t kGradSmem = kGradFloats * sizeof(float);
+constexpr size_t kDstateSmem = kDstateFloats * sizeof(float);
+constexpr size_t kGradSmem = GradSmem::kFloats * sizeof(float);
 
 int launch(const float* r, const float* k, const float* v, const float* w,
            const float* u, const float* dout, const float* ds_final,

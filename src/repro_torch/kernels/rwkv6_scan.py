@@ -38,8 +38,14 @@ saves the forward's scratch (the state entering each chunk), and its
 backward launches ``csrc/rwkv6_scan_bwd.cu``
 (``rwkv6_scan_bwd``, D 64): the state gradients entering each chunk, last
 chunk first, then dr, dk, dv, dw and du chunk by chunk (see the source
-note), with every exponent <= 0 as in the forward.
-``rwkv6_scan_bwd.launches`` counts its calls.
+note), with every exponent <= 0 as in the forward.  Like the forward it
+cuts each chunk into 16-step sub-blocks: pairs inside one take their decay
+on the CUDA cores, pairs across two factor through a cumulative sum
+between them into products, and every product (the state terms, dA, A^T
+do, the cross terms) runs on the tensor cores in the 3xTF32 split.  On an
+NVIDIA H100 80GB HBM3 (700 W) it takes 0.56 ms of device time at
+rwkv6-3b's training shape (B 4, T 1024, H 40), 20% of its bytes bound
+(0.113 ms).  ``rwkv6_scan_bwd.launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -241,9 +247,10 @@ def rwkv6_scan_bwd(r, k, v, w, u, s0, do, ds_final=None, *, s_in=None):
     v, w, u, s0)`` from the cotangents ``do`` (B,T,H,D) of o and
     ``ds_final`` (B,H,D,D, or None for zero) of the final state.  CPU
     tensors take the plain version (autograd of ``rwkv6_scan_plain``);
-    CUDA tensors launch ``csrc/rwkv6_scan_bwd.cu`` (D 64) or raise, and
-    need ``s_in``: the forward kernel's scratch, as ``_forward_kernel``
-    returns it."""
+    CUDA tensors launch ``csrc/rwkv6_scan_bwd.cu`` (D 64; four grid
+    launches, no atomics, the same bits on every call) or raise, and need
+    ``s_in``: the forward kernel's scratch, as ``_forward_kernel`` returns
+    it."""
     tensors = _check(r, k, v, w, u, s0)
     if do.shape != r.shape or (ds_final is not None and tuple(
             ds_final.shape) != (r.shape[0], r.shape[2], r.shape[3],

@@ -10,8 +10,12 @@ the backward entry of ``csrc/rglru_scan.cu``).  Those run only on the card
 (``chip_smoke.py``); here their decompositions are repeated in PyTorch --
 the same chunks, the state gradients carried last chunk first, every
 exponent <= 0, the decay's gradient split into terms that each carry the
-step's own decay -- and held to the limit the card holds the kernels to.
-Inputs are made with numpy from a seed."""
+step's own decay; for rwkv6 the 16-step sub-blocks, the cross-sub-block
+pairs factored through a cumulative sum between them, every product in
+the 3xTF32 split with the tensor cores' TF32 rounding done on the f32 bit
+pattern -- and held to the limit the card holds the kernels to.  (The
+tensor cores' own sums truncate; that is not emulated.)  Inputs are made
+with numpy from a seed."""
 import os
 
 import pytest
@@ -31,8 +35,11 @@ import numpy as np  # noqa: E402
 from repro.models.layers import rglru_scan_jnp, rwkv6_chunked_jnp  # noqa: E402
 from repro_torch.kernels import rglru_scan as RG  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
+from test_torch_scan_design import mm_3xtf32, mm_tf32  # noqa: E402
 
 CHUNK = RS.KERNEL_CHUNK      # 64, the kernels' chunk
+SUB = 16                     # steps of the backward kernel's sub-blocks
+NSUB = CHUNK // SUB
 # chip_smoke.py's TOL["grad"]: |got - want| <= 1e-4 * rms(want) + 1e-4 *
 # |want| per element.  Plain vs JAX: the same chunked form in f32 with sums
 # in another order (the decay's gradient cancels terms of order 1 in both,
@@ -119,10 +126,111 @@ def oracle_rwkv6_grads(r, k, v, w, u, s0, do, ds):
 
 
 # ------------------------------------------ rwkv6: the kernel's design --
-def rwkv6_bwd_emulated(r, k, v, w, u, s0, do, ds):
+def sub_blocks(x):
+    """(.., 64, D) -> (.., 4, 16, D): a chunk's four sub-blocks."""
+    return x.reshape(*x.shape[:-2], NSUB, SUB, x.shape[-1])
+
+
+def rows(x, a, b):
+    return x[..., a * SUB:b * SUB, :]
+
+
+def exclusive_cumsum(x, dim):
+    """sum over the entries before each along ``dim``, with no subtraction
+    (an inclusive sum less the entry cancels where the entry dominates)."""
+    c = torch.cumsum(x, dim=dim)
+    return torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)),
+                      c.narrow(dim, 0, c.shape[dim] - 1)], dim=dim)
+
+
+def prefix_in_sub(g):
+    """sum_{s in j's sub-block, s < j} g_s for each step j: (.., 64, D)."""
+    return exclusive_cumsum(sub_blocks(g), -2).reshape(g.shape)
+
+
+def suffix_in_sub(g):
+    """sum_{t in j's sub-block, t > j} g_t for each step j: (.., 64, D)."""
+    return torch.flip(exclusive_cumsum(torch.flip(sub_blocks(g), [-2]), -2),
+                      [-2]).reshape(g.shape)
+
+
+def intra_pieces(R, K, dA, W):
+    """The pairs s < t inside one 16-step sub-block, on the CUDA cores, with
+    the decay between them as the running product of W = max(w, 1e-12)
+    over s < m < t (each factor <= 1, and no exponent of a long cumulative
+    sum, whose f32 rounding grows with the sum): (dr's sum over s, dk's sum
+    over t, and the pair sum of d log w_j over s < j < t), each
+    (.., 64, D)."""
+    t = torch.arange(CHUNK)
+    same = (t[:, None] // SUB) == (t[None, :] // SUB)
+    intra = same & (t[None, :] < t[:, None])         # [t, s]
+    F = W.new_zeros(*W.shape[:-2], CHUNK, CHUNK, W.shape[-1])
+    for s in range(CHUNK):
+        f = torch.ones_like(W[..., 0, :])
+        for t_ in range(s + 1, (s // SUB + 1) * SUB):
+            if t_ > s + 1:
+                f = f * W[..., t_ - 1, :]
+            F[..., t_, s, :] = f
+    assert bool((F <= 1).all())
+    x = dA[..., None] * F                            # dA[t, s] prod w
+    xk = x * K[..., None, :, :]
+    dr_i = xk.sum(-2)
+    dk_i = torch.einsum("...tsd,...td->...sd", x, R)
+    # r_t times dr's sum over s < j: (.., t, j, D)
+    pre = R[..., :, None, :] * exclusive_cumsum(xk, -2)
+    pairs = torch.einsum("tj,...tjd->...jd", intra.to(x.dtype), pre)
+    return dr_i, dk_i, pairs
+
+
+def cross_pieces(R, K, dA, E, C, Cx, mm):
+    """The pairs s < t in different sub-blocks, as products on the tensor
+    cores.  dr: for t in sub-block i, through Y' = C at the end of sub-block
+    i - 1, 2^(E_t - Y') (dA[t, :16i] (k 2^(Y' - C))[:16i]).  dk: for s in
+    sub-block j, through Y_j = C at its end, 2^(Y_j - C_s) (dA[16(j+1):,
+    s]^T (r 2^(E - Y_j))[16(j+1):]), the t range walked last sub-block
+    first, its partial sums (t in sub-block 3; t in 2 and 3) kept for d log
+    w's pairs that span a whole sub-block: case1[c] = the sum over s before
+    sub-block c and t after it of dA[t,s] r_t k_s 2^(E_t - C_s).  Returns
+    (dr_x, dk_x (.., 64, D), case1 (.., 4, D)); asserts every exponent
+    <= 0."""
+    dr_x, dk_x = torch.zeros_like(R), torch.zeros_like(K)
+    for i in range(1, NSUB):
+        Yp = Cx[..., i * SUB:i * SUB + 1, :]
+        e_k, e_t = Yp - rows(C, 0, i), rows(E, i, i + 1) - Yp
+        assert bool((e_k <= 0).all()) and bool((e_t <= 0).all())
+        acc = mm(dA[..., i * SUB:(i + 1) * SUB, :i * SUB],
+                 rows(K, 0, i) * torch.exp2(e_k))
+        dr_x[..., i * SUB:(i + 1) * SUB, :] = torch.exp2(e_t) * acc
+    snaps = {}
+    for j in range(NSUB - 1):
+        Y = Cx[..., (j + 1) * SUB:(j + 1) * SUB + 1, :]
+        e_s, e_t = Y - rows(C, j, j + 1), rows(E, j + 1, NSUB) - Y
+        assert bool((e_s <= 0).all()) and bool((e_t <= 0).all())
+        f = torch.exp2(e_s)
+        r_hat = rows(R, j + 1, NSUB) * torch.exp2(e_t)
+        dAT = dA[..., (j + 1) * SUB:, j * SUB:(j + 1) * SUB].transpose(-1, -2)
+        for lo in range(j + 2, NSUB):   # t from sub-block lo on
+            part = mm(dAT[..., :, (lo - j - 1) * SUB:],
+                      r_hat[..., (lo - j - 1) * SUB:, :])
+            snaps[j, lo] = (rows(K, j, j + 1) * f * part).sum(-2)
+        dk_x[..., j * SUB:(j + 1) * SUB, :] = f * mm(dAT, r_hat)
+    zero = torch.zeros_like(R[..., 0, :])
+    case1 = torch.stack([zero, snaps[0, 2], snaps[0, 3] + snaps[1, 3], zero],
+                        dim=-2)
+    return dr_x, dk_x, case1
+
+
+def rwkv6_bwd_emulated(r, k, v, w, u, s0, do, ds, mm=mm_3xtf32):
     """The passes of csrc/rwkv6_scan_bwd.cu (and, for the states entering
-    each chunk, csrc/rwkv6_scan.cu's) in f32 on (B,T,H,D) tensors: (dr, dk,
-    dv, dw, du, ds0 or None).  Asserts that every exponent formed is <= 0."""
+    each chunk, csrc/rwkv6_scan.cu's) in f32 on (B,T,H,D) tensors, every
+    product in ``mm`` (the kernel's 3xTF32 split by default): (dr, dk, dv,
+    dw, du, ds0 or None).  Per chunk: dA; A^T's diagonal sub-block tiles
+    (one exp per (t, s, d)) and cross tiles (products through Y_j), each
+    sub-block row of A^T one product with do; the state terms; dr's and
+    dk's cross terms (``cross_pieces``) and intra pairs
+    (``intra_pieces``); d log w_j from sums over sub-blocks, the pairs that
+    span j's sub-block, and prefix and suffix sums inside it.  Asserts
+    that every exponent formed is <= 0."""
     B, T, H, D = r.shape
     n = -(-T // CHUNK)
     pad = n * CHUNK - T
@@ -134,20 +242,19 @@ def rwkv6_bwd_emulated(r, k, v, w, u, s0, do, ds):
     def unchunk(x):
         return x.permute(0, 2, 3, 1, 4).reshape(B, n * CHUNK, H, D)[:, :T]
 
+    def tr(x):
+        return x.transpose(-1, -2)
+
     lw = torch.log2(torch.clamp(w, min=1e-12))
     R, K, V, L, O = (chunks(x) for x in (r, k, v, lw, do))  # pad: w = 1
     C = torch.cumsum(L, dim=3)                       # inclusive sums
     Cx = torch.cat([torch.zeros_like(C[..., :1, :]), C], dim=3)
     E, Z = Cx[..., :CHUNK, :], C[..., -1:, :]        # exclusive; the end
-    t = torch.arange(CHUNK)
-    below = t[None, :] < t[:, None]                  # s < t
-    expo = E[..., :, None, :] - C[..., None, :, :]   # (.., t, s, D)
-    for x in (E, Z - C, expo[..., below, :]):
+    for x in (E, Z - C):
         assert bool((x <= 0).all())
-    F = torch.exp2(torch.where(below[..., None], expo, float("-inf")))
 
     # the forward's states entering each chunk (its passes (a), (b))
-    dS = (K * torch.exp2(Z - C)).transpose(-1, -2) @ V
+    dS = mm(tr(K * torch.exp2(Z - C)), V)
     S = torch.zeros((B, H, D, D)) if s0 is None else s0.clone()
     s_in = []
     for c in range(n):
@@ -156,7 +263,7 @@ def rwkv6_bwd_emulated(r, k, v, w, u, s0, do, ds):
     s_in = torch.stack(s_in, dim=2)
 
     # (a) each chunk's local term; (b) the state gradients, last chunk first
-    local = (R * torch.exp2(E)).transpose(-1, -2) @ O
+    local = mm(tr(R * torch.exp2(E)), O)
     G = torch.zeros((B, H, D, D)) if ds is None else ds.clone()
     ds_out = [None] * n
     for c in reversed(range(n)):
@@ -164,35 +271,119 @@ def rwkv6_bwd_emulated(r, k, v, w, u, s0, do, ds):
         G = torch.exp2(Z[:, :, c, 0])[..., None] * G + local[:, :, c]
     ds_out = torch.stack(ds_out, dim=2)
 
-    # (c) A, dA; dv, dr, dk; the decay's gradient; du
+    # (c) dA; the score tile's diagonal sub-blocks on the CUDA cores, its
+    # cross tiles (transposed) as products, each sub-block row j of A^T
+    # one product with do
     uu = u[None, :, None, None, :]
-    A = (torch.einsum("...td,...sd,...tsd->...ts", R, K, F)
-         + torch.diag_embed((R * uu * K).sum(-1)))
-    dA_all = O @ V.transpose(-1, -2)
-    dA = torch.where(below, dA_all, 0.0)
-    dd = torch.diagonal(dA_all, dim1=-2, dim2=-1)[..., None]
-    dv = A.transpose(-1, -2) @ O + (K * torch.exp2(Z - C)) @ ds_out
-    r_state = torch.exp2(E) * (O @ s_in.transpose(-1, -2))
-    k_state = torch.exp2(Z - C) * (V @ ds_out.transpose(-1, -2))
-    X = dA[..., None] * R[..., :, None, :] * K[..., None, :, :] * F
-    dr = r_state + torch.einsum("...ts,...sd,...tsd->...td", dA, K, F)
-    dk = k_state + torch.einsum("...ts,...td,...tsd->...sd", dA, R, F)
-    # d log w_j: the whole decay's term, the reverse sum over t > j of r's
-    # state terms, the forward sum over s < j of k's, and the pairs
-    # s < j < t as the kernel walks them (prefix sums over s of each row t,
-    # summed over the rows t > j)
+    dA = mm(O, tr(V))
+    dd = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]
+    t = torch.arange(CHUNK)
+    intra = ((t[:, None] // SUB) == (t[None, :] // SUB)) & (
+        t[None, :] < t[:, None])
+    expo = E[..., :, None, :] - C[..., None, :, :]
+    F = torch.exp2(torch.where(intra[..., None], expo, float("-inf")))
+    A_in = (torch.einsum("...td,...sd,...tsd->...ts", R, K, F)
+            + torch.diag_embed((R * uu * K).sum(-1)))
+    dv = torch.empty_like(V)
+    for j in range(NSUB):
+        Y = Cx[..., (j + 1) * SUB:(j + 1) * SUB + 1, :]
+        k_hat = rows(K, j, j + 1) * torch.exp2(Y - rows(C, j, j + 1))
+        parts = [tr(A_in[..., j * SUB:(j + 1) * SUB, j * SUB:(j + 1) * SUB])]
+        for i in range(j + 1, NSUB):
+            r_hat = rows(R, i, i + 1) * torch.exp2(rows(E, i, i + 1) - Y)
+            parts.append(mm(k_hat, tr(r_hat)))       # A^T[s in j, t in i]
+        k_end = rows(K, j, j + 1) * torch.exp2(Z - rows(C, j, j + 1))
+        dv[..., j * SUB:(j + 1) * SUB, :] = (
+            mm(torch.cat(parts, dim=-1), O[..., j * SUB:, :])
+            + mm(k_end, ds_out))
+    # the state terms, and their sums over each sub-block for d log w
+    r_state = torch.exp2(E) * mm(O, tr(s_in))
+    k_state = torch.exp2(Z - C) * mm(V, tr(ds_out))
+    RS, KS = sub_blocks(R * r_state).sum(-2), sub_blocks(K * k_state).sum(-2)
+    dr_x, dk_x, case1 = cross_pieces(R, K, dA, E, C, Cx, mm)
+    RX, KX = r_state + dr_x, k_state + dk_x
+    dr_i, dk_i, pairs = intra_pieces(R, K, dA, chunks(torch.clamp(w, min=1e-12)))
+    dr = RX + dr_i + uu * K * dd
+    dk = KX + dk_i + uu * R * dd
+    # d log w_j, j in sub-block c: the whole decay's term, the r state
+    # terms of the sub-blocks after c and the k state terms of those before
+    # it, the pairs that span c, then inside c the sums over k KX before j,
+    # the intra pairs, and r RX after j
     whole = torch.exp2(Z[..., 0, :]) * (s_in * ds_out).sum(-1)
-    gE, gC = R * r_state, K * k_state
-    rev = torch.flip(torch.cumsum(torch.flip(gE, [3]), 3), [3]) - gE
-    fwd = torch.cumsum(gC, 3) - gC
-    pre = torch.cumsum(X, dim=-2) - X                # (.., t, j, D): s < j
-    pairs = torch.einsum("tj,...tjd->...jd", below.float(), pre)
-    lam = unchunk(whole[..., None, :] + rev + fwd + pairs)
-    dw = torch.where(w >= 1e-12, lam / w, 0.0)
-    du = (R * K * dd).sum((0, 2, 3))
-    dr, dk = dr + uu * K * dd, dk + uu * R * dd
+    base = []
+    for c in range(NSUB):
+        b = whole
+        for i in range(c + 1, NSUB):
+            b = b + RS[..., i, :]
+        for i in range(c):
+            b = b + KS[..., i, :]
+        base.append(b + case1[..., c, :])
+    base = torch.stack(base, dim=-2)[..., :, None, :]     # (.., 4, 1, D)
+    lam = (sub_blocks(prefix_in_sub(K * KX) + pairs) + base).reshape(R.shape)
+    lam = lam + suffix_in_sub(R * RX)
+    dw = torch.where(w >= 1e-12, unchunk(lam) / w, 0.0)
+    du = (sub_blocks(R * K * dd).sum(-2)).sum((0, 2, 3))
     return (unchunk(dr), unchunk(dk), unchunk(dv), dw, du,
             G if s0 is not None else None)
+
+
+@pytest.mark.parametrize("decay", ["slow", "fast"])
+def test_rwkv6_dlogw_pair_split_is_exact(decay):
+    """In float64, the kernel's split of d log w_j's pair sum over s < j < t
+    (the intra-sub-block pairs, the pairs that span j's whole sub-block, and
+    the prefix and suffix sums of k times dk's and r times dr's cross
+    terms, those cross terms as products through Y) equals the whole-chunk
+    form: each row t's prefix sums over s of dA[t,s] r_t k_s 2^(E_t - C_s),
+    summed over the rows t > j."""
+    rng = np.random.default_rng(8)
+    shape = (1, 2, 3, CHUNK, 64)                     # (B, H, n, c, D)
+
+    def f(*s, sc=1.0):
+        return torch.from_numpy(rng.standard_normal(s) * sc)
+
+    R, K, dA = f(*shape, sc=0.5), f(*shape, sc=0.5), f(*shape[:-1], CHUNK)
+    lo, hi = (1e-3, 0.05) if decay == "fast" else (0.6, 0.999)
+    W = torch.from_numpy(rng.uniform(lo, hi, shape))
+    C = torch.cumsum(torch.log2(W), dim=-2)
+    Cx = torch.cat([torch.zeros_like(C[..., :1, :]), C], dim=-2)
+    E = Cx[..., :CHUNK, :]
+    t = torch.arange(CHUNK)
+    below = t[None, :] < t[:, None]
+    F = torch.exp2(torch.where(below[..., None],
+                               E[..., :, None, :] - C[..., None, :, :],
+                               float("-inf")))
+    X = dA[..., None] * R[..., :, None, :] * K[..., None, :, :] * F
+    whole = torch.einsum("tj,...tjd->...jd", below.double(),
+                         exclusive_cumsum(X, -2))
+    _, _, intra = intra_pieces(R, K, dA, W)
+    dr_x, dk_x, case1 = cross_pieces(R, K, dA, E, C, Cx, torch.matmul)
+    split = (intra + prefix_in_sub(K * dk_x) + suffix_in_sub(R * dr_x)
+             + case1.repeat_interleave(SUB, dim=-2))
+    scale = float(whole.abs().max())
+    assert scale > 0
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), rtol=1e-9,
+                               atol=1e-12 * scale)
+
+
+def grad_shares(ins, mm):
+    """Each gradient's worst element's share of its limit (<= 1 holds), the
+    emulated backward with products in ``mm`` against the float64 step
+    oracle."""
+    want = oracle_rwkv6_grads(*ins)
+    got = [g for g in rwkv6_bwd_emulated(*(tt(x) for x in ins), mm=mm)
+           if g is not None]
+    return [float(np.max(np.abs(g.numpy() - x.numpy()) / (
+        GRAD_ATOL_RMS * np.sqrt(np.mean(x.numpy() ** 2))
+        + GRAD_RTOL * np.abs(x.numpy())))) for g, x in zip(got, want)]
+
+
+def test_rwkv6_bwd_single_pass_tf32_misses_the_limit():
+    """One TF32 pass per product keeps ~11 bits of each operand: the
+    emulated backward then leaves the gradient limit that the kernel's
+    3xTF32 split holds."""
+    ins = rwkv6_inputs(7, 1, 200, 2, "slow", False, False)
+    assert max(grad_shares(ins, mm_3xtf32)) <= 1.0
+    assert max(grad_shares(ins, mm_tf32)) > 1.0
 
 
 @pytest.mark.parametrize("B,T,H,decay,carried,with_ds", [
@@ -217,7 +408,7 @@ def test_rwkv6_plain_grads_match_jax(B, T, H, decay, carried, with_ds):
         assert bool((got[3][torch.from_numpy(ins[3] < 1e-12)] == 0).all())
 
 
-@pytest.mark.parametrize("B,T,H,decay,carried,with_ds", [
+RWKV6_BWD_DESIGN_CASES = [  # B, T, H, decay, carried-in s0, dS_T
     (2, 70, 2, "slow", True, True),
     (1, 200, 2, "slow", False, False),
     (1, 130, 2, "clamp", True, True),
@@ -225,7 +416,11 @@ def test_rwkv6_plain_grads_match_jax(B, T, H, decay, carried, with_ds):
     (1, 64, 2, "slow", True, False),     # one whole chunk
     # fast decays: the chunked forms overflow, the emulation stays finite
     (1, 190, 2, "fast", True, True),
-])
+]
+
+
+@pytest.mark.parametrize("B,T,H,decay,carried,with_ds",
+                         RWKV6_BWD_DESIGN_CASES)
 def test_rwkv6_bwd_design_matches_step_oracle(B, T, H, decay, carried,
                                               with_ds):
     """The backward kernel's passes against float64 autograd of the step
@@ -382,3 +577,16 @@ def test_rglru_fn_carries_the_plain_gradient_on_cpu():
     got = torch.autograd.grad(out, leaves, dy)
     want = RG.rglru_scan_bwd_plain(log_a, b, h0, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+if __name__ == "__main__":
+    # Each gradient's worst share of its limit against the float64 step
+    # oracle, the emulated rwkv6 backward in the 3xTF32 split and in one
+    # TF32 pass, for each design case above:
+    #   PYTHONPATH=src:tests JAX_PLATFORMS=cpu python tests/test_torch_scan_grad.py
+    for case in RWKV6_BWD_DESIGN_CASES:
+        ins = rwkv6_inputs(2, *case)
+        print("rwkv6 bwd B={} T={} H={} decay={} s0={} dS_T={}".format(*case),
+              "3xTF32 " + "/".join(f"{x:.3f}" for x in grad_shares(
+                  ins, mm_3xtf32)) + "; one TF32 pass " + "/".join(
+                  f"{x:.2f}" for x in grad_shares(ins, mm_tf32)))
