@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases build,kernels,parity,serve,train]
+                          [--phases build,kernels,parity,serve,calibrate,train]
 
 Phases, in order (all by default):
 
@@ -98,7 +98,26 @@ Phases, in order (all by default):
    ``EcoServeAPI.generate`` of 4 prompts, 8 new tokens each, on
    full-depth bf16 qwen3-4b: 8 tokens a prompt, 32 streamed, its kernels
    launched.
-6. ``train``: ``repro_torch.training.train_loop.train`` in f32 on
+6. ``calibrate``: ``bench_calibration_torch.py``'s real backend on the
+   card.  Two instances of full-width, full-depth bf16 llama3-8b serve the
+   first 24 records of each checked-in trace excerpt (Azure, BurstGPT),
+   each normalised to 4 req/s, prompts clipped to 1024 tokens and outputs
+   to 1024 (the records' own but one): an unrecorded warm-up pass (outputs
+   cut to 32), then the recorded pass on a wall clock with a
+   ``CalibrationRecorder`` on each engine.  The fitted
+   ``CalibrationReport`` (samples, per-op error quantiles of the engines'
+   seed model ``InstanceCostModel(cfg, hw=H100_SXM)`` and of the fit, the
+   five constants, the fit's form and the decode steps by batch size and
+   by context sum) is printed on one line, and the efficiencies the
+   constants imply beside ``H100_SXM``'s on another.  Fails unless every
+   request finishes with its token count, there is one prefill sample a
+   request and some decode samples, every constant is finite and >= 0,
+   the fit's median per-op error, overall and over the decode steps, is
+   below the unfitted model's, and the recorded pass launched
+   ``flash_prefill`` once a layer a prefill and ``decode_attention`` once
+   a layer a decode step (counts set to 0 just before the recorded pass,
+   read just after it).
+7. ``train``: ``repro_torch.training.train_loop.train`` in f32 on
    hubert-xlarge at its full config (48 layers; frames from ``--seed`` at
    batch 8 x 1024, labels a fixed random linear classifier of the frames,
    5 steps) and on llama3-8b at full width with 4 of its 32 layers
@@ -138,7 +157,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("build", "kernels", "parity", "serve", "train")
+PHASES = ("build", "kernels", "parity", "serve", "calibrate", "train")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 rate.  f32
 # work is counted at 3xTF32 on the tensor cores, 495 TFLOP/s / 3: the least
@@ -1743,7 +1762,87 @@ def run_api(torch, seed, arch=API_ARCH):
 
 
 # --------------------------------------------------------------------- #
-# phase 6: train (the training path)
+# phase 6: calibrate (the cost model's constants, fitted on the card)
+# --------------------------------------------------------------------- #
+CALIBRATE_PATH = "calibrate:llama3-8b"
+CALIBRATE_KERNELS = {CALIBRATE_PATH: PATH_KERNELS["llama3-8b"]}
+
+
+def run_calibrate(torch, seed, smi):
+    """The calibration loop on the card (``bench_calibration_torch``'s
+    real backend); returns the recorded pass's launches."""
+    import bench_calibration_torch as bench
+    from repro_torch.serving.engine import H100_SXM
+
+    wrappers = kernel_wrappers()
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    gc.collect()          # the serve phase's engines, cycles included
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = bench.serve_real("cuda", seed, before_recorded=zero_counts)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = run.report()
+    cfg = bench.real_config("cuda")
+    reqs, stats = run.requests, run.stats
+    log(f"calibrate {bench.REAL_ARCH} {run.meta['dtype']}, {cfg.num_layers} "
+        f"layers, {bench.REAL_INSTANCES} instances, max_batch "
+        f"{bench.REAL_MAX_BATCH}, max_seq_len {bench.REAL_MAX_SEQ_LEN}: "
+        f"{len(reqs)} requests of {'+'.join(bench.FIXTURES)} at "
+        f"{bench.REAL_RATE:g} req/s each, prompts "
+        f"{sum(r.prompt_len for r in reqs)} tokens, outputs "
+        f"{sum(r.output_len for r in reqs)} tokens; warm-up and recorded "
+        f"pass wall_s={wall:.2f} (host clock) peak_device_gb={peak_gb:.2f} "
+        f"launches={json.dumps(launches)} ({smi})")
+    log("calibrate report " + json.dumps({
+        "n_prefill": report.n_prefill, "n_decode": report.n_decode,
+        "unfitted": report.unfitted, "fitted": report.fitted,
+        "constants": {k: report.constants[k] for k in (
+            "prefill_base", "prefill_per_token", "decode_base",
+            "decode_per_seq", "decode_per_ctx_token")},
+        "fit": run.meta["fit"], "decode_spread": run.meta["decode_spread"],
+        "finished": run.meta["finished"], "card": run.meta["card"]}))
+    eff = bench.implied_efficiencies(report.constants, cfg, H100_SXM)
+    log(f"calibrate implied efficiencies ({smi}): prefill_eff "
+        f"{eff['prefill_eff']} (H100_SXM {H100_SXM.prefill_eff}), "
+        f"decode_bw_eff {eff['decode_bw_eff']} (H100_SXM "
+        f"{H100_SXM.decode_bw_eff}); decode_base as one read of the weights:"
+        f" {eff['decode_base_bw_eff']} of HBM's rate")
+    if len(stats.finished) != len(reqs) or stats.rejected:
+        fail(f"calibrate: {len(stats.finished)} of {len(reqs)} finished")
+    short = [r.rid for r in stats.finished
+             if len(r.generated) != r.output_len]
+    if short:
+        fail(f"calibrate: requests {short} lack tokens")
+    if report.n_prefill != len(reqs) or report.n_decode <= 0:
+        fail(f"calibrate: {report.n_prefill} prefill and {report.n_decode} "
+             f"decode samples for {len(reqs)} requests")
+    if not bench.constants_ok(report.constants):
+        fail(f"calibrate: fitted constants {report.constants}")
+    for key in ("overall_median", "decode_median"):
+        if not report.fitted[key] < report.unfitted[key]:
+            fail(f"calibrate: the fit's {key} per-op error "
+                 f"{report.fitted[key]} is not below the unfitted "
+                 f"model's {report.unfitted[key]}")
+    want = {"flash_prefill": cfg.num_layers * report.n_prefill,
+            "decode_attention": cfg.num_layers * report.n_decode}
+    for name in CALIBRATE_KERNELS[CALIBRATE_PATH]:
+        if launches[name] <= 0 or launches[name] != want[name]:
+            fail(f"calibrate: kernel {name} launched {launches[name]} times "
+                 f"in the recorded pass, not {want[name]}")
+    return {name: launches[name] for name in CALIBRATE_KERNELS[CALIBRATE_PATH]}
+
+
+# --------------------------------------------------------------------- #
+# phase 7: train (the training path)
 # --------------------------------------------------------------------- #
 # run name -> (arch, layers or None for the full depth, batch, length,
 # steps); each run's kernels are TRAIN_KERNELS'
@@ -1962,11 +2061,12 @@ NUMBER_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def kernel_row(name, numbers, counts):
     """One kernel's entry of the table: the numbers at the main shape of
-    the first served path that runs it, launches summed over the serves
+    the first served path that runs it, launches summed over the runs
     (None when no serve ran), and each path's own numbers and launches
     under ``paths``."""
-    paths = [arch for arch, names in {**PATH_KERNELS, **TRAIN_KERNELS}
-             .items() if name in names]
+    paths = [arch for arch, names in {**PATH_KERNELS, **CALIBRATE_KERNELS,
+                                      **TRAIN_KERNELS}.items()
+             if name in names]
     first = numbers.get(paths[0], dict.fromkeys(NUMBER_KEYS))
     return {"name": name, **KERNEL_META[name],
             "launches": sum(counts.values()) if counts else None, **first,
@@ -2039,6 +2139,9 @@ def main() -> None:
             for name, n in counts.items():
                 launches.setdefault(name, {})[arch] = n
         run_api(torch, args.seed)
+    if "calibrate" in phases:
+        for name, n in run_calibrate(torch, args.seed, smi).items():
+            launches.setdefault(name, {})[CALIBRATE_PATH] = n
     if "train" in phases:
         for name in TRAIN_RUNS:
             counts = run_train(torch, np.random.default_rng(args.seed),

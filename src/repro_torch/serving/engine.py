@@ -30,7 +30,12 @@ from repro_torch.simulator.cost_model import HardwareProfile
 # H100 SXM datasheet figures (dense bf16 tensor-core peak, HBM3 rate and
 # size); NVLink's 450 GB/s each way stands in for both links, which the
 # engine's one-card executor (tp=1) never reads.  The two efficiencies are
-# UNCALIBRATED placeholders until a calibration run on the card fits them.
+# not fitted values.  chip_smoke.py's calibrate phase fits the cost model's
+# constants on the card, and PERF.md's calibration record keeps them.  The
+# engine's step times are host-clock and serving is host-bound, so the
+# fitted decode terms hold host dispatch; an efficiency derived from them
+# would charge HBM for host time.  The values stay as the roofline's, and
+# MeasuredExecutor's gains track the gap while it serves.
 H100_SXM = HardwareProfile(
     name="h100-sxm", flops=989e12, hbm_bw=3.35e12, hbm_bytes=80e9,
     intra_node_bw=450e9, inter_node_bw=450e9, devices_per_node=1,

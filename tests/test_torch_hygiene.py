@@ -1,8 +1,9 @@
-"""Boundaries of the port: ``repro_torch``, ``chip_smoke.py`` and
-``profile_port.py`` import neither JAX nor the JAX package, the copied
-host modules equal their sources up to the import prefix, and an engine
-asked for the default device on a machine without CUDA raises instead of
-running on the CPU (and both scripts fail there)."""
+"""Boundaries of the port: ``repro_torch``, ``chip_smoke.py``,
+``profile_port.py`` and ``bench_calibration_torch.py`` import neither JAX
+nor the JAX package, the copied host modules equal their sources up to the
+import prefix, and an engine asked for the default device on a machine
+without CUDA raises instead of running on the CPU (and both scripts fail
+there)."""
 import ast
 import pathlib
 import subprocess
@@ -24,7 +25,10 @@ COPIED = sorted(
                                 "system", "padg_system")]
     + ["obs/events.py", "faults/policies.py", "simulator/cost_model.py",
        "simulator/engine.py", "serving/replay.py", "data/__init__.py",
-       "data/pipeline.py"])
+       "data/pipeline.py", "simulator/workload.py", "simulator/scenarios.py",
+       "serving/calibration.py"]
+    + [f"traces/{m}.py" for m in ("__init__", "convert", "stats",
+                                  "transforms", "__main__")])
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -47,7 +51,8 @@ def test_port_imports_neither_jax_nor_repro():
         "m.startswith('repro.'))\n"
         "print(len(names), {'repro_torch.kernels.rwkv6_scan', "
         "'repro_torch.kernels.rglru_scan', 'repro_torch.serving.api', "
-        "'repro_torch.data.pipeline'} <= set(names), bad)\n")
+        "'repro_torch.data.pipeline', 'repro_torch.serving.calibration', "
+        "'repro_torch.traces.__main__'} <= set(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=120)
@@ -77,6 +82,12 @@ def test_profile_port_imports_neither_jax_nor_repro():
     tops = _top_level_imports("profile_port.py")
     assert "repro_torch" in tops
     assert not tops & {"jax", "jaxlib", "repro"}
+
+
+def test_bench_calibration_torch_imports_neither_jax_nor_repro():
+    tops = _top_level_imports("bench_calibration_torch.py")
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}
 
 
 def test_engine_without_cuda_raises():
