@@ -30,7 +30,8 @@ same structure (``trace_requests``, ``analytic_model``,
   f32; ``cuda`` without a card raises.
 
 The saved report feeds the simulator runner's calibrated-executor axis
-(``ExperimentRunner(..., calibration=(None, "report.json"))``)::
+(``ExperimentRunner(..., calibration=(None, "report.json"))``);
+``writeback_runner(path)`` builds the port's grid of it::
 
     PYTHONPATH=src python bench_calibration_torch.py
     PYTHONPATH=src python bench_calibration_torch.py --real --device cpu
@@ -55,6 +56,7 @@ if str(SRC) not in sys.path:
 
 from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.core.slo import SLO  # noqa: E402
+from repro_torch.obs.events import Tracer  # noqa: E402
 from repro_torch.serving.calibration import (CalibrationRecorder,  # noqa: E402
                                              CalibrationReport,
                                              SyntheticTruth)
@@ -147,12 +149,14 @@ def card_name() -> str:
 
 @dataclasses.dataclass
 class RealRun:
-    """A recorded serve: its samples, requests, stats and unfitted model."""
+    """A recorded serve: its samples, requests, stats, unfitted model and
+    the flight recorder of the recorded pass."""
     recorder: CalibrationRecorder
     requests: List[Request]
     stats: ServeStats
     seed_model: InstanceCostModel
     meta: Dict
+    tracer: Tracer
 
     def report(self) -> CalibrationReport:
         return CalibrationReport.build(self.recorder, self.seed_model,
@@ -163,8 +167,9 @@ def serve_real(device: str = "cuda", seed: int = 0,
                before_recorded: Optional[Callable[[], None]] = None
                ) -> RealRun:
     """Warm up, then serve the recorded pass with a ``CalibrationRecorder``
-    on every engine.  ``before_recorded`` runs just before the recorded
-    pass (after the warm-up)."""
+    on every engine and a flight recorder (``Tracer``) on the server and
+    the recorder.  ``before_recorded`` runs just before the recorded pass
+    (after the warm-up)."""
     import torch
 
     from repro_torch.serving.engine import H100_SXM, EngineConfig
@@ -181,6 +186,10 @@ def serve_real(device: str = "cuda", seed: int = 0,
     # and library set-up that the recorded steps should not carry
     warm = real_requests(cfg.vocab_size, seed + 1, REAL_WARM_OUTPUT)
     rec = CalibrationRecorder()
+    trc = Tracer()
+    # the server hands its tracer only to a recorder given at construction;
+    # this one joins the engines after the warm-up, so it gets it here
+    rec.tracer = trc
     with PaDGServer(cfg, n_instances=REAL_INSTANCES, slo=REAL_SLO,
                     econf=econf, seed=seed, backend="real") as server:
         server.serve(warm, clock=WallClock(1.0))
@@ -188,7 +197,7 @@ def serve_real(device: str = "cuda", seed: int = 0,
             inst.engine.engine.recorder = rec
         if before_recorded is not None:
             before_recorded()
-        stats = server.serve(reqs, clock=WallClock(1.0))
+        stats = server.serve(reqs, clock=WallClock(1.0), tracer=trc)
     meta = {"backend": "real", "arch": REAL_ARCH, "device": device,
             "card": card_name() if device != "cpu" else None,
             "dtype": str(dtype).replace("torch.", ""),
@@ -196,7 +205,7 @@ def serve_real(device: str = "cuda", seed: int = 0,
             "fixtures": list(FIXTURES), "rate": REAL_RATE,
             "n_requests": len(reqs), "finished": len(stats.finished),
             "fit": fit_forms(rec), "decode_spread": decode_spread(rec)}
-    return RealRun(rec, reqs, stats, seed_model, meta)
+    return RealRun(rec, reqs, stats, seed_model, meta, trc)
 
 
 def build_report(backend: str = "fake", device: str = "cuda",
@@ -217,6 +226,26 @@ def build_report(backend: str = "fake", device: str = "cuda",
                 "finished": len(stats.finished)}
         return CalibrationReport.build(rec, model, like=model, meta=meta)
     return serve_real(device, seed).report()
+
+
+# --------------------------------------------------------------------- #
+def writeback_runner(report_path, seed: int = 0,
+                     n_workers: Optional[int] = 1):
+    """The simulator grid that compares the strategies on a report's fit
+    (``calibration=report_path``) and on the analytic model (``None``),
+    cell for cell under one seed, over both trace excerpts.  DistServe and
+    MoonCake are left out: their KV links read ``cost.hw``, which a fitted
+    executor lacks.  The runner's hardware table has no H100 row, so the
+    analytic cells are GPU_L20's roofline, and a fitted cell takes its KV
+    capacity and transfer geometry from that model."""
+    from repro_torch.simulator.runner import ExperimentRunner
+    return ExperimentRunner(
+        strategies=("ecoserve", "vllm", "sarathi"),
+        scenarios=tuple(f"trace:{name}" for name in FIXTURES),
+        rates=(1.0, 2.0, 4.0, 8.0), calibration=(None, str(report_path)),
+        model=REAL_ARCH, hw="L20", tp=1, pp=1, n_instances=2,
+        workload="sharegpt", duration=24.0, warmup=3.0, base_seed=seed,
+        n_workers=n_workers)
 
 
 # --------------------------------------------------------------------- #

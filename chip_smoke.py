@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-                          [--phases build,kernels,parity,serve,calibrate,train]
+                          [--phases build,kernels,parity,serve,calibrate,
+                                    experiments,train]
 
 Phases, in order (all by default):
 
@@ -104,7 +105,9 @@ Phases, in order (all by default):
    each normalised to 4 req/s, prompts clipped to 1024 tokens and outputs
    to 1024 (the records' own but one): an unrecorded warm-up pass (outputs
    cut to 32), then the recorded pass on a wall clock with a
-   ``CalibrationRecorder`` on each engine.  The fitted
+   ``CalibrationRecorder`` on each engine and a flight recorder
+   (``repro_torch.obs.events.Tracer``) on the server and the recorder.
+   The fitted
    ``CalibrationReport`` (samples, per-op error quantiles of the engines'
    seed model ``InstanceCostModel(cfg, hw=H100_SXM)`` and of the fit, the
    five constants, the fit's form and the decode steps by batch size and
@@ -116,8 +119,23 @@ Phases, in order (all by default):
    below the unfitted model's, and the recorded pass launched
    ``flash_prefill`` once a layer a prefill and ``decode_attention`` once
    a layer a decode step (counts set to 0 just before the recorded pass,
-   read just after it).
-7. ``train``: ``repro_torch.training.train_loop.train`` in f32 on
+   read just after it).  Then it writes the report and the trace into the
+   git-ignored ``build/calibration/`` (``report.json``, ``trace.jsonl``).
+7. ``experiments`` (brings in ``calibrate``, so that it reads this run's
+   files): the flight recorder's analyses and the simulator's experiment
+   grid, fed by the calibrated serve.  ``python -m repro_torch.obs
+   summarize`` on the trace must exit 0 (every request's TTFT attribution
+   exact) with every request attributed; the attribution totals, the TPOT
+   jitter and the interference score with its count are printed (a count
+   of 0, which a wall clock gives, is printed as not measured), and
+   ``python -m repro_torch.obs export --perfetto`` writes
+   ``build/calibration/trace.perfetto.json``.  Then
+   ``bench_calibration_torch.writeback_runner`` runs its 48 simulated
+   cells (EcoServe, vLLM and Sarathi over both trace excerpts at 1, 2, 4
+   and 8 req/s, each on the analytic cost model and on the card's fit):
+   fails if a cell errs, finishes no request, or differs in seed from its
+   twin; prints attainment and TPOT p50, analytic beside fitted.
+8. ``train``: ``repro_torch.training.train_loop.train`` in f32 on
    hubert-xlarge at its full config (48 layers; frames from ``--seed`` at
    batch 8 x 1024, labels a fixed random linear classifier of the frames,
    5 steps) and on llama3-8b at full width with 4 of its 32 layers
@@ -150,6 +168,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -157,7 +176,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("build", "kernels", "parity", "serve", "calibrate", "train")
+PHASES = ("build", "kernels", "parity", "serve", "calibrate", "experiments",
+          "train")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, HBM3 rate.  f32
 # work is counted at 3xTF32 on the tensor cores, 495 TFLOP/s / 3: the least
@@ -1766,12 +1786,15 @@ def run_api(torch, seed, arch=API_ARCH):
 # --------------------------------------------------------------------- #
 CALIBRATE_PATH = "calibrate:llama3-8b"
 CALIBRATE_KERNELS = {CALIBRATE_PATH: PATH_KERNELS["llama3-8b"]}
+# the recorded pass's report and flight-recorder trace (git-ignored)
+CALIBRATION_DIR = ROOT / "build" / "calibration"
 
 
 def run_calibrate(torch, seed, smi):
     """The calibration loop on the card (``bench_calibration_torch``'s
     real backend); returns the recorded pass's launches."""
     import bench_calibration_torch as bench
+    from repro_torch.obs.export import write_jsonl
     from repro_torch.serving.engine import H100_SXM
 
     wrappers = kernel_wrappers()
@@ -1838,7 +1861,106 @@ def run_calibrate(torch, seed, smi):
         if launches[name] <= 0 or launches[name] != want[name]:
             fail(f"calibrate: kernel {name} launched {launches[name]} times "
                  f"in the recorded pass, not {want[name]}")
+    CALIBRATION_DIR.mkdir(parents=True, exist_ok=True)
+    report.save(CALIBRATION_DIR / "report.json")
+    n_events = write_jsonl(run.tracer, CALIBRATION_DIR / "trace.jsonl")
+    log(f"calibrate wrote {(CALIBRATION_DIR / 'report.json').relative_to(ROOT)}"
+        f" and {(CALIBRATION_DIR / 'trace.jsonl').relative_to(ROOT)} "
+        f"({n_events} events)")
     return {name: launches[name] for name in CALIBRATE_KERNELS[CALIBRATE_PATH]}
+
+
+# --------------------------------------------------------------------- #
+# phase 7: experiments (the flight recorder and the simulator grid, fed by
+# the calibrated serve)
+# --------------------------------------------------------------------- #
+def obs_cli(*args) -> subprocess.CompletedProcess:
+    """``python -m repro_torch.obs <args>`` from this checkout."""
+    return subprocess.run([sys.executable, "-m", "repro_torch.obs", *args],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=300)
+
+
+def run_experiments(seed, smi):
+    """The calibrate phase's trace through ``python -m repro_torch.obs``,
+    then its report through the write-back grid."""
+    import bench_calibration_torch as bench
+    from repro_torch.simulator.runner import ExperimentRunner
+
+    trace = CALIBRATION_DIR / "trace.jsonl"
+    report = CALIBRATION_DIR / "report.json"
+    n_requests = len(bench.FIXTURES) * bench.REAL_PER_FIXTURE
+    out = obs_cli("summarize", str(trace))
+    if out.returncode != 0:
+        fail(f"experiments: obs summarize exited {out.returncode} (an "
+             f"inexact attribution exits 1): {out.stderr[-2000:]}")
+    digest = json.loads(out.stdout)
+    attr = digest["attribution"]
+    if attr["n"] != n_requests or attr["unattributed"] != 0:
+        fail(f"experiments: {attr['n']} of {n_requests} requests attributed,"
+             f" {attr['unattributed']} unattributed")
+    out = obs_cli("attribution", "--json", str(trace))
+    if out.returncode != 0:
+        fail(f"experiments: obs attribution exited {out.returncode}")
+    tot = json.loads(out.stdout)["totals"]
+    tpot, inter = digest["tpot"], digest["interference"]
+    inter_text = (f"interference score {inter['score']} over n="
+                  f"{inter['n']} stretches (p99 {inter['p99']})"
+                  if inter["n"] else
+                  "interference not measured on a wall clock (n=0: every "
+                  "gap between two slots breaks the chain)")
+    log(f"experiments trace: {digest['events']} events "
+        f"{json.dumps(digest['by_type'])}; {attr['n']} attributed, "
+        f"{attr['unattributed']} unattributed, exact {attr['exact']}; "
+        f"totals s: queue_wait {tot['queue_wait']} prefill_wait "
+        f"{tot['prefill_wait']} prefill_service {tot['prefill_service']} "
+        f"transfer {tot['transfer']} ttft {tot['ttft']}; tpot over "
+        f"{tpot['n']} requests: mean p50 {tpot['tpot_mean_p50']} jitter p50 "
+        f"{tpot['tpot_jitter_p50']} p99 {tpot['tpot_jitter_p99']}; "
+        f"{inter_text} ({smi})")
+    perfetto = CALIBRATION_DIR / "trace.perfetto.json"
+    out = obs_cli("export", str(trace), "--perfetto", "-o", str(perfetto))
+    if out.returncode != 0:
+        fail(f"experiments: obs export exited {out.returncode}")
+    n_render = len(json.loads(perfetto.read_text())["traceEvents"])
+    log(f"experiments perfetto: {perfetto.relative_to(ROOT)} "
+        f"({n_render} trace events)")
+
+    t0 = time.perf_counter()
+    runner = bench.writeback_runner(report, seed=seed, n_workers=1)
+    results = runner.run()
+    wall = time.perf_counter() - t0
+    cells = results["cells"]
+    bad = [c for c in cells if "error" in c]
+    if bad:
+        fail(f"experiments: {len(bad)} write-back cells failed: "
+             f"{bad[0]['error']}")
+    empty = [(c["strategy"], c["scenario"], c["rate"], c["calibration"])
+             for c in cells if not c["metrics"]["finished"] > 0]
+    if empty:
+        fail(f"experiments: write-back cells finished no request: {empty}")
+    seeds = {}
+    for c in cells:
+        seeds.setdefault((c["strategy"], c["scenario"], c["rate"]),
+                         set()).add(c["seed"])
+    split = [k for k, v in seeds.items() if len(v) != 1]
+    if split:
+        fail(f"experiments: analytic and fitted twins differ in seed: {split}")
+    grid = ExperimentRunner.grid(results)
+    log(f"experiments write-back grid: {len(cells)} cells in {wall:.2f} s, "
+        f"{runner.model} tp {runner.tp} x {runner.n_instances} instances, "
+        f"{runner.workload} SLO, analytic = the runner's {runner.hw} roofline"
+        " (its hardware table has no H100), fitted = this run's report")
+    log(f"  {'strategy':9} {'scenario':15} {'rate':>5}  attainment "
+        f"analytic/fitted  tpot_p50 s analytic/fitted")
+    for strat in runner.strategies:
+        for scen in runner.scenarios:
+            node = grid[strat][scen]
+            for rate in runner.rates:
+                a, f = node["analytic"][rate], node[str(report)][rate]
+                log(f"  {strat:9} {scen:15} {rate:5g}  {a['attainment']:.4f} / "
+                    f"{f['attainment']:.4f}  {a['tpot_p50']:.6f} / "
+                    f"{f['tpot_p50']:.6f}")
 
 
 # --------------------------------------------------------------------- #
@@ -2084,6 +2206,8 @@ def main() -> None:
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
         fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if "experiments" in phases and "calibrate" not in phases:
+        phases.append("calibrate")     # it reads this run's files only
 
     import numpy as np
     import torch
@@ -2142,6 +2266,8 @@ def main() -> None:
     if "calibrate" in phases:
         for name, n in run_calibrate(torch, args.seed, smi).items():
             launches.setdefault(name, {})[CALIBRATE_PATH] = n
+    if "experiments" in phases:
+        run_experiments(args.seed, smi)
     if "train" in phases:
         for name in TRAIN_RUNS:
             counts = run_train(torch, np.random.default_rng(args.seed),

@@ -1,5 +1,6 @@
 """Boundaries of the port: ``repro_torch``, ``chip_smoke.py``,
-``profile_port.py`` and ``bench_calibration_torch.py`` import neither JAX
+``profile_port.py``, ``bench_calibration_torch.py`` and
+``examples/compare_strategies_torch.py`` import neither JAX
 nor the JAX package, the copied host modules equal their sources up to the
 import prefix, and an engine asked for the default device on a machine
 without CUDA raises instead of running on the CPU (and both scripts fail
@@ -28,7 +29,18 @@ COPIED = sorted(
        "data/pipeline.py", "simulator/workload.py", "simulator/scenarios.py",
        "serving/calibration.py"]
     + [f"traces/{m}.py" for m in ("__init__", "convert", "stats",
-                                  "transforms", "__main__")])
+                                  "transforms", "__main__")]
+    + [f"obs/{m}.py" for m in ("__init__", "__main__", "export", "metrics")]
+    + [f"faults/{m}.py" for m in ("__init__", "injector", "network",
+                                  "schedule")]
+    + [f"control/{m}.py" for m in ("__init__", "signals", "controller",
+                                   "actuator")]
+    + [f"baselines/{m}.py" for m in ("__init__", "nodg_vllm",
+                                     "nodg_sarathi", "fudg_distserve",
+                                     "fudg_mooncake")]
+    + [f"fleet/{m}.py" for m in ("__init__", "spec", "router", "system",
+                                 "rebalance")]
+    + [f"simulator/{m}.py" for m in ("__init__", "metrics", "runner")])
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -52,7 +64,9 @@ def test_port_imports_neither_jax_nor_repro():
         "print(len(names), {'repro_torch.kernels.rwkv6_scan', "
         "'repro_torch.kernels.rglru_scan', 'repro_torch.serving.api', "
         "'repro_torch.data.pipeline', 'repro_torch.serving.calibration', "
-        "'repro_torch.traces.__main__'} <= set(names), bad)\n")
+        "'repro_torch.traces.__main__', 'repro_torch.simulator.runner', "
+        "'repro_torch.baselines', 'repro_torch.obs.__main__'} "
+        "<= set(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
                          capture_output=True, text=True, timeout=120)
@@ -86,6 +100,12 @@ def test_profile_port_imports_neither_jax_nor_repro():
 
 def test_bench_calibration_torch_imports_neither_jax_nor_repro():
     tops = _top_level_imports("bench_calibration_torch.py")
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}
+
+
+def test_compare_strategies_torch_imports_neither_jax_nor_repro():
+    tops = _top_level_imports("examples/compare_strategies_torch.py")
     assert "repro_torch" in tops
     assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}
 
