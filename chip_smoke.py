@@ -42,27 +42,35 @@ Phases, in order (all by default):
    and give the achieved TFLOP/s (prefill) or GB/s (decode; also timed
    with the L2 cache flushed before each call).  ``flash_prefill`` in f32
    also at head_dim 80 (hubert-xlarge: bidirectional, and causal, on
-   ragged T), and every f32 case's log-sum-exp output against the plain
-   one (and at recurrentgemma-2b's training shape, T 4096 under its 2048
-   window).  The backward kernel (``flash_prefill_bwd``: dQ, dK, dV)
-   against autograd of the plain version on the card, at D 64 / 80 / 128 /
-   256, G 1 / 4 / 10 / 16, causal / bidirectional / window, T off the
-   tiles, at D 256 with its dK/dV launch split over 4 and 3 q-tile ranges
-   and not split, and at the three training shapes, with the time of
-   autograd's backward through ``scaled_dot_product_attention`` beside
-   it.  The scans'
+   ragged T), and every case's log-sum-exp output (f32 in both dtypes)
+   against the plain one, with the kernel's device time with and without
+   it; at the training shapes too (recurrentgemma-2b's T 4096 under its
+   2048 window; in bf16 llama3-8b's and recurrentgemma-2b's).  The
+   backward kernel (``flash_prefill_bwd``: dQ, dK, dV) against autograd
+   of the plain version on the card, in f32 at D 64 / 80 / 128 / 256, G 1
+   / 4 / 10 / 16, causal / bidirectional / window, T off the tiles, at D
+   256 with its dK/dV launch split over 4 and 3 q-tile ranges and not
+   split, and at the three training shapes, and in bf16 (each element at
+   ``TOL["grad_bf16"]``, each gradient within ``GRAD_BF16_REL_L2``
+   relative L2) at llama3-8b's and recurrentgemma-2b's training shapes, D
+   64 ragged and bidirectional, G 16 under a window, rows with no key and
+   D 256 split over 3 ranges, with the time of autograd's backward
+   through ``scaled_dot_product_attention`` beside it.  The scans'
    backward kernels (``rwkv6_scan_bwd``, ``rglru_scan_bwd``) at their
    training shapes and off them, against autograd of the plain versions,
    and ``rwkv6_scan_bwd`` under fast decays and w under its clamp against
    autograd of the float64 step recurrence (dw exactly 0 under the
    clamp); each backward case called
    twice, the same bits; ``rwkv6_scan_bwd``'s four grid launches timed
-   one by one under ``torch.profiler`` at its training shape.  Each wrapper of a kernel without a backward for
-   its inputs (``decode_attention``; ``flash_prefill`` in bf16 or with a
-   ``q_offset``; ``rwkv6_scan`` at D 128) must raise on a CUDA input that
-   requires grad and launch nothing; f32 ``flash_prefill`` (D 64 / 80 /
-   128 / 256), ``rwkv6_scan`` and ``rglru_scan`` inputs that require grad
-   get a ``grad_fn`` whose backward launches the backward kernel.
+   one by one under ``torch.profiler`` at its training shape.  Each
+   wrapper of a kernel without a backward for its inputs
+   (``decode_attention``; ``flash_prefill`` with a ``q_offset``, f32 and
+   bf16; ``rwkv6_scan`` at D 128) must raise on a CUDA input that
+   requires grad and launch nothing (bf16 ``flash_prefill`` at D 80 has
+   no kernel and raises either way); ``flash_prefill`` (f32 at D 64 / 80
+   / 128 / 256, bf16 at D 128), ``rwkv6_scan`` and ``rglru_scan`` inputs
+   that require grad get a ``grad_fn`` whose backward launches the
+   backward kernel.
 4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
    rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
@@ -78,21 +86,26 @@ Phases, in order (all by default):
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
    Train parity: hubert-xlarge, llama3-8b and rwkv6-3b at full width, 2
-   layers, and recurrentgemma-2b at full width, 3 layers, f32, one
-   sequence of 256 frames / tokens: one training step (loss, gradients,
-   AdamW) with the kernels on the card against the same step with the
-   plain versions on the CPU, from the same weights: the loss, every
-   gradient leaf and every parameter after the update within stated
-   limits, the card's backward and update under
-   ``set_sync_debug_mode("error")``, and each kernel's launches (per
-   layer its forward kernel twice, its backward kernel once).
+   layers, and recurrentgemma-2b at full width, 3 layers, f32, then
+   llama3-8b and recurrentgemma-2b again in bf16 (through the bf16
+   backward kernel), one sequence of 256 frames / tokens: one training
+   step (loss, gradients, AdamW) with the kernels on the card against the
+   same step with the plain versions on the CPU, from the same weights:
+   the loss, every gradient leaf (in bf16 by its relative L2 difference)
+   and every parameter after the update within stated limits (compared
+   on the card), the card's
+   backward and update under ``set_sync_debug_mode("error")``, and each
+   kernel's launches (per layer its forward kernel twice, its backward
+   kernel once).
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances (``max_batch`` 8, ``max_seq_len`` 2048) of
-   full-depth bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b,
-   qwen3-4b, chatglm3-6b and qwen2-vl-2b, then of full-width phi3.5-moe
-   at 8 of its 32 layers and llama4-scout at 4 of its 48 (two whole
-   instances do not fit the card; ``reduced`` is logged), on a wall
-   clock; every request must finish with its token count, no logit row
+   bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b, qwen3-4b,
+   chatglm3-6b and qwen2-vl-2b, all at full width and 8 layers (9 for
+   recurrentgemma-2b's 3-block pattern; full-depth llama3-8b and
+   qwen3-4b serve in phases 6 and 5's API check), then of full-width
+   phi3.5-moe at 8 of its 32 layers and llama4-scout at 4 of its 48 (two
+   whole instances do not fit the card; ``reduced`` is logged), on a
+   wall clock; every request must finish with its token count, no logit row
    may hold a NaN or an infinity, and the launch counts of the path's
    kernels (all set to 0 just before each run, read just after it) must
    be > 0.  Then one
@@ -152,8 +165,15 @@ Phases, in order (all by default):
    last step under ``torch.profiler`` with its costliest kernels and the
    port's own, and each step's launches of the run's kernels (per layer
    its forward kernel twice, for the forward and its recomputation, and
-   its backward kernel once).  Then ``python -m repro_torch.launch.train
-   --arch <arch> --steps 3 --device cuda`` for llama3-8b and rwkv6-3b.
+   its backward kernel once).  Then the same four runs in bf16
+   (``train(dtype=torch.bfloat16)``) at the same shapes: the same
+   printout, the losses finite, the first within
+   ``TRAIN_BF16_FIRST_LOSS_RTOL`` of its f32 twin's, and whether the loss
+   falls (printed; the reference rounds each update into bf16 parameters
+   as the port does); hubert-xlarge keeps bf16 weights and computes in
+   f32 from its f32 frames on, as the reference promotes them.  Then
+   ``python -m repro_torch.launch.train --arch <arch> --steps 3 --device
+   cuda`` for llama3-8b and rwkv6-3b.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -213,6 +233,20 @@ TOL["rglru"] = dict(atol=1e-5, atol_rms=0.0, rtol=1e-5)
 # CPU emulation of the kernel's algorithm, TF32 rounding included, holds
 # it with a worst element near 0.05: tests/test_torch_attention_design.py)
 TOL["grad"] = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
+# flash_prefill_bwd (bf16) against autograd of the plain version in bf16:
+# the kernel rounds P and dS to bf16 as the operands of dV, dK and dQ and
+# reads the forward's bf16 output in delta = rowsum(dO * O); the plain
+# version rounds dP and its own outputs to bf16 instead.  Where dP and
+# delta nearly cancel in dS, either rounding moves an element by a share
+# of the gradient's rms: the kernel's arithmetic emulated on the CPU put
+# the worst element at 0.38 of dQ's rms at recurrentgemma-2b's training
+# shape (0.61 of this limit) and 0.15 at llama3-8b's (0.36), with every
+# gradient within 0.0039 relative L2 (tests/test_torch_attention_design.py
+# at reduced T: 0.13-0.29 of the limit, 0.0038-0.0039).  So each element
+# is held to 0.2 of its gradient's rms plus two bf16 steps of itself, and
+# each gradient's relative L2 difference to 1e-2
+TOL["grad_bf16"] = dict(atol=0.0, atol_rms=0.2, rtol=2.0 ** -6)
+GRAD_BF16_REL_L2 = 1e-2
 # model parity, f32 logits: cuBLAS and the kernels sum 2560- to 14336-long
 # products (and rwkv6_scan its T*D-term sums) in another order than the CPU
 PARITY_ATOL = 1e-3
@@ -351,6 +385,9 @@ FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
 # training paths
 TRAIN_HUBERT, TRAIN_LLAMA = "train hubert-xlarge", "train llama3-8b"
 TRAIN_RWKV, TRAIN_RG = "train rwkv6-3b", "train recurrentgemma-2b"
+TRAIN_HUBERT_BF16, TRAIN_LLAMA_BF16 = (f"{TRAIN_HUBERT} bf16",
+                                       f"{TRAIN_LLAMA} bf16")
+TRAIN_RWKV_BF16, TRAIN_RG_BF16 = f"{TRAIN_RWKV} bf16", f"{TRAIN_RG} bf16"
 FLASH_F32_CASES = [
     ((TRAIN_HUBERT,), 8, 1024, 1024, 16, 16, 80, False, 0, 0),
     (None, 1, 333, 333, 16, 16, 80, True, 0, 0),
@@ -362,6 +399,22 @@ FLASH_F32_CASES = [
     ((TRAIN_LLAMA,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
     # recurrentgemma-2b training: 4096 positions, so that the window bites
     ((TRAIN_RG,), 1, 4096, 4096, 10, 1, 256, True, 2048, 0),
+]
+# bf16 only: the bf16 training shapes (hubert-xlarge's bf16 run computes in
+# f32 from its f32 frames on, so its attention is the f32 case above).
+# Their log-sum-exp is held to the f32 limit and their output must not
+# change when it is written.  Their output is held to be no less accurate
+# than the plain version's: against the attention of the same inputs in
+# f32, the kernel's worst element within 1.1 times the plain version's
+# share of the bf16 limit.  (On an H100, against each other the two
+# reached 1.08-1.21 of that limit at these shapes, 4 times the served
+# shapes' elements, where the served shapes give 0.74-0.88; against the
+# f32 attention both gave 1.79 and 2.06, the same worst element, which
+# the output's own bf16 rounding and p's take past two bf16 steps.)
+BF16_EXACT_SHARE_RATIO = 1.1
+FLASH_BF16_CASES = [
+    ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
+    ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048, 0),
 ]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
@@ -466,7 +519,8 @@ def run_kernels(torch, rng, results):
         dn = str(dtype).split(".")[-1]
         esize = torch.finfo(dtype).bits // 8
         f32 = dtype == torch.float32
-        for case in FLASH_CASES + (FLASH_F32_CASES if f32 else []):
+        for case in FLASH_CASES + (FLASH_F32_CASES if f32
+                                   else FLASH_BF16_CASES):
             paths, B, T, S, Hq, Hkv, D, causal, window, off = case
             q = randn((B, T, Hq, D), dtype)
             k = randn((B, S, Hkv, D), dtype)
@@ -476,25 +530,41 @@ def run_kernels(torch, rng, results):
             want = FP.flash_prefill_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             ok, err, share = compare(torch, got, want, dn)
-            lse_text = ""
-            if f32:     # the log-sum-exp the backward reads
-                got2, lse = FP._forward_kernel(q, k, v, causal, window,
-                                               off, True)
-                _, want_lse = FP.flash_prefill_plain(q, k, v, **kw,
-                                                     return_lse=True)
-                torch.cuda.synchronize()
-                empty = torch.isinf(want_lse)
-                same_empty = torch.equal(empty, torch.isinf(lse)) and bool(
-                    (lse[empty] < 0).all())
-                ok_l, err_l, share_l = compare(
-                    torch, lse.masked_fill(empty, 0.0),
-                    want_lse.masked_fill(empty, 0.0), dn)
-                ok = ok and ok_l and same_empty and torch.equal(got, got2)
-                lse_text = (f"; lse max_abs_err={err_l:.3e} ({share_l:.3f} "
-                            f"of its limit), {int(empty.sum())} empty rows "
-                            f"-inf on both sides: {same_empty}")
+            exact_text = ""
+            if case in FLASH_BF16_CASES:
+                exact = FP.flash_prefill_plain(q.float(), k.float(),
+                                               v.float(), **kw)
+                shares = [compare(torch, x, exact, dn)[2]
+                          for x in (got, want)]
+                exact_text = (f"; held instead to the f32 attention of the "
+                              f"same inputs: the kernel's worst element at "
+                              f"{shares[0]:.3f} of the limit, the plain "
+                              f"version's {shares[1]:.3f} (ratio limit "
+                              f"{BF16_EXACT_SHARE_RATIO:g})")
+                ok = bool(torch.isfinite(got).all()) and (
+                    shares[0] <= BF16_EXACT_SHARE_RATIO * shares[1])
+            # the log-sum-exp the backward reads (f32 in both dtypes, held
+            # to the f32 limit: the scores' products are exact in f32 and
+            # summed in f32 on both sides), and the output unchanged by it
+            got2, lse = FP._forward_kernel(q, k, v, causal, window, off,
+                                           True)
+            _, want_lse = FP.flash_prefill_plain(q, k, v, **kw,
+                                                 return_lse=True)
+            torch.cuda.synchronize()
+            empty = torch.isinf(want_lse)
+            same_empty = torch.equal(empty, torch.isinf(lse)) and bool(
+                (lse[empty] < 0).all())
+            ok_l, err_l, share_l = compare(
+                torch, lse.masked_fill(empty, 0.0),
+                want_lse.masked_fill(empty, 0.0), "float32")
+            ok = ok and ok_l and same_empty and torch.equal(got, got2)
+            lse_text = (f"; lse max_abs_err={err_l:.3e} ({share_l:.3f} of "
+                        f"its limit), {int(empty.sum())} empty rows -inf on "
+                        f"both sides: {same_empty}")
             kern = lambda: FP.flash_prefill(q, k, v, **kw)  # noqa: E731
             ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+            lse_dev_ms = cuda_ms(torch, lambda: FP._forward_kernel(
+                q, k, v, causal, window, off, True), spin=True)
             plain_ms = cuda_ms(
                 torch, lambda: FP.flash_prefill_plain(q, k, v, **kw))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -516,10 +586,11 @@ def run_kernels(torch, rng, results):
             log(f"flash_prefill {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
                 f"D={D} causal={causal} window={window} q_offset={off}: "
                 f"max_abs_err={err:.3e} ({tol_text(dn)}; worst element at "
-                f"{share:.3f} of its limit{lse_text}) "
+                f"{share:.3f} of its limit{exact_text}{lse_text}) "
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"(device: kernel {dev_ms:.4f}, library {lib_dev_ms:.4f}) "
+                f"(device: kernel {dev_ms:.4f}, with the log-sum-exp "
+                f"{lse_dev_ms:.4f}, library {lib_dev_ms:.4f}) "
                 f"bound_ms={b_ms:.4f} ({b_by}; share "
                 f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
                 f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
@@ -598,8 +669,10 @@ def check_grad_refused(torch):
     """Each wrapper of a kernel without a backward for these inputs raises
     on a CUDA input that requires grad while grad is enabled, launching
     nothing, and runs under ``torch.no_grad()``: ``decode_attention``,
-    ``flash_prefill`` in bf16 and with a ``q_offset``, and ``rwkv6_scan``
-    at head_dim 128 (its backward kernel takes 64)."""
+    ``flash_prefill`` with a ``q_offset`` (f32 and bf16), and
+    ``rwkv6_scan`` at head_dim 128 (its backward kernel takes 64).
+    ``flash_prefill`` in bf16 at head_dim 80 has no kernel either way: it
+    raises with grad and under ``torch.no_grad()``, launching nothing."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_prefill as FP
     from repro_torch.kernels import rwkv6_scan as RS
@@ -610,9 +683,12 @@ def check_grad_refused(torch):
     lengths = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
     bf = torch.bfloat16
     calls = {
-        "flash_prefill bf16": ("flash_prefill", lambda: FP.flash_prefill(
-            t(1, 9, 4, 64, dtype=bf), t(1, 9, 2, 64, dtype=bf),
-            t(1, 9, 2, 64, dtype=bf))),
+        "flash_prefill bf16 q_offset": ("flash_prefill",
+                                        lambda: FP.flash_prefill(
+                                            t(1, 9, 4, 64, dtype=bf),
+                                            t(1, 19, 2, 64, dtype=bf),
+                                            t(1, 19, 2, 64, dtype=bf),
+                                            q_offset=10)),
         "flash_prefill f32 q_offset": ("flash_prefill",
                                        lambda: FP.flash_prefill(
                                            t(1, 9, 4, 64), t(1, 19, 2, 64),
@@ -624,6 +700,23 @@ def check_grad_refused(torch):
             t(1, 5, 2, 128), t(2, 128))),
     }
     wrappers = kernel_wrappers()
+    before = wrappers["flash_prefill"].launches
+    for grad in (True, False):
+        try:
+            with torch.set_grad_enabled(grad):
+                FP.flash_prefill(t(1, 9, 4, 80, dtype=bf),
+                                 t(1, 9, 2, 80, dtype=bf),
+                                 t(1, 9, 2, 80, dtype=bf))
+        except NotImplementedError:
+            pass
+        else:
+            fail(f"flash_prefill bf16 D 80 (grad {grad}): no kernel, yet it "
+                 "did not raise")
+    if wrappers["flash_prefill"].launches != before:
+        fail("flash_prefill bf16 D 80: launched without a kernel")
+    log("flash_prefill bf16 D 80: raises with grad and under "
+        "torch.no_grad() (no bf16 kernel at head_dim 80), launching "
+        "nothing: ok")
     for what, (name, call) in calls.items():
         before = wrappers[name].launches
         try:
@@ -644,18 +737,18 @@ def check_grad_refused(torch):
 
 def check_grad_carried(torch):
     """A CUDA input that requires grad trains through a backward kernel:
-    ``flash_prefill`` (f32, D 64 / 80 / 128 / 256), ``rwkv6_scan`` (with
-    s0 and a final-state cotangent) and ``rglru_scan`` (with h0) return a
-    ``grad_fn`` (their autograd Functions), and backward launches the
-    backward kernel once, with the gradients of autograd through the
-    plain version."""
+    ``flash_prefill`` (f32, D 64 / 80 / 128 / 256; bf16, D 128),
+    ``rwkv6_scan`` (with s0 and a final-state cotangent) and ``rglru_scan``
+    (with h0) return a ``grad_fn`` (their autograd Functions), and
+    backward launches the backward kernel once, with the gradients of
+    autograd through the plain version."""
     from repro_torch.kernels import flash_prefill as FP
     from repro_torch.kernels import rglru_scan as RG
     from repro_torch.kernels import rwkv6_scan as RS
 
     wrappers = kernel_wrappers()
 
-    def carried(what, fwd, bwd, call, leaves, cots, plain):
+    def carried(what, fwd, bwd, call, leaves, cots, plain, tol="grad"):
         n = (wrappers[fwd].launches, wrappers[bwd].launches)
         out = call(*leaves)
         outs = out if isinstance(out, tuple) else (out,)
@@ -664,7 +757,7 @@ def check_grad_carried(torch):
         got = torch.autograd.grad(outs, leaves, cots)
         want = plain(*(x.detach() for x in leaves), *cots)
         torch.cuda.synchronize()
-        shares = [compare(torch, g, w, "grad") for g, w in zip(got, want)]
+        shares = [compare(torch, g, w, tol) for g, w in zip(got, want)]
         launched = (wrappers[fwd].launches - n[0],
                     wrappers[bwd].launches - n[1])
         if launched != (1, 1) or not all(ok for ok, _, _ in shares):
@@ -674,7 +767,7 @@ def check_grad_carried(torch):
             f"{type(outs[0].grad_fn).__name__}, launches forward 1, "
             f"backward 1; gradients at "
             + ", ".join(f"{sh:.3f}" for _, _, sh in shares)
-            + f" of their limits ({tol_text('grad')}): ok")
+            + f" of their limits ({tol_text(tol)}): ok")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -690,6 +783,14 @@ def check_grad_carried(torch):
                 (q, k, v), (rn(2, 77, 8, D),),
                 lambda q, k, v, do: FP.flash_prefill_bwd_plain(
                     q, k, v, do, causal=causal))
+    bf = torch.bfloat16
+    q, k, v = (rn(*s).to(bf).requires_grad_() for s in (
+        (2, 77, 8, 128), (2, 77, 2, 128), (2, 77, 2, 128)))
+    carried("flash_prefill bf16 D 128 causal=True", "flash_prefill",
+            "flash_prefill_bwd", lambda q, k, v: FP.flash_prefill(q, k, v),
+            (q, k, v), (rn(2, 77, 8, 128).to(bf),),
+            lambda q, k, v, do: FP.flash_prefill_bwd_plain(q, k, v, do),
+            tol="grad_bf16")
     w = 0.6 + 0.39 * torch.rand((2, 77, 4, 64), generator=gen,
                                 device="cuda")
     leaves = tuple(x.requires_grad_() for x in (
@@ -731,12 +832,26 @@ BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
     (None, 1, 1024, 1024, 8, 8, 256, False, 0),
     (None, 2, 1024, 1024, 10, 10, 256, True, 0),
 ]
+# bf16: llama3-8b's and recurrentgemma-2b's training shapes (the dK/dV
+# launch split over 2 and 4 q-tile ranges), then D 64 ragged and
+# bidirectional, G 16 under a window, rows with no key, and D 256 with its
+# dK/dV launch split over 3 ranges
+BWD_BF16_CASES = [
+    ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0),
+    ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048),
+    (None, 2, 333, 333, 8, 2, 64, True, 0),
+    (None, 2, 200, 200, 16, 4, 64, False, 0),
+    (None, 1, 190, 190, 32, 2, 128, True, 64),
+    (None, 1, 200, 60, 4, 2, 64, True, 20),
+    (None, 1, 1024, 1024, 8, 8, 256, False, 0),
+]
 
 
 def run_bwd_kernel(torch, rng, results) -> bool:
     """``flash_prefill_bwd`` against autograd of the plain version on the
-    card, and autograd's backward through ``scaled_dot_product_attention``
-    (the forward's graph kept, the backward alone timed) as the library's
+    card, in f32 and in bf16 (its lse from the forward kernel), and
+    autograd's backward through ``scaled_dot_product_attention`` (the
+    forward's graph kept, the backward alone timed) as the library's
     time."""
     import torch.nn.functional as F
 
@@ -745,15 +860,18 @@ def run_bwd_kernel(torch, rng, results) -> bool:
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def randn(shape):
+    def randn(shape, dtype):
         x = rng.standard_normal(shape, "float32")
-        return torch.from_numpy(x).to(dev)
+        return torch.from_numpy(x).to(dev, dtype)
 
     all_ok = True
-    for case in BWD_CASES:
+    for case, dtype in ([(c, torch.float32) for c in BWD_CASES]
+                        + [(c, torch.bfloat16) for c in BWD_BF16_CASES]):
         paths, B, T, S, Hq, Hkv, D, causal, window = case
-        q, do = randn((B, T, Hq, D)), randn((B, T, Hq, D))
-        k, v = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+        dn, f32 = str(dtype).split(".")[-1], dtype == torch.float32
+        tol_name = "grad" if f32 else "grad_bf16"
+        q, do = randn((B, T, Hq, D), dtype), randn((B, T, Hq, D), dtype)
+        k, v = randn((B, S, Hkv, D), dtype), randn((B, S, Hkv, D), dtype)
         kw = dict(causal=causal, window=window)
         o, lse = FP._forward_kernel(q, k, v, causal, window, 0, True)
         got = FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
@@ -761,8 +879,11 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         same = all(torch.equal(a, b) for a, b in zip(got, got2))
         want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
         torch.cuda.synchronize()
-        checks = [compare(torch, g, w, "grad") for g, w in zip(got, want)]
-        ok = same and all(c[0] for c in checks)
+        checks = [compare(torch, g, w, tol_name) for g, w in zip(got, want)]
+        rel = [float((g.double() - w.double()).norm() / w.double().norm())
+               for g, w in zip(got, want)]
+        ok = same and all(c[0] for c in checks) and (
+            f32 or max(rel) <= GRAD_BF16_REL_L2)
         def kern():
             return FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
@@ -783,17 +904,22 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         del out
         pairs = flash_pairs(T, S, causal, window, 0)
         ops = 10 * D * B * Hq * pairs
-        nbytes = 4 * (4 * B * T * Hq * D + 4 * B * S * Hkv * D + B * Hq * T)
-        b_ms, b_by = bound(nbytes, ops, "float32")
+        esize = torch.finfo(dtype).bits // 8
+        nbytes = (esize * (4 * B * T * Hq * D + 4 * B * S * Hkv * D)
+                  + 4 * B * Hq * T)
+        b_ms, b_by = bound(nbytes, ops, dn)
         err = max(c[1] for c in checks)
         all_ok &= ok
-        log(f"flash_prefill_bwd float32 B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
+        log(f"flash_prefill_bwd {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
             f"D={D} causal={causal} window={window} (dK/dV over "
             f"{FP.bwd_split(B, Hkv, S, D, n_sm)} q-tile ranges): dq/dk/dv "
             f"max_abs_err "
             + "/".join(f"{c[1]:.3e}" for c in checks) + " (worst elements at "
             + "/".join(f"{c[2]:.3f}" for c in checks) + f" of their limits; "
-            f"{tol_text('grad')}), two calls bit-identical: {same} "
+            f"{tol_text(tol_name)}; relative L2 "
+            + "/".join(f"{x:.4f}" for x in rel)
+            + ("" if f32 else f", limit {GRAD_BF16_REL_L2:g}")
+            + f"), two calls bit-identical: {same} "
             f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
             f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} (autograd of the plain "
             f"forward, forward included) library_ms={lib_ms:.4f} (SDPA's "
@@ -1431,10 +1557,14 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
 
 
 # train parity: one training step, kernels on the card vs plain on the CPU;
-# arch, layers, length (recurrentgemma-2b: one RG-LRU, RG-LRU, local
-# attention cycle)
-TRAIN_PARITY = (("hubert-xlarge", 2, 256), ("llama3-8b", 2, 256),
-                ("rwkv6-3b", 2, 256), ("recurrentgemma-2b", 3, 256))
+# arch, layers, length, dtype (recurrentgemma-2b: one RG-LRU, RG-LRU, local
+# attention cycle); in bf16 the two archs whose attention is bf16
+TRAIN_PARITY = (("hubert-xlarge", 2, 256, "float32"),
+                ("llama3-8b", 2, 256, "float32"),
+                ("rwkv6-3b", 2, 256, "float32"),
+                ("recurrentgemma-2b", 3, 256, "float32"),
+                ("llama3-8b", 2, 256, "bfloat16"),
+                ("recurrentgemma-2b", 3, 256, "bfloat16"))
 # the forward and backward kernel of each block kind
 KIND_KERNELS = {"attn": ("flash_prefill", "flash_prefill_bwd"),
                 "local": ("flash_prefill", "flash_prefill_bwd"),
@@ -1460,25 +1590,43 @@ TRAIN_LOSS_RTOL = 1e-5
 # a tenth of the forward's PARITY_ATOL on logits near 1, through the
 # backward of two layers (the kernels' f32 limit is 2e-5 relative)
 TOL["train_grad"] = dict(atol=0.0, atol_rms=1e-3, rtol=1e-3)
+# bf16: the card (cuBLAS's and the kernels' bf16) and the CPU (the plain
+# versions' bf16) round activations and gradients at different places, as
+# the port and the JAX package do on the CPU; held at that comparison's
+# limits (tests/test_torch_train_bf16.py: loss 5e-4 relative, each
+# gradient leaf 0.07 relative L2, about three and two times the worst
+# seen there), and each parameter after AdamW within the f32 limit plus
+# one bf16 step (2^-7 of |p| at most), where the two sides' updates round
+# to neighbouring bf16 values
+TRAIN_BF16_LOSS_RTOL = 5e-4
+TRAIN_BF16_GRAD_REL_L2 = 0.07
 
 
-def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt):
+def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt, p_round=2.0 ** -22,
+                p_after=None):
     """Per element, how far one AdamW step from zero moments may move the
     two sides' parameters apart given their gradients: the step is
     lr * (u + wd * p) with u = g/(|g| + eps) for the clipped gradient g
     (bias corrections cancel at step 1), and |u1 - u2| <= 2 |g1 - g2| /
-    (|g1| + |g2| + eps); plus 1e-5 of lr and 2^-22 of |p| for f32 rounding
-    of the update and the parameter."""
+    (|g1| + |g2| + eps); plus 1e-5 of lr and ``p_round`` of |p| for the
+    rounding of the update and the parameter (f32: 2^-22; bf16
+    parameters: one bf16 step, at most 2^-7 of the larger of two
+    neighbouring bf16 values, so of the largest of |p| before and
+    ``p_after``, the two sides' |p| after: a zero-initialised scale is
+    nonzero after)."""
     a, b = g_gpu.double() * s_gpu, g_cpu.double() * s_cpu
     du = 2 * (a - b).abs() / (a.abs() + b.abs() + opt.eps)
-    return opt.lr * (du + 1e-5) + p_cpu.double().abs() * 2.0 ** -22
+    p = p_cpu.double().abs()
+    if p_after is not None:
+        p = p.maximum(p_after.double().abs())
+    return opt.lr * (du + 1e-5) + p * p_round
 
 
-def run_train_parity(torch, rng, seed, arch, layers, length):
-    """One ``train_step``-equivalent at full width, ``layers`` layers, f32,
-    batch 1 x ``length``: on the card (kernels) and on the CPU (plain
-    versions) from the same weights; the card's backward and AdamW update
-    under ``set_sync_debug_mode("error")``."""
+def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
+    """One ``train_step``-equivalent at full width, ``layers`` layers, in
+    ``dtype_name``, batch 1 x ``length``: on the card (kernels) and on the
+    CPU (plain versions) from the same weights; the card's backward and
+    AdamW update under ``set_sync_debug_mode("error")``."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1488,8 +1636,10 @@ def run_train_parity(torch, rng, seed, arch, layers, length):
     from repro_torch.training.train_loop import loss_and_grads, to_batch
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    dtype = getattr(torch, dtype_name)
+    f32 = dtype == torch.float32
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    p_gpu = init_params(cfg, gen, torch.float32, "cuda")
+    p_gpu = init_params(cfg, gen, dtype, "cuda")
     p_cpu = tree_unflatten(p_gpu, iter(
         t.to("cpu", copy=True) for t in tree_leaves(p_gpu)))
     if cfg.modality == "audio":
@@ -1507,7 +1657,7 @@ def run_train_parity(torch, rng, seed, arch, layers, length):
     leaves = tree_leaves(p_gpu)
     for x in leaves:
         x.requires_grad_(True)
-    loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, torch.float32, "cuda"))
+    loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, "cuda"))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1527,8 +1677,7 @@ def run_train_parity(torch, rng, seed, arch, layers, length):
 
     torch.exp(torch.zeros(64))      # (ROADMAP Queue 3: the CPU's first exp)
     t0 = time.perf_counter()
-    loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, torch.float32,
-                                                          "cpu"))
+    loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, "cpu"))
     g_cpu = tree_leaves(g_cpu)
     p_before = [x.detach().clone() for x in tree_leaves(p_cpu)]
     opt.update(g_cpu, opt.init(p_cpu), p_cpu)
@@ -1538,42 +1687,62 @@ def run_train_parity(torch, rng, seed, arch, layers, length):
         n = float(torch.sqrt(sum(g.double().square().sum() for g in gs)))
         return min(1.0, opt.grad_clip / (n + 1e-12)), n
 
-    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_cpu)
+    # the two sides are compared on the card, in the same f64 arithmetic:
+    # over these models' 0.1-1.5B parameters the CPU took minutes a run
+    g_ref = [g.to("cuda") for g in g_cpu]
+    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_ref)
     lg, lc = float(loss_gpu.detach()), float(loss_cpu)
-    ok = abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)
+    loss_rtol = TRAIN_LOSS_RTOL if f32 else TRAIN_BF16_LOSS_RTOL
+    p_round = 2.0 ** -22 if f32 else 2.0 ** -7
+    ok = abs(lg - lc) <= loss_rtol * abs(lc)
     g_share = p_share = 0.0
     for i, (gg, gc, pg, pc, p0) in enumerate(zip(
-            g_gpu, g_cpu, leaves, tree_leaves(p_cpu), p_before)):
-        gg = gg.cpu()
-        ok_g, _, sh = compare(torch, gg, gc, "train_grad")
+            g_gpu, g_ref, leaves, tree_leaves(p_cpu), p_before)):
+        pg, pc, p0 = pg.detach(), pc.detach().to("cuda"), p0.to("cuda")
+        if f32:
+            ok_g, _, sh = compare(torch, gg, gc, "train_grad")
+        else:   # each leaf's relative L2 difference, as a share of its limit
+            norm = float(gc.double().norm())
+            rel = (float((gg.double() - gc.double()).norm()) / norm if norm
+                   else float(gg.double().norm()))
+            sh = rel / TRAIN_BF16_GRAD_REL_L2
+            ok_g = sh <= 1.0 and bool(torch.isfinite(gg).all())
         g_share = max(g_share, sh)
-        diff = (pg.detach().cpu().double() - pc.detach().double()).abs()
-        lim = adamw_limit(p0, gg, gc, s_gpu, s_cpu, opt)
+        diff = (pg.double() - pc.double()).abs()
+        lim = adamw_limit(p0, gg, gc, s_gpu, s_cpu, opt, p_round,
+                          None if f32 else torch.maximum(pc.abs(), pg.abs()))
         sh_p = float((diff / lim).max()) if diff.numel() else 0.0
         p_share = max(p_share, sh_p)
         if not ok_g or sh_p > 1.0:
-            log(f"train parity {arch}: leaf {i} {tuple(gc.shape)} gradient "
-                f"at {sh:.3f} of its limit, parameter at {sh_p:.3f}")
+            log(f"train parity {arch} {dtype_name}: leaf {i} "
+                f"{tuple(gc.shape)} gradient at {sh:.3f} of its limit, "
+                f"parameter at {sh_p:.3f}")
             ok = False
-    log(f"train parity {arch} full width, {layers} layers, f32, batch 1 x "
-        f"{length}: "
-        f"loss card {lg:.6f} cpu {lc:.6f} (rtol {TRAIN_LOSS_RTOL}); "
-        f"gradients: {len(g_cpu)} leaves, worst element at {g_share:.3f} of "
-        f"its limit ({tol_text('train_grad')}), global norm card {n_gpu:.6f}"
-        f" cpu {n_cpu:.6f}; parameters after AdamW: worst element at "
-        f"{p_share:.3f} of its limit (lr * (2|g1 - g2| / (|g1| + |g2| + "
-        f"eps) + 1e-5) + 2^-22 |p|); backward and update under "
+    g_limit = (f"worst element at {g_share:.3f} of its limit "
+               f"({tol_text('train_grad')})" if f32 else
+               f"worst leaf at {g_share:.3f} of its limit (relative L2 "
+               f"{TRAIN_BF16_GRAD_REL_L2:g})")
+    log(f"train parity {arch} full width, {layers} layers, {dtype_name}, "
+        f"batch 1 x {length}: "
+        f"loss card {lg:.6f} cpu {lc:.6f} (rtol {loss_rtol}); "
+        f"gradients: {len(g_cpu)} leaves, {g_limit}, global norm card "
+        f"{n_gpu:.6f} cpu {n_cpu:.6f}; parameters after AdamW: worst element "
+        f"at {p_share:.3f} of its limit (lr * (2|g1 - g2| / (|g1| + |g2| + "
+        f"eps) + 1e-5) + {'2^-22' if f32 else '2^-7'} |p|); backward and "
+        f"update under "
         f"set_sync_debug_mode('error'): no host sync; launches "
         f"{json.dumps(launches)}; card {t_gpu:.2f} s, cpu {t_cpu:.2f} s "
         "(host clock)")
     if not ok or not np.isfinite(lg):
-        fail(f"train parity {arch}: card and CPU steps differ (lines above)")
+        fail(f"train parity {arch} {dtype_name}: card and CPU steps differ "
+             "(lines above)")
     want = step_launches(cfg)
     if launches != want:
-        fail(f"train parity {arch}: launches {launches}, expected {want} "
+        fail(f"train parity {arch} {dtype_name}: launches {launches}, "
+             f"expected {want} "
              "(per layer the forward kernel twice, for the forward and its "
              "recomputation, and the backward kernel once)")
-    del p_gpu, g_gpu, leaves, state
+    del p_gpu, g_gpu, g_ref, leaves, state
     torch.cuda.empty_cache()
 
 
@@ -1617,12 +1786,18 @@ PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
                 "qwen2-vl-2b": ("flash_prefill", "decode_attention"),
                 PHI: ("flash_prefill", "decode_attention"),
                 SCOUT: ("flash_prefill", "decode_attention")}
-# depth of the served MoE models: 2 instances of the whole models do not fit
-# one 80 GB card (83.7 GB and 203.5 GB of bf16 weights each), so they serve
-# at their published width with 8 of 32 and 4 of 48 layers (21.3 and 20.8 GB
-# an instance; each model's one-block pattern is kept whole); the other
-# paths serve at full depth
-SERVE_LAYERS = {PHI: 8, SCOUT: 4}
+# depth of the served models.  2 instances of the whole MoE models do not
+# fit one 80 GB card (83.7 GB and 203.5 GB of bf16 weights each), so they
+# serve at their published width with 8 of 32 and 4 of 48 layers (21.3 and
+# 20.8 GB an instance).  The dense models serve at their published width
+# with 8 layers (recurrentgemma-2b 9: three whole cycles of its 3-block
+# pattern), so that the whole run stays well inside its time limit (with
+# the bf16 training runs it took 1025.5 s of 1200 at full depth): a served
+# step launches each kernel once a layer, and full-depth llama3-8b and
+# qwen3-4b still serve in the calibrate phase and the API check
+SERVE_LAYERS = {PHI: 8, SCOUT: 4, "llama3-8b": 8, "rwkv6-3b": 8,
+                "recurrentgemma-2b": 9, "qwen3-4b": 8, "chatglm3-6b": 8,
+                "qwen2-vl-2b": 8}
 
 
 def kernel_wrappers():
@@ -1653,8 +1828,9 @@ def run_serve(torch, rng, seed, arch):
     cfg = get_config(arch)
     reduced = ""
     if arch in SERVE_LAYERS:
-        reduced = (f" (reduced from {cfg.num_layers}: 2 instances of the "
-                   "whole model do not fit the card)")
+        why = ("2 instances of the whole model do not fit the card"
+               if arch in (PHI, SCOUT) else "the run's time limit")
+        reduced = f" (reduced from {cfg.num_layers}: {why})"
         cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
     econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=2048,
                                     dtype=torch.bfloat16, eos_token=-1,
@@ -1967,17 +2143,33 @@ def run_experiments(seed, smi):
 # phase 7: train (the training path)
 # --------------------------------------------------------------------- #
 # run name -> (arch, layers or None for the full depth, batch, length,
-# steps); each run's kernels are TRAIN_KERNELS'
-# (recurrentgemma-2b at 4096 positions, so that its 2048 window bites)
-TRAIN_RUNS = {TRAIN_HUBERT: ("hubert-xlarge", None, 8, 1024, 5),
-              TRAIN_LLAMA: ("llama3-8b", 4, 4, 1024, 3),
-              TRAIN_RWKV: ("rwkv6-3b", None, 4, 1024, 3),
-              TRAIN_RG: ("recurrentgemma-2b", None, 1, 4096, 3)}
+# steps, dtype); each run's kernels are TRAIN_KERNELS'
+# (recurrentgemma-2b at 4096 positions, so that its 2048 window bites).
+# Each bf16 run is its f32 twin's shape, so that step time and memory
+# compare directly; hubert-xlarge's bf16 run keeps bf16 weights but
+# computes in f32 from its f32 frames on, as the reference promotes them
+TRAIN_RUNS = {TRAIN_HUBERT: ("hubert-xlarge", None, 8, 1024, 5, "float32"),
+              TRAIN_LLAMA: ("llama3-8b", 4, 4, 1024, 3, "float32"),
+              TRAIN_RWKV: ("rwkv6-3b", None, 4, 1024, 3, "float32"),
+              TRAIN_RG: ("recurrentgemma-2b", None, 1, 4096, 3, "float32")}
+TRAIN_RUNS.update({f"{name} bf16": run[:-1] + ("bfloat16",)
+                   for name, run in TRAIN_RUNS.items()})
 TRAIN_KERNELS = {TRAIN_HUBERT: ("flash_prefill", "flash_prefill_bwd"),
                  TRAIN_LLAMA: ("flash_prefill", "flash_prefill_bwd"),
                  TRAIN_RWKV: ("rwkv6_scan", "rwkv6_scan_bwd"),
                  TRAIN_RG: ("rglru_scan", "rglru_scan_bwd", "flash_prefill",
                             "flash_prefill_bwd")}
+TRAIN_KERNELS.update({f"{name} bf16": kernels
+                      for name, kernels in TRAIN_KERNELS.items()})
+# a bf16 run's first loss against its f32 twin's: both draw one set of
+# initial weights from the seed (the bf16 run's rounded to bf16), and bf16
+# rounds every activation where f32 keeps 24 bits, roundings that compound
+# with depth.  On the CPU's 2-layer smoke configs the two losses differed
+# by at most 2.1e-4 of themselves; on an H100 by 1.6e-5 to 1.2e-3 for
+# hubert-xlarge (whose compute stays f32), llama3-8b and rwkv6-3b, and by
+# 1.29e-2 for recurrentgemma-2b (26 layers, 4096 tokens); the limit is
+# about twice that
+TRAIN_BF16_FIRST_LOSS_RTOL = 3e-2
 # AdamW's lr in the training runs.  ``train`` (like the reference's) has no
 # warmup: at 3e-4 and 1e-3 the first update lowers the loss and the next
 # ones overshoot, until hubert-xlarge (48 layers) and llama3-8b end above
@@ -2055,7 +2247,10 @@ def hubert_batches(rng, cfg, B, T, steps):
     return out
 
 
-def run_train(torch, rng, seed, name, smi):
+def run_train(torch, rng, seed, name, smi, first_losses):
+    """One ``train`` run of ``TRAIN_RUNS``; ``first_losses`` maps each
+    arch to its f32 run's first loss (this run's is added where it is f32,
+    and a bf16 run's is held to it)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2064,7 +2259,7 @@ def run_train(torch, rng, seed, name, smi):
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_loop import train
 
-    arch, layers, B, T, steps = TRAIN_RUNS[name]
+    arch, layers, B, T, steps, dtype_name = TRAIN_RUNS[name]
     cfg = get_config(arch)
     reduced = ""
     if layers:
@@ -2083,8 +2278,9 @@ def run_train(torch, rng, seed, name, smi):
     t0 = time.perf_counter()
     opt = AdamW(lr=TRAIN_LR)
     _, losses = train(cfg, clock, steps=steps, optimizer=opt, seed=seed,
-                      log_every=1, log_fn=lambda m: log(f"train {arch}: {m}"),
-                      device="cuda")
+                      dtype=getattr(torch, dtype_name), log_every=1,
+                      log_fn=lambda m: log(f"train {arch} {dtype_name}: "
+                                           f"{m}"), device="cuda")
     wall = time.perf_counter() - t0
     secs, launches, kernels = clock.finish()
     busy = sum(t for _, t in kernels)
@@ -2103,7 +2299,7 @@ def run_train(torch, rng, seed, name, smi):
     share, share_last = busy / 1e3 / step_s, busy / 1e3 / secs[-1]
     per_step = {n: sorted({c[n] for c in launches})
                 for n in TRAIN_KERNELS[name]}
-    log(f"train {arch} f32, {cfg.num_layers} layers{reduced}, "
+    log(f"train {arch} {dtype_name}, {cfg.num_layers} layers{reduced}, "
         f"{cfg.param_count() / 1e9:.3f}B parameters, batch {B} x {T} "
         f"{unit}, {steps} steps, AdamW(lr={opt.lr:g}) [{smi}]: losses "
         f"{[round(x, 5) for x in losses]}; step s "
@@ -2114,13 +2310,28 @@ def run_train(torch, rng, seed, name, smi):
         f"busy {busy:.1f} ms ({100 * share:.0f}% of the median step, "
         f"{100 * share_last:.0f}% of the profiled one); launches per step "
         f"{json.dumps(per_step)}; wall {wall:.1f} s")
-    log(f"train {arch} profiled step, device ms by kernel: {top}; the "
-        f"port's kernels: {own}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train {arch}: losses {losses} not finite and falling")
+    log(f"train {arch} {dtype_name} profiled step, device ms by kernel: "
+        f"{top}; the port's kernels: {own}")
+    if not all(np.isfinite(losses)):
+        fail(f"{name}: losses {losses} not finite")
+    if dtype_name == "float32":
+        if not losses[-1] < losses[0]:
+            fail(f"{name}: losses {losses} not falling")
+        first_losses[arch] = losses[0]
+    else:
+        twin = first_losses.get(arch)
+        falls = losses[-1] < losses[0]
+        log(f"{name}: first loss {losses[0]:.5f} against the f32 "
+            f"twin's {twin} (rtol {TRAIN_BF16_FIRST_LOSS_RTOL:g}); the loss "
+            f"{'falls' if falls else 'does not fall'} from the first step "
+            f"to the last")
+        if twin is None or abs(losses[0] - twin) > (
+                TRAIN_BF16_FIRST_LOSS_RTOL * abs(twin)):
+            fail(f"{name}: first loss {losses[0]} against the f32 "
+                 f"twin's {twin}")
     want = {n: [c] for n, c in step_launches(cfg).items()}
     if per_step != want:
-        fail(f"train {arch}: launches per step {per_step}, expected {want}")
+        fail(f"{name}: launches per step {per_step}, expected {want}")
     return {n: sum(c[n] for c in launches) for n in TRAIN_KERNELS[name]}
 
 
@@ -2247,15 +2458,24 @@ def main() -> None:
 
     results = {}     # kernel -> served path -> numbers at its main shape
     launches = {}    # kernel -> served path -> launches in its serve
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     if "kernels" in phases:
         run_kernels(torch, np.random.default_rng(args.seed), results)
+        phase_done("kernels")
     if "parity" in phases:
         for arch, window, n_patches in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
                        arch, window, n_patches)
-        for arch, layers, length in TRAIN_PARITY:
+        for arch, layers, length, dtype_name in TRAIN_PARITY:
             run_train_parity(torch, np.random.default_rng(args.seed),
-                             args.seed, arch, layers, length)
+                             args.seed, arch, layers, length, dtype_name)
+        phase_done("parity")
     if "serve" in phases:
         for arch in PATH_KERNELS:
             counts = run_serve(torch, np.random.default_rng(args.seed),
@@ -2263,18 +2483,23 @@ def main() -> None:
             for name, n in counts.items():
                 launches.setdefault(name, {})[arch] = n
         run_api(torch, args.seed)
+        phase_done("serve")
     if "calibrate" in phases:
         for name, n in run_calibrate(torch, args.seed, smi).items():
             launches.setdefault(name, {})[CALIBRATE_PATH] = n
+        phase_done("calibrate")
     if "experiments" in phases:
         run_experiments(args.seed, smi)
+        phase_done("experiments")
     if "train" in phases:
+        first_losses = {}
         for name in TRAIN_RUNS:
             counts = run_train(torch, np.random.default_rng(args.seed),
-                               args.seed, name, smi)
+                               args.seed, name, smi, first_losses)
             for kname, n in counts.items():
                 launches.setdefault(kname, {})[name] = n
         run_train_cli(torch)
+        phase_done("train")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [

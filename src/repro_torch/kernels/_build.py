@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_prefill_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _F, _I, _P),
-    "flash_prefill_bwd_launch": (*(_P,) * 11, *(_I,) * 9, _F, _P),
+    "flash_prefill_bwd_launch": (*(_P,) * 11, *(_I,) * 9, _F, _I, _P),
     "decode_attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _I, _P),
     "rwkv6_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

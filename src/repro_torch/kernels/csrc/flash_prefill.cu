@@ -40,7 +40,8 @@
 // generic-proxy copies to wgmma's async proxy).  Each tile's two GEMMs are
 // issued and waited for in turn; overlapping one tile's softmax with the
 // next tile's Q K^T (two warpgroups in ping-pong, TMA loads) is the next
-// step.
+// step.  On request it writes each row's log-sum-exp, as the f32 kernel
+// does (the bf16 backward reads it).
 //
 // f32 (`f32::`, no served path; the models' f32 parity runs and training,
 // head_dim 64, 80, 128, 256): both products on the tensor cores as
@@ -465,13 +466,17 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[
   if constexpr (D == 256) wgmma_m64n256k16_rs(o, a, desc_v);
 }
 
+// lse (nullable): as the f32 kernel's, the f32 (B, Hq, T) natural-log
+// log-sum-exp m * scale + log l of each row's scaled scores (the softmax
+// runs in base 2; m and l are in registers at the end), -inf for a row
+// with no valid key.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ out, int B,
-                        int T_len, int S, int Hq, int Hkv, int G, int block_q,
-                        int n_qt, int causal, int window, int q_offset,
-                        float scale_log2) {
+                        const bf16* __restrict__ v, bf16* __restrict__ out,
+                        float* __restrict__ lse, int B, int T_len, int S, int Hq, int Hkv,
+                        int G, int block_q, int n_qt, int causal, int window, int q_offset,
+                        float scale, float scale_log2) {
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KS = D / 16;     // k-steps of Q.K^T
   constexpr int ND = D / 8;      // 8-wide column blocks of the output
@@ -630,6 +635,15 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
     inv[i] = l_r[i] > 0.f ? 1.f / l_r[i] : 0.f;
   }
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < rows)
+        lse[((size_t)b * Hq + h * G + r % G) * T_len + t0 + r / G] =
+            l_r[i] > 0.f ? m_r[i] * scale + logf(l_r[i]) : -INFINITY;
+    }
+  }
   bf16* Os = reinterpret_cast<bf16*>(Ks);
   bf16* stage_row = Os + r0 * LD + kc;
 #pragma unroll
@@ -650,9 +664,9 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int T_len,
-           int S, int Hq, int Hkv, int causal, int window, int q_offset, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+           int T_len, int S, int Hq, int Hkv, int causal, int window, int q_offset,
+           float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int block_q = kRows / G;
   const int n_qt = (T_len + block_q - 1) / block_q;
@@ -664,8 +678,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T_
   if (err != cudaSuccess) return (int)err;
   flash_prefill_tc_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), B, T_len, S, Hq, Hkv, G,
-      block_q, n_qt, causal, window, q_offset, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, B, T_len, S, Hq, Hkv, G,
+      block_q, n_qt, causal, window, q_offset, scale, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -675,8 +689,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T_
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Tensors are contiguous in the JAX layouts; D is 64, 80 (f32 only), 128 or
-// 256; Hq/Hkv <= 64.  lse: null, or (f32 only) the (B, Hq, T) f32 row
-// log-sum-exp written beside the output.  Returns the cudaError_t of the
+// 256; Hq/Hkv <= 64.  lse: null, or the (B, Hq, T) f32 row log-sum-exp
+// written beside the output (either dtype).  Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
@@ -697,12 +711,11 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return f32::launch<128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 256)
     return f32::launch<256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
-  if (l != nullptr) return (int)cudaErrorInvalidValue;  // bf16 writes no lse
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 1 && D == 256)
-    return tc::launch<256>(q, k, v, out, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }

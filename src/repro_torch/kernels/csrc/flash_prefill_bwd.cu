@@ -1,4 +1,5 @@
-// flash_prefill_bwd: the gradient of flash_prefill in f32, for Hopper.
+// flash_prefill_bwd: the gradient of flash_prefill in f32 and bf16, for
+// Hopper.
 //
 // No TPU kernel corresponds: the JAX package has no custom_vjp and trains
 // by differentiating `blockwise_attention` (src/repro/models/layers.py),
@@ -6,13 +7,15 @@
 // flash_prefill's kernel, so its gradient is a kernel too.
 //
 // Function: given q (B,T,Hq,D), k, v (B,S,Hkv,D), the forward's output o,
-// its gradient dO and the forward's row log-sum-exp lse (B,Hq,T, -inf for a
-// row with no valid key), compute dQ, dK, dV of softmax(scale*Q K^T + mask) V
-// with causal / sliding-window masks and keys masked at S (q_offset 0: a
-// training forward never sets it).  P is recomputed tile by tile as
+// its gradient dO and the forward's row log-sum-exp lse (B,Hq,T, f32, -inf
+// for a row with no valid key), compute dQ, dK, dV of softmax(scale*Q K^T +
+// mask) V with causal / sliding-window masks and keys masked at S (q_offset
+// 0: a training forward never sets it).  P is recomputed tile by tile as
 // exp(scale*s - lse); the (T, S) matrix is never stored:
 //   delta = rowsum(dO * O),  dP = dO V^T,  dS = P * (dP - delta),
 //   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
+// q, k, v, o, dO and the gradients are all f32 or all bf16; lse, delta and
+// every sum are f32.
 //
 // Layout.  For kv head h the G = Hq/Hkv query heads are flattened into
 // T*G rows, row r = t*G + g, so a tile holds any G and K/V are never
@@ -38,44 +41,60 @@
 // the halves of S and dP are swapped through shared memory and added, the
 // same bits in both warps.
 // Only the tiles the causal and window masks leave open are visited; the
-// element masks apply on the tiles that straddle them.
+// element masks apply on the tiles that straddle them.  Both dtypes share
+// this walk, its tiles, masks and splits, and the softmax's recomputation;
+// they differ in the products and in how tiles are held (below).
 //
 // A full card.  Where launch 2 would have fewer than two waves of blocks
 // (n_kt * Hkv * B < 2 * SMs: recurrentgemma-2b's 64 key tiles at T 4096,
 // Hkv 1, B 1), the wrapper splits each key tile's q tiles into n_split =
 // min(4, ceil(2 * SMs / blocks)) contiguous ranges (flash_prefill.py,
-// `bwd_split`); each range's block writes its partial dK and dV (unscaled)
-// into scratch (2, n_split, B, S, Hkv, D), and a third launch sums the
-// partials in range order and scales dK.
+// `bwd_split`); each range's block writes its partial dK and dV (unscaled,
+// f32) into scratch (2, n_split, B, S, Hkv, D), and a third launch sums the
+// partials in range order, scales dK and writes both in the inputs' dtype.
 //
 // What bounds it on the H100: operations.  The function needs about 10 D
 // operations per open (query, key) pair and head (4 D forward recomputed
 // and 6 D of products); this design does 14 D (S and dP are computed in
-// both launches).  All products run on the tensor cores as mma.sync
-// m16n8k8 TF32 in the 3xTF32 split (common.cuh: three TF32 products each,
-// ~22 bits of each operand kept, so that training holds the f32 reference;
-// one TF32 pass misses the gradient limit 28-53 times:
-// tests/test_torch_attention_design.py).  Operands are split into big and
-// small parts as the fragments are read from shared memory (a split tile
-// would not fit at D 256).  Every tile's rows are padded to D + 4 floats,
-// so that the lanes of a fragment load, read along rows (Q, dO, K, V as A
-// or as K^T-style B) or across them (K in dS K, dO and Q in P^T dO and
-// dS^T Q, the key or row order permuted to the accumulator's so that P and
-// dS pass from accumulator to A fragment in registers), hit 32 banks.
+// both launches).
+//
+// f32: all products run on the tensor cores as mma.sync m16n8k8 TF32 in
+// the 3xTF32 split (common.cuh: three TF32 products each, ~22 bits of each
+// operand kept, so that training holds the f32 reference; one TF32 pass
+// misses the gradient limit 28-53 times: tests/test_torch_attention_
+// design.py).  Operands are split into big and small parts as the
+// fragments are read from shared memory (a split tile would not fit at D
+// 256).  Every tile's rows are padded to D + 4 floats, so that the lanes of
+// a fragment load, read along rows (Q, dO, K, V as A or as K^T-style B) or
+// across them (K in dS K, dO and Q in P^T dO and dS^T Q, the key or row
+// order permuted to the accumulator's so that P and dS pass from
+// accumulator to A fragment in registers), hit 32 banks.
+//
+// bf16: all products run as mma.sync m16n8k16 bf16 with f32 sums, Q, K, V
+// and dO bf16 in shared memory as they come from memory; P and dS are
+// rounded to bf16 only as the A operands of dV = P^T dO, dK = dS^T Q and
+// dQ = dS K (the m16n8k16 accumulator's layout is its A fragment's, two
+// 8-wide column tiles a k-step, so they pass in registers unpermuted).
+// Rows are padded to D + 8 (16 bytes): fragments read along rows are 32-bit
+// loads, 4 words apart from row to row; fragments read across rows are
+// ldmatrix.trans of 8 x 8 blocks whose 8 row addresses fall on 8 distinct
+// 4-bank groups.  Tiles are the f32 kernel's (half the shared memory).
 //
 // The tensor cores' sums truncate rather than round.  Chained in one
 // accumulator over a long loop, that bias grows with the loop: over the
 // 768 mma's of dQ's keys at recurrentgemma-2b's shape, or the 96 of S and
-// dP at D 256, it took dQ past its limit.  So each tile's dS K, P^T dO and
-// dS^T Q is summed in a fresh accumulator and added in f32 (round to
-// nearest), and the small cross terms of S and dP are summed apart from
-// big*big (mma3_lo).
+// dP at D 256, it took the f32 dQ past its limit.  So each tile's dS K, P^T
+// dO and dS^T Q is summed in a fresh accumulator and added in f32 (round to
+// nearest), in both dtypes, and the small cross terms of f32's S and dP are
+// summed apart from big*big (mma3_lo).
 //
 // ptxas (-Xptxas -v, sm_90a), registers and dynamic shared memory, no
-// spills, 1 block of 8 warps per SM: dq<64> 164, 105,472 B; dq<80> 172,
-// 130,048 B; dq<128> 214, 203,776 B; dq<256> 195, 216,576 B; dkdv<64>
-// 219, 104,960 B; dkdv<80> 249, 129,536 B; dkdv<128> 255, 169,216 B;
-// dkdv<256> 255, 216,320 B; sum_parts 42, none.
+// spills, 1 block of 8 warps per SM: dq<f32,64> 164, 105,472 B;
+// dq<f32,80> 172, 130,048 B; dq<f32,128> 214, 203,776 B; dq<f32,256> 195,
+// 216,576 B; dkdv<f32,64> 219, 104,960 B; dkdv<f32,80> 249, 129,536 B;
+// dkdv<f32,128> 255, 169,216 B; dkdv<f32,256> 255, 216,320 B; sum_parts
+// 42, none.  The bf16 instantiations' lines are in the build log that
+// chip_smoke.py prints.
 #include <math.h>
 #include <stdint.h>
 
@@ -85,19 +104,21 @@ namespace repro_torch {
 namespace {
 namespace bwd {
 
+using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename E>
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* dout;
+  const E* q;
+  const E* k;
+  const E* v;
+  const E* o;
+  const E* dout;
   const float* lse;
   float* delta;
-  float* dq;
-  float* dk;
-  float* dv;
+  E* dq;
+  E* dk;
+  E* dv;
   float* part;  // (2, n_split, B, S, Hkv, D) partial dK, dV; null at n_split 1
   int B, T, S, Hq, Hkv, G, causal, window, n_split;
   float scale;
@@ -126,49 +147,73 @@ struct KvTile {
   static constexpr int kBQ = D > 80 ? 16 : 32;
 };
 
+// The padded row of every tile (elements), and each lane's offset in a
+// tile for a fragment read along rows (row g, column q: f32; columns 2q,
+// 2q + 1: bf16) or across them (f32: rows 2q, 2q + 1, column g, read one
+// element at a time; bf16: the row address ldmatrix wants from this lane,
+// row lane % 16 of a 16-row k-step, column block lane / 16).
+template <typename E, int D>
+struct Cols;
 template <int D>
-struct Cols {
-  static constexpr int LD = D + 4;  // padded row of every tile (floats)
+struct Cols<float, D> {
+  static constexpr int LD = D + 4;
   static_assert(D % 8 == 0 && (LD % 32 == 4 || LD % 32 == 20),
                 "flash_prefill_bwd: unsupported head_dim");
+  static __device__ __forceinline__ int along(int lane) { return (lane >> 2) * LD + (lane & 3); }
+  static __device__ __forceinline__ int across(int lane) {
+    return 2 * (lane & 3) * LD + (lane >> 2);
+  }
+};
+template <int D>
+struct Cols<bf16, D> {
+  static constexpr int LD = D + 8;
+  static_assert(D % 16 == 0 && LD / 2 % 32 == 4, "flash_prefill_bwd bf16: unsupported head_dim");
+  static __device__ __forceinline__ int along(int lane) {
+    return (lane >> 2) * LD + 2 * (lane & 3);
+  }
+  static __device__ __forceinline__ int across(int lane) {
+    return (lane & 15) * LD + 8 * (lane >> 4);
+  }
 };
 
 // element offset of flattened row r (position r / G, head r % G of kv
 // head h) in a (B, T, Hq, D) tensor, and its index in a (B, Hq, T) one
-__device__ __forceinline__ size_t row_offset(const Args& a, int b, int h, int r, int D) {
+template <typename E>
+__device__ __forceinline__ size_t row_offset(const Args<E>& a, int b, int h, int r, int D) {
   const int t = r / a.G, g = r % a.G;
   return ((size_t)(b * a.T + t) * a.Hq + h * a.G + g) * D;
 }
-__device__ __forceinline__ size_t stat_index(const Args& a, int b, int h, int r) {
+template <typename E>
+__device__ __forceinline__ size_t stat_index(const Args<E>& a, int b, int h, int r) {
   const int t = r / a.G, g = r % a.G;
   return ((size_t)b * a.Hq + h * a.G + g) * a.T + t;
 }
 
 // rows r0 .. r0+R-1 of a (B, T, Hq, D) tensor into a padded tile, zeros
 // past T*G (cp.async; the caller commits)
-template <int D, int R, int kThreads>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          const Args& a, int b, int h, int r0) {
-  constexpr int LD = Cols<D>::LD, CH = D / 4;
+template <typename E, int D, int R, int kThreads>
+__device__ __forceinline__ void load_rows(E* dst, const E* __restrict__ src, const Args<E>& a,
+                                          int b, int h, int r0) {
+  constexpr int LD = Cols<E, D>::LD, V = vec_width<E>(), CH = D / V;
   const int TG = a.T * a.G;
   for (int c = threadIdx.x; c < R * CH; c += kThreads) {
     const int i = c / CH, cc = c % CH;
     const bool ok = r0 + i < TG;
-    cp_async16(dst + i * LD + cc * 4, ok ? src + row_offset(a, b, h, r0 + i, D) + cc * 4 : src,
+    cp_async16(dst + i * LD + cc * V, ok ? src + row_offset(a, b, h, r0 + i, D) + cc * V : src,
                ok);
   }
 }
 
 // keys k0 .. k0+N-1 of kv head h of a (B, S, Hkv, D) tensor, zeros past S
-template <int D, int N, int kThreads>
-__device__ __forceinline__ void load_keys(float* dst, const float* __restrict__ src,
-                                          const Args& a, int b, int h, int k0) {
-  constexpr int LD = Cols<D>::LD, CH = D / 4;
+template <typename E, int D, int N, int kThreads>
+__device__ __forceinline__ void load_keys(E* dst, const E* __restrict__ src, const Args<E>& a,
+                                          int b, int h, int k0) {
+  constexpr int LD = Cols<E, D>::LD, V = vec_width<E>(), CH = D / V;
   for (int c = threadIdx.x; c < N * CH; c += kThreads) {
     const int j = c / CH, cc = c % CH;
     const bool ok = k0 + j < a.S;
-    cp_async16(dst + j * LD + cc * 4,
-               ok ? src + ((size_t)(b * a.S + k0 + j) * a.Hkv + h) * D + cc * 4 : src, ok);
+    cp_async16(dst + j * LD + cc * V,
+               ok ? src + ((size_t)(b * a.S + k0 + j) * a.Hkv + h) * D + cc * V : src, ok);
   }
 }
 
@@ -197,6 +242,46 @@ __device__ __forceinline__ void acc_times_rows(float (&acc)[N][4], const float (
 #pragma unroll
       for (int n = 0; n < NC; ++n) bf[n] = frag_b(bk[8 * n], bk[LD + 8 * n]);
       mma3(t, a, bf);
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += t[n][e];
+  }
+}
+
+// The same in bf16: A = s rounded to bf16, two 8-wide accumulator tiles a
+// 16-deep k-step (s[2kk], s[2kk + 1] are the A fragment's columns 2q, 2q +
+// 1 and 2q + 8, 2q + 9 as they stand); B's rows 16kk .. 16kk + 15 read by
+// ldmatrix.trans from `b`, this lane's row address (Cols::across)
+// included, two column tiles a load.
+template <int K, int N, int LD>
+__device__ __forceinline__ void acc_times_rows(float (&acc)[N][4], const float (&s)[K][4],
+                                               const bf16* b) {
+  static_assert(K % 2 == 0 && N % 4 == 0, "flash_prefill_bwd bf16: tile shape");
+  constexpr int NC = 4;
+  uint32_t pa[K / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < K / 2; ++kk) {
+    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += NC) {
+    float t[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K / 2; ++kk) {
+#pragma unroll
+      for (int n = 0; n < NC; n += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, b + 16 * kk * LD + 8 * (n0 + n));
+        mma_bf16_16816(t[n], pa[kk], r[0], r[1]);
+        mma_bf16_16816(t[n + 1], pa[kk], r[2], r[3]);
+      }
     }
 #pragma unroll
     for (int n = 0; n < NC; ++n)
@@ -245,6 +330,36 @@ __device__ __forceinline__ void two_products(float (&s)[N][4], float (&dp)[N][4]
     }
 }
 
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The same in bf16 (K still counts 8-column steps): K / 2 k-steps of 16,
+// fragments read along rows as 32-bit pairs, f32 sums.
+template <int LD, int K, int N>
+__device__ __forceinline__ void two_products(float (&s)[N][4], float (&dp)[N][4], const bf16* a,
+                                             const bf16* a2, const bf16* b, const bf16* b2) {
+  static_assert(K % 2 == 0, "flash_prefill_bwd bf16: 16-column k-steps");
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < K / 2; ++kk) {
+    const bf16* x = a + 16 * kk;
+    const bf16* y = a2 + 16 * kk;
+    const uint32_t fa[4] = {ld32(x), ld32(x + 8 * LD), ld32(x + 8), ld32(x + 8 * LD + 8)};
+    const uint32_t fa2[4] = {ld32(y), ld32(y + 8 * LD), ld32(y + 8), ld32(y + 8 * LD + 8)};
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bf16* u = b + 8 * j * LD + 16 * kk;
+      const bf16* w = b2 + 8 * j * LD + 16 * kk;
+      mma_bf16_16816(s[j], fa, ld32(u), ld32(u + 8));
+      mma_bf16_16816(dp[j], fa2, ld32(w), ld32(w + 8));
+    }
+  }
+}
+
 // Where two warps (w and w ^ 4) each summed s and dp over half of D: add
 // the other warp's halves through shared memory xs (2 N float4 a lane and
 // warp); x + y == y + x, so both warps hold the same bits after.  Contains
@@ -268,29 +383,39 @@ __device__ __forceinline__ void add_other_half(float (&s)[N][4], float (&dp)[N][
   }
 }
 
+// two adjacent outputs of a lane
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+
 // floats of add_other_half's exchange for N column tiles, or none
 template <int D, int N>
 constexpr int exchange_floats() { return Split<D>::DS > 1 ? 8 * 2 * N * 32 * 4 : 0; }
 
-template <int D>
+template <typename E, int D>
 constexpr size_t dq_smem_bytes() {
   using Tl = DqTile<D>;
-  return ((size_t)(2 * Tl::kRows + 4 * Tl::kBK) * Cols<D>::LD + 2 * Tl::kRows +
-          exchange_floats<D, Tl::kBK / 8>()) * sizeof(float);
+  return (size_t)(2 * Tl::kRows + 4 * Tl::kBK) * Cols<E, D>::LD * sizeof(E) +
+         (size_t)(2 * Tl::kRows + exchange_floats<D, Tl::kBK / 8>()) * sizeof(float);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
+template <typename E, int D>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args<E> a, int n_qt) {
   using Tl = DqTile<D>;
+  using C = Cols<E, D>;
   constexpr int kRows = Tl::kRows, BK = Tl::kBK, DS = Split<D>::DS;
-  constexpr int LD = Cols<D>::LD, NT = BK / 8, DW = D / DS, NW = DW / 8;
+  constexpr int LD = C::LD, NT = BK / 8, DW = D / DS, NW = DW / 8;
   constexpr int TPR = kThreads / kRows;  // threads a row in the delta pass
+  constexpr int V = vec_width<E>();
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kRows * LD;
-  float* Ks = dOs + kRows * LD;     // [2] stages
-  float* Vs = Ks + 2 * BK * LD;     // [2] stages
-  float* lse_s = Vs + 2 * BK * LD;  // lse * log2(e)
+  E* Qs = reinterpret_cast<E*>(smem4);
+  E* dOs = Qs + kRows * LD;
+  E* Ks = dOs + kRows * LD;     // [2] stages
+  E* Vs = Ks + 2 * BK * LD;     // [2] stages
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // lse * log2(e)
   float* delta_s = lse_s + kRows;
   float4* xs = reinterpret_cast<float4*>(delta_s + kRows);  // add_other_half
 
@@ -310,12 +435,12 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
   const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / BK * BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  load_rows<D, kRows, kThreads>(Qs, a.q, a, b, h, rb);
-  load_rows<D, kRows, kThreads>(dOs, a.dout, a, b, h, rb);
+  load_rows<E, D, kRows, kThreads>(Qs, a.q, a, b, h, rb);
+  load_rows<E, D, kRows, kThreads>(dOs, a.dout, a, b, h, rb);
   auto load_kv = [&](int tile, int stage) {
     const int k0 = k_begin + tile * BK;
-    load_keys<D, BK, kThreads>(Ks + stage * BK * LD, a.k, a, b, h, k0);
-    load_keys<D, BK, kThreads>(Vs + stage * BK * LD, a.v, a, b, h, k0);
+    load_keys<E, D, BK, kThreads>(Ks + stage * BK * LD, a.k, a, b, h, k0);
+    load_keys<E, D, BK, kThreads>(Vs + stage * BK * LD, a.v, a, b, h, k0);
   };
   if (n_tiles > 0) load_kv(0, 0);
   cp_async_commit();
@@ -328,13 +453,12 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
     float sum = 0.f;
     if (r < TG) {
       const size_t off = row_offset(a, b, h, r, D);
-      for (int d = 4 * part; d < D; d += 4 * TPR) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(a.o + off + d));
-        const float4 y = __ldg(reinterpret_cast<const float4*>(a.dout + off + d));
-        sum = fmaf(x.x, y.x, sum);
-        sum = fmaf(x.y, y.y, sum);
-        sum = fmaf(x.z, y.z, sum);
-        sum = fmaf(x.w, y.w, sum);
+      for (int d = V * part; d < D; d += V * TPR) {
+        float x[V], y[V];
+        load_vec<E>(a.o + off + d, x);
+        load_vec<E>(a.dout + off + d, y);
+#pragma unroll
+        for (int e = 0; e < V; ++e) sum = fmaf(x[e], y[e], sum);
       }
     }
 #pragma unroll
@@ -352,7 +476,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
   }
 
   const int dh = warp / (8 / DS);  // this warp's half of D (DS = 2)
-  const int r0 = warp % (8 / DS) * 16 + g;  // this lane's rows r0, r0 + 8 of the tile
+  const int rw = warp % (8 / DS) * 16;  // this warp's first row of the tile
+  const int r0 = rw + g;  // this lane's rows r0, r0 + 8 of the tile
   const int c0 = dh * DW;
   const int tp0 = (rb + r0) / a.G, tp1 = (rb + r0 + 8) / a.G;
   const float scale_log2 = a.scale * kLog2e;
@@ -363,11 +488,12 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<1>();
     __syncthreads();  // (the first also publishes lse_s and delta_s)
-    const float* ks = Ks + (it & 1) * BK * LD;
-    const float* vs = Vs + (it & 1) * BK * LD;
+    const E* ks = Ks + (it & 1) * BK * LD;
+    const E* vs = Vs + (it & 1) * BK * LD;
     float s[NT][4], dp[NT][4];
-    two_products<LD, DW / 8, NT>(s, dp, Qs + r0 * LD + c0 + q4, dOs + r0 * LD + c0 + q4,
-                                 ks + g * LD + c0 + q4, vs + g * LD + c0 + q4);
+    two_products<LD, DW / 8, NT>(s, dp, Qs + rw * LD + c0 + C::along(lane),
+                                 dOs + rw * LD + c0 + C::along(lane), ks + c0 + C::along(lane),
+                                 vs + c0 + C::along(lane));
     if constexpr (DS == 2) add_other_half(s, dp, xs, warp, lane);
     const float l2[2] = {lse_s[r0], lse_s[r0 + 8]};
     const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
@@ -393,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
       }
     }
     // dQ += dS K: K's rows read across, in the accumulator's key order
-    acc_times_rows<NT, NW, LD>(acc, s, ks + 2 * q4 * LD + c0 + g);
+    acc_times_rows<NT, NW, LD>(acc, s, ks + c0 + C::across(lane));
     __syncthreads();  // every warp is done with this stage
     if (it + 2 < n_tiles) load_kv(it + 2, it & 1);
     cp_async_commit();
@@ -404,32 +530,32 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a, int n_qt) {
   for (int i = 0; i < 2; ++i) {
     const int r = rb + r0 + 8 * i;
     if (r >= TG) continue;
-    float* dst = a.dq + row_offset(a, b, h, r, D) + c0 + 2 * q4;
+    E* dst = a.dq + row_offset(a, b, h, r, D) + c0 + 2 * q4;
 #pragma unroll
     for (int n = 0; n < NW; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+      store2(dst + 8 * n, acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
   }
 }
 
-template <int D>
+template <typename E, int D>
 constexpr size_t dkdv_smem_bytes() {
   using Tl = KvTile<D>;
-  return ((size_t)(2 * Tl::kBK + 4 * Tl::kBQ) * Cols<D>::LD + 4 * Tl::kBQ +
-          exchange_floats<D, Tl::kBQ / 8>()) * sizeof(float);
+  return (size_t)(2 * Tl::kBK + 4 * Tl::kBQ) * Cols<E, D>::LD * sizeof(E) +
+         (size_t)(4 * Tl::kBQ + exchange_floats<D, Tl::kBQ / 8>()) * sizeof(float);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
+template <typename E, int D>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args<E> a) {
   using Tl = KvTile<D>;
+  using C = Cols<E, D>;
   constexpr int BK = Tl::kBK, BQ = Tl::kBQ, DS = Split<D>::DS, KG = 8 / DS;
-  constexpr int LD = Cols<D>::LD, NQ = BQ / 8, DW = D / DS, NW = DW / 8;
+  constexpr int LD = C::LD, NQ = BQ / 8, DW = D / DS, NW = DW / 8;
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;         // [2] stages
-  float* dOs = Qs + 2 * BQ * LD;    // [2] stages
-  float* lse_s = dOs + 2 * BQ * LD; // [2] stages
+  E* Ks = reinterpret_cast<E*>(smem4);
+  E* Vs = Ks + BK * LD;
+  E* Qs = Vs + BK * LD;         // [2] stages
+  E* dOs = Qs + 2 * BQ * LD;    // [2] stages
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2] stages
   float* delta_s = lse_s + 2 * BQ;  // [2] stages
   float4* xs = reinterpret_cast<float4*>(delta_s + 2 * BQ);  // add_other_half
 
@@ -453,12 +579,12 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
   const int rt_lo = rt_begin + n_rt * sp / a.n_split;
   const int n_tiles = rt_begin + n_rt * (sp + 1) / a.n_split - rt_lo;
 
-  load_keys<D, BK, kThreads>(Ks, a.k, a, b, h, k0);
-  load_keys<D, BK, kThreads>(Vs, a.v, a, b, h, k0);
+  load_keys<E, D, BK, kThreads>(Ks, a.k, a, b, h, k0);
+  load_keys<E, D, BK, kThreads>(Vs, a.v, a, b, h, k0);
   auto load_q = [&](int tile, int stage) {
     const int r0 = (rt_lo + tile) * BQ;
-    load_rows<D, BQ, kThreads>(Qs + stage * BQ * LD, a.q, a, b, h, r0);
-    load_rows<D, BQ, kThreads>(dOs + stage * BQ * LD, a.dout, a, b, h, r0);
+    load_rows<E, D, BQ, kThreads>(Qs + stage * BQ * LD, a.q, a, b, h, r0);
+    load_rows<E, D, BQ, kThreads>(dOs + stage * BQ * LD, a.dout, a, b, h, r0);
     if (tid < 2 * BQ) {  // the rows' lse and delta (zeros past T*G)
       const int i = tid % BQ, r = r0 + i;
       const bool ok = r < TG;
@@ -486,17 +612,17 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
     cp_async_wait<1>();
     __syncthreads();
     const int stage = it & 1;
-    const float* qs = Qs + stage * BQ * LD;
-    const float* os = dOs + stage * BQ * LD;
+    const E* qs = Qs + stage * BQ * LD;
+    const E* os = dOs + stage * BQ * LD;
     const float* ls = lse_s + stage * BQ;
     const float* ds = delta_s + stage * BQ;
     const int r0 = (rt_lo + it) * BQ;
     // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys by the tile's
     // rows, summed over this warp's DW of the D columns
     float s[NQ][4], dp[NQ][4];
-    const int c0 = dh * DW + q4;
-    two_products<LD, DW / 8, NQ>(s, dp, Ks + kr * LD + c0, Vs + kr * LD + c0,
-                                 qs + g * LD + c0, os + g * LD + c0);
+    const int c0 = dh * DW + C::along(lane);
+    two_products<LD, DW / 8, NQ>(s, dp, Ks + 16 * kg * LD + c0, Vs + 16 * kg * LD + c0, qs + c0,
+                                 os + c0);
     if constexpr (DS == 2) add_other_half(s, dp, xs, warp, lane);
     const bool edge = k0 + BK > a.S || r0 + BQ > TG ||
                       (a.causal && k0 + BK - 1 > r0 / a.G) ||
@@ -527,8 +653,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
     }
     // dV += P^T dO, dK += dS^T Q over this warp's DW columns: dO's and Q's
     // rows read across, in the accumulator's row order
-    acc_times_rows<NQ, NW, LD>(dv, s, os + 2 * q4 * LD + dh * DW + g);
-    acc_times_rows<NQ, NW, LD>(dk, dp, qs + 2 * q4 * LD + dh * DW + g);
+    acc_times_rows<NQ, NW, LD>(dv, s, os + dh * DW + C::across(lane));
+    acc_times_rows<NQ, NW, LD>(dk, dp, qs + dh * DW + C::across(lane));
     __syncthreads();  // every warp is done with this stage
     if (it + 2 < n_tiles) load_q(it + 2, stage);
     cp_async_commit();
@@ -540,21 +666,31 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args a) {
   for (int i = 0; i < 2; ++i) {
     if (kp[i] >= a.S) continue;
     const size_t off = ((size_t)(b * a.S + kp[i]) * a.Hkv + h) * D + dh * DW + 2 * q4;
-    const float kscale = a.n_split == 1 ? a.scale : 1.f;
-    float* dkp = a.n_split == 1 ? a.dk + off : a.part + sp * N + off;
-    float* dvp = a.n_split == 1 ? a.dv + off : a.part + (a.n_split + sp) * N + off;
 #pragma unroll
     for (int n = 0; n < NW; ++n) {
-      *reinterpret_cast<float2*>(dkp + 8 * n) =
-          make_float2(dk[n][2 * i] * kscale, dk[n][2 * i + 1] * kscale);
-      *reinterpret_cast<float2*>(dvp + 8 * n) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+      if (a.n_split == 1) {
+        store2(a.dk + off + 8 * n, dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+        store2(a.dv + off + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
+      } else {
+        store2(a.part + sp * N + off + 8 * n, dk[n][2 * i], dk[n][2 * i + 1]);
+        store2(a.part + (a.n_split + sp) * N + off + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
+      }
     }
   }
 }
 
+// four f32 as four T at p (16-byte aligned for f32, 8 for bf16)
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
 // Launch 3 (n_split > 1): dK = scale * sum of the partials, dV = their sum,
 // in range order; n4 = B*S*Hkv*D / 4
-__global__ void __launch_bounds__(256) sum_parts_kernel(Args a, size_t n4) {
+template <typename E>
+__global__ void __launch_bounds__(256) sum_parts_kernel(Args<E> a, size_t n4) {
   const float4* pk = reinterpret_cast<const float4*>(a.part);
   const float4* pv = pk + (size_t)a.n_split * n4;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
@@ -565,20 +701,20 @@ __global__ void __launch_bounds__(256) sum_parts_kernel(Args a, size_t n4) {
       sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
       sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
     }
-    reinterpret_cast<float4*>(a.dk)[i] =
-        make_float4(sk.x * a.scale, sk.y * a.scale, sk.z * a.scale, sk.w * a.scale);
-    reinterpret_cast<float4*>(a.dv)[i] = sv;
+    store4(a.dk + 4 * i,
+           make_float4(sk.x * a.scale, sk.y * a.scale, sk.z * a.scale, sk.w * a.scale));
+    store4(a.dv + 4 * i, sv);
   }
 }
 
-template <int D>
-int launch(const Args& a, cudaStream_t stream) {
+template <typename E, int D>
+int launch(const Args<E>& a, cudaStream_t stream) {
   static bool dq_set[kMaxDevices] = {}, dkdv_set[kMaxDevices] = {};
-  constexpr size_t dq_smem = dq_smem_bytes<D>();
-  constexpr size_t dkdv_smem = dkdv_smem_bytes<D>();
-  cudaError_t err = allow_dynamic_smem(dq_kernel<D>, dq_smem, dq_set);
+  constexpr size_t dq_smem = dq_smem_bytes<E, D>();
+  constexpr size_t dkdv_smem = dkdv_smem_bytes<E, D>();
+  cudaError_t err = allow_dynamic_smem(dq_kernel<E, D>, dq_smem, dq_set);
   if (err != cudaSuccess) return (int)err;
-  err = allow_dynamic_smem(dkdv_kernel<D>, dkdv_smem, dkdv_set);
+  err = allow_dynamic_smem(dkdv_kernel<E, D>, dkdv_smem, dkdv_set);
   if (err != cudaSuccess) return (int)err;
   const long long hb = (long long)a.Hkv * a.B;
   const int n_qt = (a.T * a.G + DqTile<D>::kRows - 1) / DqTile<D>::kRows;
@@ -586,52 +722,70 @@ int launch(const Args& a, cudaStream_t stream) {
   const long long dq_blocks = n_qt * hb, kv_blocks = (long long)n_kt * a.n_split * hb;
   if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (dq_blocks > 0) {  // dQ, and delta for launch 2
-    dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_smem, stream>>>(a, n_qt);
+    dq_kernel<E, D><<<(unsigned)dq_blocks, kThreads, dq_smem, stream>>>(a, n_qt);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (kv_blocks == 0) return 0;
-  dkdv_kernel<D><<<(unsigned)kv_blocks, kThreads, dkdv_smem, stream>>>(a);
+  dkdv_kernel<E, D><<<(unsigned)kv_blocks, kThreads, dkdv_smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return (int)err;
   const size_t n4 = (size_t)a.B * a.S * a.Hkv * D / 4;
   const unsigned blocks = (unsigned)((n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024);
-  sum_parts_kernel<<<blocks, 256, 0, stream>>>(a, n4);
+  sum_parts_kernel<E><<<blocks, 256, 0, stream>>>(a, n4);
   return (int)cudaGetLastError();
+}
+
+template <typename E>
+Args<E> make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const void* lse, void* delta, void* dq, void* dk, void* dv, void* part, int B,
+                  int T_len, int S, int Hq, int Hkv, int causal, int window, int n_split,
+                  float scale) {
+  return Args<E>{static_cast<const E*>(q),    static_cast<const E*>(k),
+                 static_cast<const E*>(v),    static_cast<const E*>(o),
+                 static_cast<const E*>(dout), static_cast<const float*>(lse),
+                 static_cast<float*>(delta),  static_cast<E*>(dq),
+                 static_cast<E*>(dk),         static_cast<E*>(dv),
+                 static_cast<float*>(part),   B, T_len, S, Hq, Hkv, Hq / Hkv, causal, window,
+                 n_split, scale};
 }
 
 }  // namespace bwd
 }  // namespace
 }  // namespace repro_torch
 
-// Plain C entry point, bound with ctypes.  All tensors f32 and contiguous:
+// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 =
+// bfloat16, the type of q, k, v, o, dout and the gradients, all contiguous:
 // q, o, dout, dq (B,T,Hq,D); k, v, dk, dv (B,S,Hkv,D); lse and the scratch
-// delta (B,Hq,T); part: null at n_split 1, else the scratch (2, n_split, B,
-// S, Hkv, D) of launch 2's partial sums.  D is 64, 80, 128 or 256; Hq a
-// multiple of Hkv; q_offset 0; n_split in 1..4.  Returns the cudaError_t of
-// the launches (0 on success).
+// delta (B,Hq,T), f32; part: null at n_split 1, else the f32 scratch (2,
+// n_split, B, S, Hkv, D) of launch 2's partial sums.  D is 64, 80 (f32
+// only), 128 or 256; Hq a multiple of Hkv; q_offset 0; n_split in 1..4.
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv, void* part,
                                         int B, int T, int S, int Hq, int Hkv, int D,
                                         int causal, int window, int n_split, float scale,
-                                        void* stream) {
+                                        int dtype, void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || T < 0 || S < 0 || n_split < 1 || n_split > 4 ||
       (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  bwd::Args a{static_cast<const float*>(q),    static_cast<const float*>(k),
-              static_cast<const float*>(v),    static_cast<const float*>(o),
-              static_cast<const float*>(dout), static_cast<const float*>(lse),
-              static_cast<float*>(delta),      static_cast<float*>(dq),
-              static_cast<float*>(dk),         static_cast<float*>(dv),
-              static_cast<float*>(part),       B, T, S, Hq, Hkv, Hq / Hkv, causal, window,
-              n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return bwd::launch<64>(a, st);
-  if (D == 80) return bwd::launch<80>(a, st);
-  if (D == 128) return bwd::launch<128>(a, st);
-  if (D == 256) return bwd::launch<256>(a, st);
+  if (dtype == 0) {
+    const auto a = bwd::make_args<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, T, S,
+                                         Hq, Hkv, causal, window, n_split, scale);
+    if (D == 64) return bwd::launch<float, 64>(a, st);
+    if (D == 80) return bwd::launch<float, 80>(a, st);
+    if (D == 128) return bwd::launch<float, 128>(a, st);
+    if (D == 256) return bwd::launch<float, 256>(a, st);
+  } else if (dtype == 1) {
+    const auto a = bwd::make_args<bwd::bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, T,
+                                             S, Hq, Hkv, causal, window, n_split, scale);
+    if (D == 64) return bwd::launch<bwd::bf16, 64>(a, st);
+    if (D == 128) return bwd::launch<bwd::bf16, 128>(a, st);
+    if (D == 256) return bwd::launch<bwd::bf16, 256>(a, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,16 +21,20 @@ products on the tensor cores too, as ``mma.sync`` m16n8k8 TF32 in the
 big*small + big*big summed in f32: ~22 bits of each operand, where one
 TF32 pass would miss the f32 limit), one warp per 16 rows, 64-key K/V
 tiles (32 at D 256) in a 2-stage ``cp.async`` ring; ``fwd_tiles`` gives
-its tiles.  It can also write each row's log-sum-exp, which the
+its tiles.  Both can also write each row's f32 log-sum-exp, which the
 backward reads.
 
 The gradient: the JAX package trains by differentiating the jnp attention
 its forward calls; here that call is the kernel, so ``FlashPrefillFn``
 (a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
-backward launches ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128 /
-256, ``q_offset`` 0, its five products in 3xTF32 on the tensor cores; see
-``flash_prefill_bwd``).  Inputs without a backward kernel (bf16,
-``q_offset``) raise when autograd would record them.
+backward launches ``csrc/flash_prefill_bwd.cu`` (``q_offset`` 0; f32 at D
+64 / 80 / 128 / 256, its five products in 3xTF32 on the tensor cores;
+bf16 at D 64 / 128 / 256, its products as bf16 ``mma.sync`` with f32
+sums; see ``flash_prefill_bwd``).  Inputs without a backward kernel
+(bf16 at D 80, which has no bf16 forward either, and a ``q_offset``)
+raise when autograd would record them: a bf16 model meets D 80 only in
+hubert-xlarge fed bf16 frames, since the reference promotes f32 frames
+to an f32 residual stream and the port does as it does.
 
 A row with no valid key returns zeros, as ``repro.kernels.ref`` does.
 """
@@ -42,9 +46,11 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the forward kernel by dtype (bf16's wgmma layout takes 64-
-# column blocks), and of the backward kernel (f32 only)
+# column blocks), and of the backward kernel (bf16's padded rows want
+# D + 8 = 8 mod 64 elements, its products 16-column steps)
 HEAD_DIMS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256)}
-BWD_HEAD_DIMS = (64, 80, 128, 256)
+BWD_HEAD_DIMS = {torch.float32: (64, 80, 128, 256),
+                 torch.bfloat16: (64, 128, 256)}
 MAX_GROUP = 64            # query heads per kv head in one tile
 
 
@@ -110,8 +116,8 @@ def fwd_tiles(D: int):
 
 
 def bwd_tiles(D: int):
-    """The backward kernel's tiles at head dim D: (rows a dQ tile, keys a
-    dQ step, keys a dK/dV tile, rows a dK/dV step)."""
+    """The backward kernel's tiles at head dim D, in either dtype: (rows a
+    dQ tile, keys a dQ step, keys a dK/dV tile, rows a dK/dV step)."""
     if D > 128:
         return 64, 16, 64, 16
     return 128, 32, 128, 32 if D <= 80 else 16
@@ -129,14 +135,14 @@ def bwd_split(B: int, Hkv: int, S: int, D: int, n_sm: int) -> int:
 
 def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
                                   window=0, n_sm=132, mm=torch.matmul):
-    """The backward kernel's own algorithm in plain f32 PyTorch, its
-    products through ``mm``: the G query heads of a kv head flattened
-    into T*G rows (row t*G + g), P recomputed from ``lse`` tile by tile,
-    delta = rowsum(dO*O); dQ summed over the key tiles each q tile can see
-    (launch 1); dK and dV over the q tiles that can see each key tile
-    (launch 2), split into ``bwd_split(..., n_sm)`` ranges whose partial
-    sums are added in range order (launch 3); tiles (``bwd_tiles``) and
-    tile ranges chosen as the kernel chooses them."""
+    """The backward kernel's own algorithm in plain f32 PyTorch (on f32
+    or bf16 inputs), its products through ``mm``: the G query heads of a
+    kv head flattened into T*G rows (row t*G + g), P recomputed from
+    ``lse`` tile by tile, delta = rowsum(dO*O); dQ summed over the key
+    tiles each q tile can see (launch 1); dK and dV over the q tiles that
+    can see each key tile (launch 2), split into ``bwd_split(..., n_sm)``
+    ranges whose partial sums are added in range order (launch 3); tiles
+    (``bwd_tiles``) and tile ranges chosen as the kernel chooses them."""
     B, T, Hq, D = q.shape
     dq_rows, dq_keys, kv_keys, kv_rows = bwd_tiles(D)
     S, Hkv = k.shape[1], k.shape[2]
@@ -241,10 +247,11 @@ def _check_cuda(name, tensors, dtypes, head_dims, D, G):
 def no_backward_reason(dtype, D: int, q_offset: int) -> str:
     """Why ``flash_prefill``'s CUDA kernel has no backward for these
     inputs ("" when it has one)."""
-    if dtype != torch.float32:
-        return f" for {dtype} (f32 only)"
-    if D not in BWD_HEAD_DIMS:
-        return f" at head_dim {D} (only {BWD_HEAD_DIMS})"
+    if dtype not in BWD_HEAD_DIMS:
+        return f" for {dtype}"
+    if D not in BWD_HEAD_DIMS[dtype]:
+        return (f" at head_dim {D} for {dtype} (only "
+                f"{BWD_HEAD_DIMS[dtype]})")
     if q_offset:
         return " with a q_offset"
     return ""
@@ -303,8 +310,8 @@ def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
     (B,T,Hq,D) in q's dtype.  CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise.  Where autograd records the call
     (an input requires grad), a CUDA call goes through ``FlashPrefillFn``
-    and its backward kernel, or raises where there is none (bf16,
-    ``q_offset``)."""
+    and its backward kernel, or raises where there is none (bf16 at head
+    dim 80, ``q_offset``)."""
     _check(q, k, v)
     if _on_cpu(q, k, v):
         return flash_prefill_plain(q, k, v, causal=causal, window=window,
@@ -327,7 +334,9 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
     from its output ``o``, the output's gradient ``dout`` and the forward's
     row log-sum-exp ``lse`` (B, Hq, T).  CPU tensors take the plain version
     (autograd of ``flash_prefill_plain``); CUDA tensors launch
-    ``csrc/flash_prefill_bwd.cu`` (f32, D 64 / 80 / 128 / 256) or raise."""
+    ``csrc/flash_prefill_bwd.cu`` (f32 at D 64 / 80 / 128 / 256, bf16 at
+    D 64 / 128 / 256; the gradients in the inputs' dtype, ``lse`` f32) or
+    raise."""
     _check(q, k, v)
     B, T, Hq, D = q.shape
     if o.shape != q.shape or dout.shape != q.shape or \
@@ -339,8 +348,12 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
         return flash_prefill_bwd_plain(q, k, v, dout, causal=causal,
                                        window=window)
     S, Hkv = k.shape[1], k.shape[2]
-    _check_cuda("flash_prefill_bwd", (q, k, v, o, dout, lse),
-                (torch.float32,), {torch.float32: BWD_HEAD_DIMS}, D, Hq // Hkv)
+    _check_cuda("flash_prefill_bwd", (q, k, v, o, dout), _DTYPES,
+                BWD_HEAD_DIMS, D, Hq // Hkv)
+    if not (lse.device == q.device and lse.dtype == torch.float32
+            and lse.is_contiguous()):
+        raise ValueError("flash_prefill_bwd: lse must be a contiguous f32 "
+                         "tensor on q's device")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if B == 0:
         return dq, dk, dv
@@ -358,7 +371,7 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), B, T, S, Hq, Hkv,
             D, int(bool(causal)), int(window), n_split, D ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill_bwd")
     flash_prefill_bwd.launches += 1
     return dq, dk, dv

@@ -21,6 +21,11 @@ three position sections (qwen2-vl-2b); the RG-LRU recurrent block
 mix (rwkv6-3b), and the capacity-routed mixture of experts on one device
 (phi3.5-moe, llama4-scout).  Block kinds or flavours outside these raise
 ``NotImplementedError``.
+
+Dtypes promote as in jnp: every product of an activation and a weight
+goes through ``matmul``, so f32 activations (a bf16 model's f32 frames or
+patches) meeting bf16 weights compute in f32, and elementwise ops and
+``torch.cat`` promote alike.
 """
 from __future__ import annotations
 
@@ -64,6 +69,16 @@ def rms_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the dtype ``jnp.matmul`` computes it in, the promotion
+    of the two: a bf16 model fed f32 frames or patches runs on in f32, as
+    the reference does.  The cast's backward rounds a weight's gradient to
+    the weight's dtype, as ``convert_element_type``'s does; where the
+    dtypes agree the casts are no-ops."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -150,9 +165,9 @@ def attention_block(
     B, T, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = matmul(x, params["wq"])
+    k = matmul(x, params["wk"])
+    v = matmul(x, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, T, hq, hd)
@@ -186,15 +201,15 @@ def attention_block(
                          if window else {"k": k, "v": v})
 
     out = out.reshape(B, T, hq * hd)
-    return out @ params["wo"], new_cache
+    return matmul(out, params["wo"]), new_cache
 
 
 # --------------------------------------------------------------------------- #
 # Gated MLP (SwiGLU)
 # --------------------------------------------------------------------------- #
 def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    h = F.silu(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+    return matmul(h, params["w_down"])
 
 
 # --------------------------------------------------------------------------- #
@@ -203,8 +218,8 @@ def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
 def _rglru_coeffs(params: Params, u: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """u: (..., d) conv output.  Returns (log_a, gated input b) in f32."""
-    i_gate = torch.sigmoid((u @ params["w_in_gate"]).float())
-    r_gate = torch.sigmoid((u @ params["w_rec_gate"]).float())
+    i_gate = torch.sigmoid(matmul(u, params["w_in_gate"]).float())
+    r_gate = torch.sigmoid(matmul(u, params["w_rec_gate"]).float())
     log_a = -RGLRU_C * r_gate * F.softplus(params["lambda"].float())
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * i_gate * u.float()
@@ -235,8 +250,9 @@ def rglru_block(
             "rglru_block: a prefill from a carried state is not ported (the "
             "reference prefill reads the carried h but not the carried conv "
             "history)")
-    gate = F.gelu(x @ params["w_gate"], approximate="tanh")   # jax's default
-    xin = x @ params["w_x"]
+    # (tanh: jax's default)
+    gate = F.gelu(matmul(x, params["w_gate"]), approximate="tanh")
+    xin = matmul(x, params["w_x"])
     conv_w = params["conv_w"].float()
 
     # temporal conv (width 4, causal) over the history and this input
@@ -261,7 +277,7 @@ def rglru_block(
         y = rglru_scan_op(log_a, b)
         new_cache = ({"conv": hist[:, -(CONV_WIDTH - 1):],
                       "h": y[:, -1].to(x.dtype)} if return_cache else None)
-    out = (y.to(x.dtype) * gate) @ params["w_out"]
+    out = matmul(y.to(x.dtype) * gate, params["w_out"])
     return out, new_cache
 
 
@@ -301,12 +317,12 @@ def rwkv6_block(
     def mix(i):
         return x * mu[i] + x_prev * (1.0 - mu[i])
 
-    r = (mix(0) @ params["w_r"]).reshape(B, T, H, D).float()
-    k = (mix(1) @ params["w_k"]).reshape(B, T, H, D).float()
-    v = (mix(2) @ params["w_v"]).reshape(B, T, H, D).float()
-    g = F.silu(mix(3) @ params["w_g"])
+    r = matmul(mix(0), params["w_r"]).reshape(B, T, H, D).float()
+    k = matmul(mix(1), params["w_k"]).reshape(B, T, H, D).float()
+    v = matmul(mix(2), params["w_v"]).reshape(B, T, H, D).float()
+    g = F.silu(matmul(mix(3), params["w_g"]))
 
-    dd = (x @ params["decay_lora_a"]) @ params["decay_lora_b"]
+    dd = matmul(matmul(x, params["decay_lora_a"]), params["decay_lora_b"])
     logit = params["decay_base"].float() + dd.float()
     w = torch.exp(-torch.exp(logit)).reshape(B, T, H, D)     # in (0, 1)
     u = params["bonus_u"].float()
@@ -327,13 +343,13 @@ def rwkv6_block(
     o = o.reshape(B, T, d).to(x.dtype)
     # the reference's simplification of RWKV's group norm: rms over all d
     o = rms_norm({"scale": params["ln_out_scale"]}, o, cfg.norm_eps)
-    return (o * g) @ params["w_o"], new_cache
+    return matmul(o * g, params["w_o"]), new_cache
 
 
 def channel_mix(params: Params, x: torch.Tensor) -> torch.Tensor:
     """RWKV's FFN: squared ReLU."""
-    h = torch.square(F.relu(x @ params["w_in"]))
-    return h @ params["w_out"]
+    h = torch.square(F.relu(matmul(x, params["w_in"])))
+    return matmul(h, params["w_out"])
 
 
 # --------------------------------------------------------------------------- #
@@ -377,7 +393,7 @@ def moe_route(params: Params, cfg: ModelConfig, x: torch.Tensor
     (T, E), and weights, experts, pos and keep (T, k)."""
     T = x.shape[0]
     E, k = cfg.num_experts, cfg.top_k
-    logits = (x @ params["router"]).float()                   # (T, E)
+    logits = matmul(x, params["router"]).float()                 # (T, E)
     order = torch.sort(logits, dim=-1, descending=True, stable=True)
     weights = torch.softmax(order.values[:, :k], dim=-1)
     experts = order.indices[:, :k]                            # (T, k)
@@ -412,8 +428,9 @@ def _moe_local(params: Params, cfg: ModelConfig,
         slot_t = torch.where(sel, pos, cap).amin(-1).long()   # (T,)
         w_t = torch.where(sel, r["weights"], 0.0).sum(-1)     # (T,)
         buf = x.new_zeros((cap + 1, d)).index_add_(0, slot_t, x)[:cap]
-        h = F.silu(buf @ params["w_gate"][e]) * (buf @ params["w_up"][e])
-        eo = (h @ params["w_down"][e]).float()                # (cap, d)
+        h = F.silu(matmul(buf, params["w_gate"][e])) * matmul(
+            buf, params["w_up"][e])
+        eo = matmul(h, params["w_down"][e]).float()              # (cap, d)
         gathered = torch.cat([eo, zero_row])[slot_t]
         out = out + gathered * w_t[:, None]
     return out

@@ -292,16 +292,17 @@ def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Token embeddings, with a vision model's patches (B, P, frontend_dim),
-    cast to the model's dtype, projected through ``params["frontend"]`` and
-    put before them; an audio model's frames (B, T, frontend_dim) through
-    ``params["frontend"]`` alone."""
+    """Token embeddings, with a vision model's patches (B, P, frontend_dim)
+    projected through ``params["frontend"]`` and put before them; an audio
+    model's frames (B, T, frontend_dim) through ``params["frontend"]``
+    alone.  Frames and patches keep their dtype, so f32 ones make the
+    residual stream f32 in a bf16 model, as jnp's promotion does in the
+    reference."""
     if cfg.modality == "audio":
-        return batch["frames"].to(params["frontend"].dtype) @ \
-            params["frontend"]
+        return L.matmul(batch["frames"], params["frontend"])
     x = params["embed"][batch["tokens"]]
     if cfg.modality == "vision" and "patches" in batch:
-        patch_emb = batch["patches"].to(x.dtype) @ params["frontend"]
+        patch_emb = L.matmul(batch["patches"], params["frontend"])
         x = torch.cat([patch_emb, x], dim=1)
     return x
 
@@ -362,7 +363,7 @@ def forward(
 
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = L.soft_cap(x @ head, cfg.logit_soft_cap)
+    logits = L.soft_cap(L.matmul(x, head), cfg.logit_soft_cap)
 
     if decoding:
         return logits, cache

@@ -52,15 +52,20 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW
     return train_step
 
 
-def to_batch(batch: Dict[str, Any], dtype: torch.dtype,
-             device) -> Dict[str, torch.Tensor]:
-    """A numpy batch on ``device``: integer arrays (tokens, labels) as
-    int64, float arrays (frames, patches) in the model's dtype."""
+def to_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch on ``device`` as the reference's ``jnp.asarray``
+    leaves it, whatever the model's dtype: float arrays (frames, patches)
+    in their own dtype (float64 as f32, as jnp makes it without x64), so
+    a bf16 model fed f32 frames computes in f32 from its frontend on;
+    integer arrays (tokens, labels) as int64, torch's index type."""
     out = {}
     for key, val in batch.items():
         t = torch.as_tensor(np.asarray(val))
-        out[key] = (t.long() if not torch.is_floating_point(t)
-                    else t.to(dtype)).to(device)
+        if not torch.is_floating_point(t):
+            t = t.long()
+        elif t.dtype == torch.float64:
+            t = t.float()
+        out[key] = t.to(device)
     return out
 
 
@@ -92,7 +97,7 @@ def train(
     losses = []
     t0 = time.perf_counter()
     for step in range(steps):
-        batch = to_batch(next(batches), dtype, dev)
+        batch = to_batch(next(batches), dev)
         params, opt_state, loss = step_fn(params, opt_state, batch)
         losses.append(float(loss))
         if step % log_every == 0 or step == steps - 1:

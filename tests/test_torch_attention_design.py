@@ -1,5 +1,6 @@
-"""The designs of the port's two f32 attention kernels, emulated in PyTorch
-on the CPU and held against the plain versions at the card's limits.
+"""The designs of the port's f32 attention kernels and of the bf16
+backward, emulated in PyTorch on the CPU and held against the plain
+versions at the card's limits.
 
 ``csrc/flash_prefill.cu``'s f32 path runs one warp per 16 flattened rows
 (the G query heads of a kv head stacked, row t*G + g) over K/V tiles of 64
@@ -20,7 +21,19 @@ One TF32 pass per product misses the f32 limit.  (The tensor cores' own
 sums truncate rather than round; that is not emulated here.  The kernels
 keep those chains short: each tile's P V, dS K, P^T dO and dS^T Q summed in
 a fresh accumulator and added in f32, and the small cross terms of S and
-dP summed apart from big*big.)"""
+dP summed apart from big*big.)
+
+The bf16 backward walks the same tiles, ranges and splits, and runs its
+products as bf16 ``mma.sync`` with f32 sums: P and dS rounded to bf16 as
+the operands of dV, dK and dQ, Q, K, V and dO bf16 already.  Its emulation
+is ``flash_prefill_bwd_tiled_plain`` with ``mm_bf16``, fed the plain
+forward's bf16 output and log-sum-exp, its gradients rounded to bf16,
+against autograd of the plain forward in bf16, at ``chip_smoke.py``'s
+bf16 gradient limit.  The plain version rounds elsewhere (dP and its
+outputs), and where dP and delta nearly cancel in dS either side's
+rounding moves an element by a share of its gradient's rms: hence that
+limit's 0.2 of the rms, beside a 1e-2 limit on each gradient's relative
+L2 difference."""
 import os
 
 import pytest
@@ -42,6 +55,20 @@ from test_torch_scan_design import (  # noqa: E402
 # |got - want| <= atol + atol_rms * rms(want) + rtol * |want|
 TOL_F32 = dict(atol=2e-5, atol_rms=0.0, rtol=2e-5)
 TOL_GRAD = dict(atol=0.0, atol_rms=1e-4, rtol=1e-4)
+# chip_smoke.py's TOL["grad_bf16"] and GRAD_BF16_REL_L2
+TOL_GRAD_BF16 = dict(atol=0.0, atol_rms=0.2, rtol=2.0 ** -6)
+GRAD_BF16_REL_L2 = 1e-2
+
+
+def mm_bf16(a, b):
+    """The bf16 backward's products: both operands rounded to bf16 (P and
+    dS; the others are bf16 already), the sum in f32."""
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
 
 
 def flash_emulated(q, k, v, *, causal, window=0, q_offset=0, mm=mm_3xtf32):
@@ -195,6 +222,54 @@ def test_backward_split_sums_like_one_range():
         assert worst_share(a, b, **TOL_GRAD) <= 0.1
 
 
+BF16_CASES = [  # B, T, S, Hq, Hkv, D, causal, window
+    (1, 256, 256, 32, 8, 128, True, 0),    # llama3-8b's heads: G 4, causal
+    (1, 512, 512, 10, 1, 256, True, 128),  # recurrentgemma-2b's G 10, window
+    (2, 200, 200, 8, 2, 64, True, 0),      # D 64
+    (1, 300, 300, 16, 4, 64, False, 0),    # bidirectional, G 4
+    (1, 70, 30, 4, 2, 64, True, 20),       # rows with no valid key
+]
+
+
+def _bf16_inputs(B, T, S, Hq, Hkv, D, seed):
+    return tuple(x.to(torch.bfloat16)
+                 for x in _inputs(B, T, S, Hq, Hkv, D, seed))
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,window", BF16_CASES)
+def test_bf16_backward_design_holds_the_bf16_grad_limit(B, T, S, Hq, Hkv, D,
+                                                        causal, window):
+    """The bf16 backward's tiles, dK/dV ranges and products (``mm_bf16``),
+    from the plain forward's bf16 output and f32 log-sum-exp, its
+    gradients rounded to bf16 as the kernel writes them, against autograd
+    of the plain forward on the same bf16 inputs."""
+    q, k, v, do = _bf16_inputs(B, T, S, Hq, Hkv, D, seed=D + 2)
+    kw = dict(causal=causal, window=window)
+    o, lse = FP.flash_prefill_plain(q, k, v, return_lse=True, **kw)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    got = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse, mm=mm_bf16,
+                                           **kw)
+    want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+    for g, w in zip(got, want):
+        assert w.dtype == torch.bfloat16 and g.shape == w.shape
+        g = g.to(torch.bfloat16).float()
+        assert worst_share(g, w.float(), **TOL_GRAD_BF16) <= 1.0
+        assert rel_l2(g, w.float()) <= GRAD_BF16_REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("q_offset", [0, 7])
+def test_no_backward_reason_refuses_exactly_bf16_d80_and_offsets(dtype, D,
+                                                                 q_offset):
+    """The backward kernel takes f32 at D 64 / 80 / 128 / 256 and bf16 at
+    D 64 / 128 / 256, q_offset 0: a CUDA call that requires grad raises
+    for bf16 at D 80 (no bf16 forward there either) and for a q_offset,
+    and for nothing else of these."""
+    refused = bool(FP.no_backward_reason(dtype, D, q_offset))
+    assert refused == ((dtype == torch.bfloat16 and D == 80) or q_offset > 0)
+
+
 @pytest.mark.parametrize("B,Hkv,S,D,n_split", [
     (1, 1, 4096, 256, 4),      # recurrentgemma-2b training: 64 key tiles
     (1, 8, 1024, 256, 3),      # 128 blocks
@@ -240,3 +315,20 @@ if __name__ == "__main__":
         print("B={} T={} S={} Hq={} Hkv={} D={} causal={} window={}".format(
             *case), "3xTF32 out {:.3f} grads {:.3f}; one TF32 pass out "
             "{:.2f} grads {:.2f}".format(*shares))
+    # the bf16 backward's: worst share of the bf16 gradient limit and
+    # largest relative L2 difference over dQ, dK, dV
+    for case in BF16_CASES:
+        B, T, S, Hq, Hkv, D, causal, window = case
+        q, k, v, do = _bf16_inputs(B, T, S, Hq, Hkv, D, seed=D + 2)
+        kw = dict(causal=causal, window=window)
+        o, lse = FP.flash_prefill_plain(q, k, v, return_lse=True, **kw)
+        got = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse,
+                                               mm=mm_bf16, **kw)
+        want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+        pairs = [(g.to(torch.bfloat16).float(), w.float())
+                 for g, w in zip(got, want)]
+        print("bf16 B={} T={} S={} Hq={} Hkv={} D={} causal={} "
+              "window={}".format(*case), "grads {:.3f} of the limit, "
+              "relative L2 {:.4f}".format(
+                  max(worst_share(g, w, **TOL_GRAD_BF16) for g, w in pairs),
+                  max(rel_l2(g, w) for g, w in pairs)))

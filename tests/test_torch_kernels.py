@@ -268,8 +268,8 @@ def test_refuse_grad_raises_only_where_autograd_would_record():
     (decode_attention; flash_prefill where ``no_backward_reason`` gives
     one; rwkv6_scan outside ``BWD_HEAD_DIMS``) raise through this on CUDA
     inputs, only where autograd would record the call; flash_prefill's
-    backward kernel covers f32 at D 64 / 80 / 128 / 256 without a q_offset
-    and nothing else."""
+    backward kernel covers f32 at D 64 / 80 / 128 / 256 and bf16 at D 64 /
+    128 / 256, without a q_offset, and nothing else."""
     from repro_torch.kernels import _build
     x, y = torch.zeros(3, requires_grad=True), torch.zeros(3)
     with pytest.raises(RuntimeError, match="no backward for bf16"):
@@ -281,7 +281,10 @@ def test_refuse_grad_raises_only_where_autograd_would_record():
         _build.refuse_grad("k", y, x)
     for D in (64, 80, 128, 256):
         assert FP.no_backward_reason(torch.float32, D, 0) == ""
-    assert FP.no_backward_reason(torch.bfloat16, 128, 0)
+    for D in (64, 128, 256):
+        assert FP.no_backward_reason(torch.bfloat16, D, 0) == ""
+    assert FP.no_backward_reason(torch.bfloat16, 80, 0)
+    assert FP.no_backward_reason(torch.float16, 128, 0)
     assert FP.no_backward_reason(torch.float32, 96, 0)
     assert FP.no_backward_reason(torch.float32, 128, 64)
 

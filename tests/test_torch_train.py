@@ -130,7 +130,7 @@ def test_loss_and_grads_match_the_reference(arch):
     loss, grads = jax.jit(jax.value_and_grad(make_loss_fn(cfg)))(
         tree, _jnp(batch))
     tloss, tgrads = loss_and_grads(tcfg, params,
-                                   to_batch(batch, torch.float32, "cpu"))
+                                   to_batch(batch, "cpu"))
     np.testing.assert_allclose(float(tloss), float(loss), rtol=LOSS_RTOL)
     want_leaves = jax.tree.leaves(grads)
     got_leaves = tree_leaves(params_to_jax(tgrads, tcfg))
@@ -170,7 +170,7 @@ def test_train_step_loss_curve_matches_step_fn(arch):
     step = make_train_step(tcfg, AdamW(lr=1e-3))
     ts, got = AdamW(lr=1e-3).init(params), []
     for b in batches:
-        params, ts, loss = step(params, ts, to_batch(b, torch.float32, "cpu"))
+        params, ts, loss = step(params, ts, to_batch(b, "cpu"))
         got.append(float(loss))
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
     assert got[-1] < got[0]
