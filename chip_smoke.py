@@ -832,10 +832,11 @@ BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
     (None, 1, 1024, 1024, 8, 8, 256, False, 0),
     (None, 2, 1024, 1024, 10, 10, 256, True, 0),
 ]
-# bf16: llama3-8b's and recurrentgemma-2b's training shapes (the dK/dV
-# launch split over 2 and 4 q-tile ranges), then D 64 ragged and
-# bidirectional, G 16 under a window, rows with no key, and D 256 with its
-# dK/dV launch split over 3 ranges
+# bf16 (csrc/flash_prefill_bwd_bf16.cu, on wgmma): llama3-8b's and
+# recurrentgemma-2b's training shapes (the dK/dV launch whole, and split
+# over 4 q-tile ranges), then D 64 ragged and bidirectional, G 16 under a
+# window, rows with no key, and D 256 with its dK/dV launch split over 3
+# ranges
 BWD_BF16_CASES = [
     ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0),
     ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048),
@@ -904,6 +905,8 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         del out
         pairs = flash_pairs(T, S, causal, window, 0)
         ops = 10 * D * B * Hq * pairs
+        # the kernels' own work: S and dP are computed in both launches
+        ops_done = 14 * D * B * Hq * pairs
         esize = torch.finfo(dtype).bits // 8
         nbytes = (esize * (4 * B * T * Hq * D + 4 * B * S * Hkv * D)
                   + 4 * B * Hq * T)
@@ -912,7 +915,8 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         all_ok &= ok
         log(f"flash_prefill_bwd {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
             f"D={D} causal={causal} window={window} (dK/dV over "
-            f"{FP.bwd_split(B, Hkv, S, D, n_sm)} q-tile ranges): dq/dk/dv "
+            f"{FP.bwd_split(B, Hkv, S, D, n_sm, dtype)} q-tile ranges): "
+            "dq/dk/dv "
             f"max_abs_err "
             + "/".join(f"{c[1]:.3e}" for c in checks) + " (worst elements at "
             + "/".join(f"{c[2]:.3f}" for c in checks) + f" of their limits; "
@@ -926,8 +930,15 @@ def run_bwd_kernel(torch, rng, results) -> bool:
             f"backward alone; device {lib_dev_ms:.4f}) bound_ms={b_ms:.4f} "
             f"({b_by}, 10 D operations a pair; share "
             f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
-            f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
-            f"{ops / lib_dev_ms * 1e-9:.1f})")
+            f"{ops / dev_ms * 1e-9:.1f} TFLOP/s at 10 D, "
+            f"{ops_done / dev_ms * 1e-9:.1f} at the kernels' 14 D (SDPA "
+            f"{ops / lib_dev_ms * 1e-9:.1f} at 10 D)")
+        if paths and not f32:
+            # a training shape in bf16: each launch's device time
+            log(f"flash_prefill_bwd bf16 B={B} T={T} S={S} Hq={Hq} "
+                f"Hkv={Hkv} D={D}: device ms a call by launch "
+                "(torch.profiler, 10 calls): " + ", ".join(
+                    f"{name} {t:.4f}" for name, t in launch_times(torch, kern)))
         record(results, "flash_prefill_bwd", paths, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=lib_ms, device_ms=dev_ms,
@@ -2452,7 +2463,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s"
         + ("" if _build.BuildInfo.seconds is not None else " (already built)"))
     for line in _build.BuildInfo.log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")) \
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "wgmma")) \
                 or line.startswith("=="):
             log(f"  {line.strip()}")
 

@@ -1,5 +1,7 @@
-// flash_prefill_bwd: the gradient of flash_prefill in f32 and bf16, for
-// Hopper.
+// flash_prefill_bwd: the gradient of flash_prefill in f32, for Hopper, and
+// the C entry point of both dtypes (bf16: flash_prefill_bwd_bf16.cu, its
+// products on wgmma).  What the two sources share (arguments, row indexing,
+// the tile ranges, the third launch) is in flash_prefill_bwd.cuh.
 //
 // No TPU kernel corresponds: the JAX package has no custom_vjp and trains
 // by differentiating `blockwise_attention` (src/repro/models/layers.py),
@@ -14,8 +16,8 @@
 // exp(scale*s - lse); the (T, S) matrix is never stored:
 //   delta = rowsum(dO * O),  dP = dO V^T,  dS = P * (dP - delta),
 //   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K.
-// q, k, v, o, dO and the gradients are all f32 or all bf16; lse, delta and
-// every sum are f32.
+// q, k, v, o, dO and the gradients are all f32 here; lse, delta and every
+// sum are f32.
 //
 // Layout.  For kv head h the G = Hq/Hkv query heads are flattened into
 // T*G rows, row r = t*G + g, so a tile holds any G and K/V are never
@@ -41,9 +43,8 @@
 // the halves of S and dP are swapped through shared memory and added, the
 // same bits in both warps.
 // Only the tiles the causal and window masks leave open are visited; the
-// element masks apply on the tiles that straddle them.  Both dtypes share
-// this walk, its tiles, masks and splits, and the softmax's recomputation;
-// they differ in the products and in how tiles are held (below).
+// element masks apply on the tiles that straddle them.  The bf16 kernels
+// walk the same ranges on their own tiles.
 //
 // A full card.  Where launch 2 would have fewer than two waves of blocks
 // (n_kt * Hkv * B < 2 * SMs: recurrentgemma-2b's 64 key tiles at T 4096,
@@ -58,7 +59,7 @@
 // and 6 D of products); this design does 14 D (S and dP are computed in
 // both launches).
 //
-// f32: all products run on the tensor cores as mma.sync m16n8k8 TF32 in
+// Products: all on the tensor cores as mma.sync m16n8k8 TF32 in
 // the 3xTF32 split (common.cuh: three TF32 products each, ~22 bits of each
 // operand kept, so that training holds the f32 reference; one TF32 pass
 // misses the gradient limit 28-53 times: tests/test_torch_attention_
@@ -70,59 +71,30 @@
 // order permuted to the accumulator's so that P and dS pass from
 // accumulator to A fragment in registers), hit 32 banks.
 //
-// bf16: all products run as mma.sync m16n8k16 bf16 with f32 sums, Q, K, V
-// and dO bf16 in shared memory as they come from memory; P and dS are
-// rounded to bf16 only as the A operands of dV = P^T dO, dK = dS^T Q and
-// dQ = dS K (the m16n8k16 accumulator's layout is its A fragment's, two
-// 8-wide column tiles a k-step, so they pass in registers unpermuted).
-// Rows are padded to D + 8 (16 bytes): fragments read along rows are 32-bit
-// loads, 4 words apart from row to row; fragments read across rows are
-// ldmatrix.trans of 8 x 8 blocks whose 8 row addresses fall on 8 distinct
-// 4-bank groups.  Tiles are the f32 kernel's (half the shared memory).
-//
 // The tensor cores' sums truncate rather than round.  Chained in one
 // accumulator over a long loop, that bias grows with the loop: over the
 // 768 mma's of dQ's keys at recurrentgemma-2b's shape, or the 96 of S and
 // dP at D 256, it took the f32 dQ past its limit.  So each tile's dS K, P^T
 // dO and dS^T Q is summed in a fresh accumulator and added in f32 (round to
-// nearest), in both dtypes, and the small cross terms of f32's S and dP are
-// summed apart from big*big (mma3_lo).
+// nearest), and the small cross terms of S and dP are summed apart from
+// big*big (mma3_lo).
 //
 // ptxas (-Xptxas -v, sm_90a), registers and dynamic shared memory, no
 // spills, 1 block of 8 warps per SM: dq<f32,64> 164, 105,472 B;
 // dq<f32,80> 172, 130,048 B; dq<f32,128> 214, 203,776 B; dq<f32,256> 195,
-// 216,576 B; dkdv<f32,64> 219, 104,960 B; dkdv<f32,80> 249, 129,536 B;
+// 216,576 B; dkdv<f32,64> 219, 104,960 B; dkdv<f32,80> 253, 129,536 B;
 // dkdv<f32,128> 255, 169,216 B; dkdv<f32,256> 255, 216,320 B; sum_parts
-// 42, none.  The bf16 instantiations' lines are in the build log that
-// chip_smoke.py prints.
+// 42, none.  The element masks and edge tests stay written out here: passed
+// through helpers shared with the bf16 kernels they changed the registers
+// of three of these instantiations.
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "flash_prefill_bwd.cuh"
 
 namespace repro_torch {
-namespace {
 namespace bwd {
-
-using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <typename E>
-struct Args {
-  const E* q;
-  const E* k;
-  const E* v;
-  const E* o;
-  const E* dout;
-  const float* lse;
-  float* delta;
-  E* dq;
-  E* dk;
-  E* dv;
-  float* part;  // (2, n_split, B, S, Hkv, D) partial dK, dV; null at n_split 1
-  int B, T, S, Hq, Hkv, G, causal, window, n_split;
-  float scale;
-};
+namespace {
 
 // Both launches run 8 warps, each owning 16 rows (launch 1) or 16 keys
 // (launch 2); at D 256 DS = 2 warps share them, each summing S and dP over
@@ -148,10 +120,10 @@ struct KvTile {
 };
 
 // The padded row of every tile (elements), and each lane's offset in a
-// tile for a fragment read along rows (row g, column q: f32; columns 2q,
-// 2q + 1: bf16) or across them (f32: rows 2q, 2q + 1, column g, read one
-// element at a time; bf16: the row address ldmatrix wants from this lane,
-// row lane % 16 of a 16-row k-step, column block lane / 16).
+// tile for a fragment read along rows (row g, column q) or across them
+// (rows 2q, 2q + 1, column g, read one element at a time).  The kernels
+// are templates on the element type E, which this file instantiates for
+// f32 only.
 template <typename E, int D>
 struct Cols;
 template <int D>
@@ -164,30 +136,6 @@ struct Cols<float, D> {
     return 2 * (lane & 3) * LD + (lane >> 2);
   }
 };
-template <int D>
-struct Cols<bf16, D> {
-  static constexpr int LD = D + 8;
-  static_assert(D % 16 == 0 && LD / 2 % 32 == 4, "flash_prefill_bwd bf16: unsupported head_dim");
-  static __device__ __forceinline__ int along(int lane) {
-    return (lane >> 2) * LD + 2 * (lane & 3);
-  }
-  static __device__ __forceinline__ int across(int lane) {
-    return (lane & 15) * LD + 8 * (lane >> 4);
-  }
-};
-
-// element offset of flattened row r (position r / G, head r % G of kv
-// head h) in a (B, T, Hq, D) tensor, and its index in a (B, Hq, T) one
-template <typename E>
-__device__ __forceinline__ size_t row_offset(const Args<E>& a, int b, int h, int r, int D) {
-  const int t = r / a.G, g = r % a.G;
-  return ((size_t)(b * a.T + t) * a.Hq + h * a.G + g) * D;
-}
-template <typename E>
-__device__ __forceinline__ size_t stat_index(const Args<E>& a, int b, int h, int r) {
-  const int t = r / a.G, g = r % a.G;
-  return ((size_t)b * a.Hq + h * a.G + g) * a.T + t;
-}
 
 // rows r0 .. r0+R-1 of a (B, T, Hq, D) tensor into a padded tile, zeros
 // past T*G (cp.async; the caller commits)
@@ -250,46 +198,6 @@ __device__ __forceinline__ void acc_times_rows(float (&acc)[N][4], const float (
   }
 }
 
-// The same in bf16: A = s rounded to bf16, two 8-wide accumulator tiles a
-// 16-deep k-step (s[2kk], s[2kk + 1] are the A fragment's columns 2q, 2q +
-// 1 and 2q + 8, 2q + 9 as they stand); B's rows 16kk .. 16kk + 15 read by
-// ldmatrix.trans from `b`, this lane's row address (Cols::across)
-// included, two column tiles a load.
-template <int K, int N, int LD>
-__device__ __forceinline__ void acc_times_rows(float (&acc)[N][4], const float (&s)[K][4],
-                                               const bf16* b) {
-  static_assert(K % 2 == 0 && N % 4 == 0, "flash_prefill_bwd bf16: tile shape");
-  constexpr int NC = 4;
-  uint32_t pa[K / 2][4];
-#pragma unroll
-  for (int kk = 0; kk < K / 2; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    float t[NC][4];
-#pragma unroll
-    for (int n = 0; n < NC; ++n) t[n][0] = t[n][1] = t[n][2] = t[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < K / 2; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NC; n += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b + 16 * kk * LD + 8 * (n0 + n));
-        mma_bf16_16816(t[n], pa[kk], r[0], r[1]);
-        mma_bf16_16816(t[n + 1], pa[kk], r[2], r[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += t[n][e];
-  }
-}
-
 // s (16 x 8N) = A B^T and dp = A2 B2^T over K k-steps of 8 columns: A, A2
 // rows of 16 read at a, a2 (lane offset included), B, B2 rows of 8N at b,
 // b2.  big*big and the small cross terms are summed apart (mma3_lo): in
@@ -330,36 +238,6 @@ __device__ __forceinline__ void two_products(float (&s)[N][4], float (&dp)[N][4]
     }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The same in bf16 (K still counts 8-column steps): K / 2 k-steps of 16,
-// fragments read along rows as 32-bit pairs, f32 sums.
-template <int LD, int K, int N>
-__device__ __forceinline__ void two_products(float (&s)[N][4], float (&dp)[N][4], const bf16* a,
-                                             const bf16* a2, const bf16* b, const bf16* b2) {
-  static_assert(K % 2 == 0, "flash_prefill_bwd bf16: 16-column k-steps");
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 2
-  for (int kk = 0; kk < K / 2; ++kk) {
-    const bf16* x = a + 16 * kk;
-    const bf16* y = a2 + 16 * kk;
-    const uint32_t fa[4] = {ld32(x), ld32(x + 8 * LD), ld32(x + 8), ld32(x + 8 * LD + 8)};
-    const uint32_t fa2[4] = {ld32(y), ld32(y + 8 * LD), ld32(y + 8), ld32(y + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const bf16* u = b + 8 * j * LD + 16 * kk;
-      const bf16* w = b2 + 8 * j * LD + 16 * kk;
-      mma_bf16_16816(s[j], fa, ld32(u), ld32(u + 8));
-      mma_bf16_16816(dp[j], fa2, ld32(w), ld32(w + 8));
-    }
-  }
-}
-
 // Where two warps (w and w ^ 4) each summed s and dp over half of D: add
 // the other warp's halves through shared memory xs (2 N float4 a lane and
 // warp); x + y == y + x, so both warps hold the same bits after.  Contains
@@ -381,14 +259,6 @@ __device__ __forceinline__ void add_other_half(float (&s)[N][4], float (&dp)[N][
     s[j][0] += x.x; s[j][1] += x.y; s[j][2] += x.z; s[j][3] += x.w;
     dp[j][0] += y.x; dp[j][1] += y.y; dp[j][2] += y.z; dp[j][3] += y.w;
   }
-}
-
-// two adjacent outputs of a lane
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
 }
 
 // floats of add_other_half's exchange for N column tiles, or none
@@ -430,10 +300,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args<E> a, int n_qt) {
   const int g = lane >> 2, q4 = lane & 3;
 
   // keys this tile's positions can see
-  const int t_lo = rb / a.G, t_hi = (min(rb + kRows, TG) - 1) / a.G;
-  const int k_end = a.causal ? min(a.S, t_hi + 1) : a.S;
-  const int k_begin = (a.window > 0 ? max(0, t_lo - a.window + 1) : 0) / BK * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const DqRange kr = dq_range(a, rb, kRows, BK);
+  const int t_lo = kr.t_lo, t_hi = kr.t_hi, k_begin = kr.k_begin, n_tiles = kr.n_tiles;
 
   load_rows<E, D, kRows, kThreads>(Qs, a.q, a, b, h, rb);
   load_rows<E, D, kRows, kThreads>(dOs, a.dout, a, b, h, rb);
@@ -570,14 +438,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args<E> a) {
 
   // q tiles (of BQ flattened rows) that can see this key tile, and this
   // block's contiguous range of them
-  const int k_last = min(k0 + BK, a.S) - 1;
-  const int t_begin = a.causal ? k0 : 0;
-  const int t_end = a.window > 0 ? min(a.T, k_last + a.window) : a.T;
-  const int rt_begin = t_begin * a.G / BQ;
-  const int rt_end = t_end > t_begin ? (t_end * a.G + BQ - 1) / BQ : rt_begin;
-  const int n_rt = rt_end - rt_begin;
-  const int rt_lo = rt_begin + n_rt * sp / a.n_split;
-  const int n_tiles = rt_begin + n_rt * (sp + 1) / a.n_split - rt_lo;
+  const KvRange qr = kv_range(a, k0, sp, BK, BQ);
+  const int rt_lo = qr.rt_lo, n_tiles = qr.n_tiles;
 
   load_keys<E, D, BK, kThreads>(Ks, a.k, a, b, h, k0);
   load_keys<E, D, BK, kThreads>(Vs, a.v, a, b, h, k0);
@@ -679,34 +541,6 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(Args<E> a) {
   }
 }
 
-// four f32 as four T at p (16-byte aligned for f32, 8 for bf16)
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 x) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-}
-
-// Launch 3 (n_split > 1): dK = scale * sum of the partials, dV = their sum,
-// in range order; n4 = B*S*Hkv*D / 4
-template <typename E>
-__global__ void __launch_bounds__(256) sum_parts_kernel(Args<E> a, size_t n4) {
-  const float4* pk = reinterpret_cast<const float4*>(a.part);
-  const float4* pv = pk + (size_t)a.n_split * n4;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float4 sk = pk[i], sv = pv[i];
-    for (int p = 1; p < a.n_split; ++p) {
-      const float4 x = pk[p * n4 + i], y = pv[p * n4 + i];
-      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
-      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
-    }
-    store4(a.dk + 4 * i,
-           make_float4(sk.x * a.scale, sk.y * a.scale, sk.z * a.scale, sk.w * a.scale));
-    store4(a.dv + 4 * i, sv);
-  }
-}
-
 template <typename E, int D>
 int launch(const Args<E>& a, cudaStream_t stream) {
   static bool dq_set[kMaxDevices] = {}, dkdv_set[kMaxDevices] = {};
@@ -729,11 +563,8 @@ int launch(const Args<E>& a, cudaStream_t stream) {
   if (kv_blocks == 0) return 0;
   dkdv_kernel<E, D><<<(unsigned)kv_blocks, kThreads, dkdv_smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 1) return (int)err;
-  const size_t n4 = (size_t)a.B * a.S * a.Hkv * D / 4;
-  const unsigned blocks = (unsigned)((n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024);
-  sum_parts_kernel<E><<<blocks, 256, 0, stream>>>(a, n4);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sum_parts(a, D, stream);
 }
 
 template <typename E>
@@ -750,8 +581,8 @@ Args<E> make_args(const void* q, const void* k, const void* v, const void* o, co
                  n_split, scale};
 }
 
-}  // namespace bwd
 }  // namespace
+}  // namespace bwd
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 =
@@ -783,9 +614,7 @@ extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void
   } else if (dtype == 1) {
     const auto a = bwd::make_args<bwd::bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, T,
                                              S, Hq, Hkv, causal, window, n_split, scale);
-    if (D == 64) return bwd::launch<bwd::bf16, 64>(a, st);
-    if (D == 128) return bwd::launch<bwd::bf16, 128>(a, st);
-    if (D == 256) return bwd::launch<bwd::bf16, 256>(a, st);
+    return bwd::launch_bf16(a, D, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -29,8 +29,9 @@ its forward calls; here that call is the kernel, so ``FlashPrefillFn``
 (a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
 backward launches ``csrc/flash_prefill_bwd.cu`` (``q_offset`` 0; f32 at D
 64 / 80 / 128 / 256, its five products in 3xTF32 on the tensor cores;
-bf16 at D 64 / 128 / 256, its products as bf16 ``mma.sync`` with f32
-sums; see ``flash_prefill_bwd``).  Inputs without a backward kernel
+bf16 at D 64 / 128 / 256 in ``csrc/flash_prefill_bwd_bf16.cu``, its five
+products on ``wgmma`` over 64-row warpgroup tiles with f32 sums; see
+``flash_prefill_bwd``).  Inputs without a backward kernel
 (bf16 at D 80, which has no bf16 forward either, and a ``q_offset``)
 raise when autograd would record them: a bf16 model meets D 80 only in
 hubert-xlarge fed bf16 frames, since the reference promotes f32 frames
@@ -45,9 +46,8 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims of the forward kernel by dtype (bf16's wgmma layout takes 64-
-# column blocks), and of the backward kernel (bf16's padded rows want
-# D + 8 = 8 mod 64 elements, its products 16-column steps)
+# head dims of the forward and backward kernels by dtype (bf16's wgmma
+# layout takes 64-column blocks)
 HEAD_DIMS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256)}
 BWD_HEAD_DIMS = {torch.float32: (64, 80, 128, 256),
                  torch.bfloat16: (64, 128, 256)}
@@ -115,20 +115,30 @@ def fwd_tiles(D: int):
     return (64, 32) if D > 128 else (128, 64)
 
 
-def bwd_tiles(D: int):
-    """The backward kernel's tiles at head dim D, in either dtype: (rows a
-    dQ tile, keys a dQ step, keys a dK/dV tile, rows a dK/dV step)."""
+def bwd_tiles(D: int, dtype=torch.float32):
+    """The backward kernel's tiles at head dim D: (rows a dQ tile, keys a
+    dQ step, keys a dK/dV tile, rows a dK/dV step).  f32 (8 warps of 16
+    rows or keys, ``mma.sync``): 128-row and 128-key tiles, 64 at D 256.
+    bf16 (two warpgroups of 64 rows or keys, ``wgmma``): 128-row dQ tiles
+    over 64-key steps (32 at D 256), 128-key dK/dV tiles (64 at D 256,
+    where both warpgroups take the same keys) over 64-row steps."""
+    if dtype == torch.bfloat16:
+        return (128, 32, 64, 64) if D > 128 else (128, 64, 128, 64)
     if D > 128:
         return 64, 16, 64, 16
     return 128, 32, 128, 32 if D <= 80 else 16
 
 
-def bwd_split(B: int, Hkv: int, S: int, D: int, n_sm: int) -> int:
+def bwd_split(B: int, Hkv: int, S: int, D: int, n_sm: int,
+              dtype=torch.float32) -> int:
     """Ranges of q tiles that each dK/dV key tile is split over: 1 where
     the dK/dV launch has at least two waves of blocks (n_kt * Hkv * B >=
-    2 * n_sm), else min(4, ceil(2 * n_sm / blocks))."""
-    blocks = -(-S // bwd_tiles(D)[2]) * Hkv * B
-    if blocks == 0 or blocks >= 2 * n_sm:
+    2 * n_sm; bf16: one wave, n_sm), else min(4, ceil(2 * n_sm / blocks)).
+    The bf16 kernel's blocks are short enough that the third launch costs
+    more than a second wave that is nearly full saves (llama3-8b's 256
+    blocks on an H100's 132 SMs)."""
+    blocks = -(-S // bwd_tiles(D, dtype)[2]) * Hkv * B
+    if blocks == 0 or blocks >= (n_sm if dtype == torch.bfloat16 else 2 * n_sm):
         return 1
     return min(4, -(-2 * n_sm // blocks))
 
@@ -142,9 +152,10 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
     tiles each q tile can see (launch 1); dK and dV over the q tiles that
     can see each key tile (launch 2), split into ``bwd_split(..., n_sm)``
     ranges whose partial sums are added in range order (launch 3); tiles
-    (``bwd_tiles``) and tile ranges chosen as the kernel chooses them."""
+    (``bwd_tiles`` of q's dtype) and tile ranges chosen as the kernel
+    chooses them."""
     B, T, Hq, D = q.shape
-    dq_rows, dq_keys, kv_keys, kv_rows = bwd_tiles(D)
+    dq_rows, dq_keys, kv_keys, kv_rows = bwd_tiles(D, q.dtype)
     S, Hkv = k.shape[1], k.shape[2]
     G, TG, scale = Hq // Hkv, T * (Hq // Hkv), D ** -0.5
 
@@ -183,7 +194,7 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
             k1 = min(k0 + dq_keys, S)
             _, ds = tile(r0, r1, k0, k1)
             dq[:, :, r0:r1] += mm(ds, kf[:, :, k0:k1])
-    n_split = bwd_split(B, Hkv, S, D, n_sm)
+    n_split = bwd_split(B, Hkv, S, D, n_sm, q.dtype)
     dk, dv = (torch.zeros((n_split,) + kf.shape, device=q.device)
               for _ in range(2))
     for k0 in range(0, S, kv_keys):                 # launch 2: dK, dV
@@ -334,9 +345,9 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
     from its output ``o``, the output's gradient ``dout`` and the forward's
     row log-sum-exp ``lse`` (B, Hq, T).  CPU tensors take the plain version
     (autograd of ``flash_prefill_plain``); CUDA tensors launch
-    ``csrc/flash_prefill_bwd.cu`` (f32 at D 64 / 80 / 128 / 256, bf16 at
-    D 64 / 128 / 256; the gradients in the inputs' dtype, ``lse`` f32) or
-    raise."""
+    ``csrc/flash_prefill_bwd.cu`` (f32 at D 64 / 80 / 128 / 256; bf16 at
+    D 64 / 128 / 256 in ``csrc/flash_prefill_bwd_bf16.cu``; the gradients
+    in the inputs' dtype, ``lse`` f32) or raise."""
     _check(q, k, v)
     B, T, Hq, D = q.shape
     if o.shape != q.shape or dout.shape != q.shape or \
@@ -359,7 +370,7 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
         return dq, dk, dv
     delta = torch.empty_like(lse)       # scratch: rowsum(dO * O)
     n_split = bwd_split(B, Hkv, S, D, torch.cuda.get_device_properties(
-        q.device).multi_processor_count)
+        q.device).multi_processor_count, q.dtype)
     # scratch: the dK/dV launch's partial sums where it is split
     part = (torch.empty((2, n_split) + tuple(k.shape), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None)

@@ -23,9 +23,10 @@ keep those chains short: each tile's P V, dS K, P^T dO and dS^T Q summed in
 a fresh accumulator and added in f32, and the small cross terms of S and
 dP summed apart from big*big.)
 
-The bf16 backward walks the same tiles, ranges and splits, and runs its
-products as bf16 ``mma.sync`` with f32 sums: P and dS rounded to bf16 as
-the operands of dV, dK and dQ, Q, K, V and dO bf16 already.  Its emulation
+The bf16 backward (``csrc/flash_prefill_bwd_bf16.cu``) walks the same
+ranges and splits on its own tiles (``bwd_tiles(D, torch.bfloat16)``:
+64-row warpgroup tiles for ``wgmma``), with f32 sums: P and dS rounded to
+bf16 as the operands of dV, dK and dQ, Q, K, V and dO bf16 already.  Its emulation
 is ``flash_prefill_bwd_tiled_plain`` with ``mm_bf16``, fed the plain
 forward's bf16 output and log-sum-exp, its gradients rounded to bf16,
 against autograd of the plain forward in bf16, at ``chip_smoke.py``'s
@@ -228,6 +229,10 @@ BF16_CASES = [  # B, T, S, Hq, Hkv, D, causal, window
     (2, 200, 200, 8, 2, 64, True, 0),      # D 64
     (1, 300, 300, 16, 4, 64, False, 0),    # bidirectional, G 4
     (1, 70, 30, 4, 2, 64, True, 20),       # rows with no valid key
+    # T*G = 2030 rows, off the 64-row steps and 128-row tiles, at G 10
+    # under a window
+    (1, 203, 203, 10, 1, 256, True, 50),
+    (2, 800, 800, 8, 4, 256, True, 0),     # D 256, dK/dV over 3 ranges
 ]
 
 
@@ -282,14 +287,60 @@ def test_bwd_split_rule(B, Hkv, S, D, n_split):
     assert FP.bwd_split(B, Hkv, S, D, 132) == n_split
 
 
+@pytest.mark.parametrize("B,Hkv,S,D,n_split", [
+    (1, 1, 4096, 256, 4),      # recurrentgemma-2b training: 64 key tiles
+    (2, 4, 800, 256, 3),       # 104 blocks
+    (1, 8, 1024, 256, 3),      # 128 blocks: just under one wave
+    (4, 8, 1024, 128, 1),      # llama3-8b training: 256 blocks
+    (1, 17, 1024, 128, 1),     # 136 blocks: one wave and a bit
+    (8, 8, 2048, 64, 1),       # 1024 blocks
+    (1, 2, 200, 64, 4),        # 4 blocks
+])
+def test_bwd_split_rule_bf16(B, Hkv, S, D, n_split):
+    """The bf16 kernel's dK/dV tiles (128 keys, 64 at D 256) split only
+    under one wave of blocks: at llama3-8b's training shape (256 blocks
+    on 132 SMs) the split and its third launch cost more than they
+    save."""
+    assert FP.bwd_split(B, Hkv, S, D, 132, torch.bfloat16) == n_split
+
+
+# The bf16 backward's shared memory a block may ask for (the H100's 227 KB)
+SMEM_LIMIT = 232_448
+
+
+def bf16_bwd_smem_bytes(D):
+    """Dynamic shared memory of the bf16 backward's two launches at head
+    dim D, from its tiles, as ``dq_smem_bytes`` and ``dkdv_smem_bytes`` in
+    ``csrc/flash_prefill_bwd_bf16.cu`` count it: bf16 tiles (Q and dO, and
+    a 2-stage K/V ring; K and V, and a Q/dO ring of 4 stages, 2 at D 256),
+    f32 lse and delta of the rows, at D 256 the f32 P^T that one warpgroup
+    passes the other (64 keys by the step's rows), 1 KB to align the
+    base."""
+    dq_rows, dq_keys, kv_keys, kv_rows = FP.bwd_tiles(D, torch.bfloat16)
+    kv_stages = 2 if D > 128 else 4
+    dq = (2 * dq_rows + 2 * 2 * dq_keys) * D * 2 + 2 * dq_rows * 4 + 1024
+    kv = ((2 * kv_keys + 2 * kv_stages * kv_rows) * D * 2
+          + (2 * kv_stages * kv_rows + (64 * kv_rows if D > 128 else 0)) * 4
+          + 1024)
+    return dq, kv
+
+
 def test_tiles_fit_the_kernels():
     """The tiles the emulations take are the kernels': 8 warps of 16 rows
-    and 64-key tiles up to D 128; 4 warps and 32-key tiles at D 256."""
+    and 64-key tiles up to D 128; 4 warps and 32-key tiles at D 256.  The
+    bf16 backward's are 64-row warpgroup tiles, two warpgroups a block,
+    and each of its launches fits the shared memory of a block."""
     assert [FP.fwd_tiles(D) for D in (64, 80, 128, 256)] == [
         (128, 64), (128, 64), (128, 64), (64, 32)]
     assert [FP.bwd_tiles(D) for D in (64, 80, 128, 256)] == [
         (128, 32, 128, 32), (128, 32, 128, 32), (128, 32, 128, 16),
         (64, 16, 64, 16)]
+    assert [FP.bwd_tiles(D, torch.bfloat16) for D in (64, 128, 256)] == [
+        (128, 64, 128, 64), (128, 64, 128, 64), (128, 32, 64, 64)]
+    smem = [bf16_bwd_smem_bytes(D) for D in (64, 128, 256)]
+    assert smem == [(67_584, 101_376), (133_120, 199_680),
+                    (198_656, 215_040)]
+    assert max(max(x) for x in smem) <= SMEM_LIMIT
 
 
 if __name__ == "__main__":
