@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.flash_prefill import rounded_softmax_pv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -141,6 +141,13 @@ def decode_attention(q, k_cache, v_cache, lengths):
         raise ValueError(f"q{tuple(q.shape)}, cache{tuple(k_cache.shape)}, "
                          f"lengths{tuple(lengths.shape)} do not match")
     tensors = (q, k_cache, v_cache, lengths)
+    if _meta.is_meta(*tensors):
+        # every cache row, as the reference's lowering counts them
+        es = q.element_size()
+        return _meta.run("decode_attention", tensors, [(q.shape, q.dtype)],
+                         (4 * Hq * D * B * S,
+                          es * (2 * B * Hq * D + 2 * B * S * Hkv * D)
+                          + 4 * B))[0]
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_plain(q, k_cache, v_cache, lengths)
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims of the forward and backward kernels by dtype (bf16's wgmma
@@ -221,6 +221,22 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
             dv[0].permute(0, 2, 1, 3))
 
 
+def work(q, k, causal, window, q_offset):
+    """((operations, bytes) of the forward, of the backward) at these
+    inputs: 4 D a (query, key) pair and head forward, 10 D backward (its
+    five products), each input read and each output written once
+    (``chip_smoke.py``'s bounds)."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    pairs = _meta.attention_pairs(T, S, causal, window, q_offset)
+    fwd = (4 * D * B * Hq * pairs,
+           es * (2 * B * T * Hq * D + 2 * B * S * Hkv * D))
+    bwd = (10 * D * B * Hq * pairs,
+           es * (4 * B * T * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * T)
+    return fwd, bwd
+
+
 def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -324,6 +340,9 @@ def flash_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
     and its backward kernel, or raises where there is none (bf16 at head
     dim 80, ``q_offset``)."""
     _check(q, k, v)
+    if _meta.is_meta(q, k, v):
+        return _meta.run("flash_prefill", (q, k, v), [(q.shape, q.dtype)],
+                         *work(q, k, causal, window, q_offset))[0]
     if _on_cpu(q, k, v):
         return flash_prefill_plain(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)

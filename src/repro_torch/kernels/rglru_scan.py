@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 CHUNK = 32          # time steps per chunk of the kernel, up to T = 32 * 64
 MAX_CHUNKS = 64     # beyond that, longer chunks: the carry loop stays short
@@ -126,6 +126,13 @@ def rglru_scan(log_a, b, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     kernel or raise.  Where autograd records a CUDA call (an input requires
     grad), it goes through ``RglruScanFn`` and the backward kernel."""
     tensors = _check(log_a, b, h0)
+    if _meta.is_meta(*tensors):
+        # 3 operations a step and channel forward, 5 backward; each input
+        # read and each output written once
+        n = log_a.numel()
+        return _meta.run("rglru_scan", (log_a, b, h0),
+                         [(log_a.shape, log_a.dtype)], (3 * n, 12 * n),
+                         (5 * n, 24 * n))[0]
     if all(t.device.type == "cpu" for t in tensors):
         return rglru_scan_plain(log_a, b, h0)
     _check_cuda("rglru_scan", tensors)

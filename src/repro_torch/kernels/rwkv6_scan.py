@@ -54,7 +54,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 
 HEAD_DIMS = (64, 128)
 BWD_HEAD_DIMS = (64,)   # head dims of the backward kernel (rwkv6-3b's)
@@ -123,6 +123,22 @@ def rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds_final=None):
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, ins)]
     return (*grads[:5], grads[5] if s0 is not None else None)
+
+
+def work(B: int, T: int, H: int, D: int):
+    """((operations, bytes) of the forward, of the backward) of the
+    chunked WKV6 at the kernel's chunk (``chip_smoke.py``'s
+    ``rwkv6_ops`` / ``rwkv6_bwd_ops``): per step and head 4 D^2 forward
+    (8 D^2 backward) for the state terms, per causal (t, s) pair of a
+    chunk 4 D forward (10 D backward); r, k, v, w in and o, the state out
+    once (forward), their gradients too (backward), in f32."""
+    full, rest = divmod(T, KERNEL_CHUNK)
+    pairs = (full * KERNEL_CHUNK * (KERNEL_CHUNK + 1) // 2
+             + rest * (rest + 1) // 2)
+    x, state = B * T * H * D, B * H * D * D
+    fwd = (B * H * (4 * D * D * T + 4 * D * pairs), 4 * (5 * x + state))
+    bwd = (B * H * (8 * D * D * T + 10 * D * pairs), 4 * (9 * x + 2 * state))
+    return fwd, bwd
 
 
 def _check(r, k, v, w, u, s0):
@@ -201,6 +217,11 @@ def rwkv6_scan(r, k, v, w, u, s0: Optional[torch.Tensor] = None
     ``Rwkv6ScanFn`` and the backward kernel, or raises at a head dim the
     backward kernel does not take (``BWD_HEAD_DIMS``)."""
     tensors = _check(r, k, v, w, u, s0)
+    if _meta.is_meta(*tensors):
+        B, T, H, D = r.shape
+        return _meta.run("rwkv6_scan", (r, k, v, w, u, s0),
+                         [(r.shape, r.dtype), ((B, H, D, D), r.dtype)],
+                         *work(B, T, H, D))
     if all(t.device.type == "cpu" for t in tensors):
         return rwkv6_scan_plain(r, k, v, w, u, s0)
     _check_cuda("rwkv6_scan", tensors, HEAD_DIMS)

@@ -48,6 +48,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, RGLRU, RWKV6,
                                       ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models.layers import MeshInfo
+from repro_torch.models.spmd import (P, partial_on, place, region,
+                                     to_placements)
 
 Params = Dict[str, Any]
 
@@ -79,6 +82,8 @@ def _cache_index(cfg: ModelConfig) -> List[Tuple[str, int]]:
 # --------------------------------------------------------------------------- #
 def _normal(generator: torch.Generator, shape, std: float, dtype,
             device) -> torch.Tensor:
+    if torch.device(device).type == "meta":     # shapes only, no draw
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, dtype=dtype,
                     device=generator.device)
     return x.mul_(std).to(device)
@@ -90,6 +95,8 @@ def _zeros(shape, dtype, device) -> torch.Tensor:
 
 def _uniform(generator: torch.Generator, shape, dtype,
              device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.rand(shape, generator=generator, dtype=dtype,
                       device=generator.device).to(device)
 
@@ -168,7 +175,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda") -> Params:
     """Random weights drawn on ``generator``'s device, placed on
     ``device``.  The draws differ from ``jax.random``'s; a test that needs
-    both packages on one set of weights uses ``params_from_jax``."""
+    both packages on one set of weights uses ``params_from_jax``.  On
+    ``device="meta"`` the leaves are shapes only (``generator`` may be
+    None): ``repro_torch.launch.steps.abstract_params``."""
     L.check_supported(cfg)
     params: Params = {
         "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), 0.02,
@@ -242,32 +251,33 @@ def write_slot(cache: Params, pcache: Params, slot: int, T: int) -> None:
 # --------------------------------------------------------------------------- #
 def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer_cache: Optional[Params],
-                 cache_len: Optional[torch.Tensor], return_cache: bool
+                 cache_len: Optional[torch.Tensor], return_cache: bool,
+                 mi: MeshInfo = MeshInfo()
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
     h = L.rms_norm(bp["norm1"], x, cfg.norm_eps)
     if kind == RWKV6:
         core, new_cache = L.rwkv6_block(
             bp["core"], cfg, h, layer_cache=layer_cache,
-            return_cache=return_cache)
+            return_cache=return_cache, mi=mi)
     elif kind == RGLRU:
         core, new_cache = L.rglru_block(
             bp["core"], cfg, h, layer_cache=layer_cache,
-            return_cache=return_cache)
+            return_cache=return_cache, mi=mi)
     else:
         window = cfg.sliding_window if kind == LOCAL_ATTN else 0
         core, new_cache = L.attention_block(
             bp["core"], cfg, h, positions, window=window,
             layer_cache=layer_cache, cache_len=cache_len,
-            return_cache=return_cache)
-    x = x + core
+            return_cache=return_cache, mi=mi)
+    x = x + L.batch_placed(mi, core)
     h = L.rms_norm(bp["norm2"], x, cfg.norm_eps)
     if kind == RWKV6:
         ffn = L.channel_mix(bp["ffn"], h)
     elif cfg.is_moe:
-        ffn = L.moe_block(bp["ffn"], cfg, h)
+        ffn = L.moe_block(bp["ffn"], cfg, h, mi)
     else:
         ffn = L.mlp_block(bp["ffn"], h)
-    return x + ffn, new_cache
+    return x + L.batch_placed(mi, ffn), new_cache
 
 
 def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
@@ -291,7 +301,8 @@ def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
 
 
 def _embed_inputs(params: Params, cfg: ModelConfig,
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  batch: Dict[str, torch.Tensor],
+                  mi: MeshInfo = MeshInfo()) -> torch.Tensor:
     """Token embeddings, with a vision model's patches (B, P, frontend_dim)
     projected through ``params["frontend"]`` and put before them; an audio
     model's frames (B, T, frontend_dim) through ``params["frontend"]``
@@ -300,11 +311,37 @@ def _embed_inputs(params: Params, cfg: ModelConfig,
     reference."""
     if cfg.modality == "audio":
         return L.matmul(batch["frames"], params["frontend"])
-    x = params["embed"][batch["tokens"]]
+    if mi.mesh is None:
+        x = params["embed"][batch["tokens"]]
+    else:
+        x = _embed_sharded(mi, params["embed"], batch["tokens"])
     if cfg.modality == "vision" and "patches" in batch:
         patch_emb = L.matmul(batch["patches"], params["frontend"])
         x = torch.cat([patch_emb, x], dim=1)
     return x
+
+
+def _embed_sharded(mi: MeshInfo, embed, tokens):
+    """``embed[tokens]`` with the table's rows (the vocab) sharded over the
+    model axis: each model shard looks up the tokens in its rows, zeros
+    for the others, and the shards' parts are summed (exact: one
+    non-zero part per token)."""
+    b = L._bspec(mi)[0]
+    tok_spec = P(b, *([None] * (tokens.ndim - 1)))
+    out_pl = to_placements(P(b, None, None), mi.mesh)
+    va = L.head_axis(mi, embed.shape[0])
+    if va is None:
+        return region(mi, lambda t, e: e[t], (tokens, embed),
+                      (tok_spec, P()), P(b, None, None))
+
+    def lookup(t, e):
+        rows = e.shape[0]
+        rel = t.long() - mi.axis_index(va) * rows
+        ok = (rel >= 0) & (rel < rows)
+        return e[rel.clamp(0, rows - 1)] * ok[..., None].to(e.dtype)
+    x = region(mi, lookup, (tokens, embed), (tok_spec, P(va, None)),
+               partial_on(out_pl, mi.mesh, va))
+    return x.redistribute(mi.mesh, out_pl)
 
 
 def forward(
@@ -315,8 +352,17 @@ def forward(
     cache: Optional[Params] = None,
     cache_len: Optional[torch.Tensor] = None,   # (B,) context so far
     return_cache: bool = False,
+    mi: MeshInfo = MeshInfo(),
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (logits, new_cache).
+
+    On a mesh (``mi.mesh``) the parameters, batch and cache are DTensors
+    placed by ``repro_torch.models.shardings`` and the activations follow
+    DTensor's propagation, the kernels running in local regions
+    (``repro_torch.models.layers``).  With grad enabled and no cache,
+    ``mi.remat_group`` G > 1 checkpoints every G layers, each layer inside
+    checkpointed too (the reference's nested sqrt-L remat).  The layers
+    always loop in Python (the reference's ``unroll_layers``).
 
     decode:  batch["tokens"] has T == 1 and ``cache``/``cache_len`` given;
              the cache is updated in place and returned.
@@ -329,7 +375,7 @@ def forward(
     position T + g.
     """
     L.check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch, mi)
     B, T = x.shape[0], x.shape[1]
     decoding = cache is not None and T == 1
 
@@ -344,19 +390,35 @@ def forward(
                      if cfg.modality == "vision" and "patches" in batch
                      else 0)
         positions = _default_positions(cfg, B, T, x.device, n_patches)
+        if mi.mesh is not None:
+            positions = place(positions, P(L._bspec(mi)[0],
+                                           *([None] * (positions.ndim - 1))),
+                              mi.mesh)
 
     remat = torch.is_grad_enabled() and cache is None and not return_cache
+    G = mi.remat_group
+    blocks = list(zip(params["layers"], _cache_index(cfg)))
+    if remat and G > 1 and len(blocks) % G == 0:
+        # sqrt-L remat: checkpoints every G layers, each inner layer too
+        def group(x, *bps):
+            for bp, (kind, _) in bps:
+                x, _ = checkpoint(_apply_block, cfg, kind, bp, x, positions,
+                                  None, None, False, mi, use_reentrant=False)
+            return x
+        for g in range(0, len(blocks), G):
+            x = checkpoint(group, x, *blocks[g:g + G], use_reentrant=False)
+        blocks = []
     new: Dict[str, list] = {}
-    for bp, (kind, j) in zip(params["layers"], _cache_index(cfg)):
+    for bp, (kind, j) in blocks:
         keys = CACHE_KEYS[kind]
         lc = ({bk: cache[ck][j] for bk, ck in keys.items()} if decoding
               else None)
         if remat:
             x, nc = checkpoint(_apply_block, cfg, kind, bp, x, positions,
-                               None, None, False, use_reentrant=False)
+                               None, None, False, mi, use_reentrant=False)
         else:
             x, nc = _apply_block(cfg, kind, bp, x, positions, lc, cache_len,
-                                 return_cache)
+                                 return_cache, mi)
         if return_cache and not decoding:
             for bk, ck in keys.items():
                 new.setdefault(ck, []).append(nc[bk])
@@ -375,14 +437,46 @@ def forward(
 # --------------------------------------------------------------------------- #
 # Loss
 # --------------------------------------------------------------------------- #
-def make_loss_fn(cfg: ModelConfig) -> Callable[[Params, Dict], torch.Tensor]:
+def _nll_sharded(mi: MeshInfo, logits, labels):
+    """The mean next-token NLL of f32 logits (B, T, V) whose vocab shards
+    over the model axis, as a replicated DTensor: the log-softmax taken
+    shard by shard (Megatron's vocab-parallel cross-entropy; GSPMD
+    partitions the reference's the same way): the row max all-reduced
+    (max), then each shard's sum of exp(logit - max) and its part of the
+    label's logit (zero where the label is another shard's) summed over
+    the model axis.  No device holds the whole vocab's logits."""
+    b = L._bspec(mi)[0]
+    va = L.head_axis(mi, logits.shape[-1])
+    l_spec, row = P(b, None, va), to_placements(P(b, None), mi.mesh)
+    m = region(mi, lambda x: x.detach().amax(-1), (logits,), (l_spec,),
+               partial_on(row, mi.mesh, va, "max")).redistribute(mi.mesh,
+                                                                  row)
+
+    def parts(x, m, lab):
+        z = x - m[..., None]
+        n = x.shape[-1]
+        rel = lab.long() - (mi.axis_index(va) * n if va else 0)
+        ok = (rel >= 0) & (rel < n)
+        pick = torch.gather(z, -1, rel.clamp(0, n - 1)[..., None])[..., 0]
+        return z.exp().sum(-1), pick * ok
+    summed = partial_on(row, mi.mesh, va)
+    se, tgt = region(mi, parts, (logits, m, labels),
+                     (l_spec, P(b, None), P(b, None)), [summed, summed])
+    ll = tgt.redistribute(mi.mesh, row) - se.redistribute(mi.mesh,
+                                                          row).log()
+    return (-ll.mean()).redistribute(mi.mesh, to_placements(P(), mi.mesh))
+
+
+def make_loss_fn(cfg: ModelConfig, mi: MeshInfo = MeshInfo()
+                 ) -> Callable[[Params, Dict], torch.Tensor]:
     """Next-token CE for decoders; per-frame label CE for encoders
     (``repro.models.make_loss_fn``): a vision model's patch positions are
-    not scored, and the log-softmax is taken in f32."""
+    not scored, and the log-softmax is taken in f32.  On a mesh the loss
+    is a replicated DTensor."""
 
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
-        logits, _ = forward(params, cfg, batch)
+        logits, _ = forward(params, cfg, batch, mi=mi)
         labels = batch["labels"]
         if not cfg.is_encoder:
             logits = logits[:, :-1]
@@ -390,6 +484,8 @@ def make_loss_fn(cfg: ModelConfig) -> Callable[[Params, Dict], torch.Tensor]:
         if logits.shape[1] != labels.shape[1]:
             # vlm: patches were prepended; score only the text positions
             logits = logits[:, -labels.shape[1]:]
+        if mi.mesh is not None:
+            return _nll_sharded(mi, logits.float(), labels)
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
         return -ll.mean()

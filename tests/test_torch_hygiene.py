@@ -1,7 +1,7 @@
-"""Boundaries of the port: ``repro_torch``, ``chip_smoke.py``,
-``profile_port.py``, ``bench_calibration_torch.py`` and
-``examples/compare_strategies_torch.py`` import neither JAX
-nor the JAX package, the copied host modules equal their sources up to the
+"""Boundaries of the port: ``repro_torch`` (its multi-device layer, dry
+run and roofline too), ``chip_smoke.py``, ``profile_port.py``,
+``bench_calibration_torch.py`` and ``examples/*_torch.py`` import neither
+JAX nor the JAX package, the copied host modules equal their sources up to the
 import prefix, and an engine asked for the default device on a machine
 without CUDA raises instead of running on the CPU (and both scripts fail
 there)."""
@@ -65,7 +65,13 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.kernels.rglru_scan', 'repro_torch.serving.api', "
         "'repro_torch.data.pipeline', 'repro_torch.serving.calibration', "
         "'repro_torch.traces.__main__', 'repro_torch.simulator.runner', "
-        "'repro_torch.baselines', 'repro_torch.obs.__main__'} "
+        "'repro_torch.baselines', 'repro_torch.obs.__main__', "
+        "'repro_torch.models.shardings', 'repro_torch.models.spmd', "
+        "'repro_torch.launch.mesh', 'repro_torch.launch.input_specs', "
+        "'repro_torch.launch.steps', 'repro_torch.launch.dryrun_lib', "
+        "'repro_torch.launch.dryrun', 'repro_torch.roofline', "
+        "'repro_torch.roofline.analysis', 'repro_torch.roofline.op_costs', "
+        "'repro_torch.kernels._meta'} "
         "<= set(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(SRC), "PATH": ""},
@@ -108,6 +114,40 @@ def test_compare_strategies_torch_imports_neither_jax_nor_repro():
     tops = _top_level_imports("examples/compare_strategies_torch.py")
     assert "repro_torch" in tops
     assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}
+
+
+@pytest.mark.parametrize("script", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("*_torch.py")))
+def test_torch_examples_import_neither_jax_nor_repro(script):
+    tops = _top_level_imports(script)
+    assert "repro_torch" in tops
+    assert not tops & {"jax", "jaxlib", "repro", "benchmarks"}
+
+
+def test_dry_run_and_chip_smoke_load_neither_jax_nor_repro():
+    """A dry run on a fake 2x4 mesh (the multi-device layer, the steps,
+    the roofline) and importing ``chip_smoke`` leave no JAX and no
+    ``repro`` module loaded."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "from torch.distributed.device_mesh import init_device_mesh\n"
+        "from repro_torch.launch.dryrun_lib import run_dryrun\n"
+        "from repro_torch.launch.mesh import init_fake_process_group\n"
+        "init_fake_process_group(8)\n"
+        "mesh = init_device_mesh('cpu', (2, 4), "
+        "mesh_dim_names=('data', 'model'))\n"
+        "r = run_dryrun('qwen3-4b', 'decode_32k', mesh=mesh)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+        "m.startswith('repro.'))\n"
+        "print(r['status'], bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(SRC), "PATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok []"
 
 
 def test_engine_without_cuda_raises():
