@@ -18,9 +18,16 @@ Phases, in order (all by default):
    (recurrentgemma-2b's shapes, with windowed prefills past and off its
    tiles and a decode over a full ring), and llama4-scout's decode over an
    8192-row ring (1024 rows valid, ragged, on the split edges, all valid);
-   the split-S decode also against its own algorithm in plain PyTorch
-   (``decode_attention_split_plain``), at lengths 0, 1, on a split
-   boundary and one either side of it, and with S off the split size;
+   the paper's models: G 8 (qwen2-72b, codellama2-34b) and 52 MHA heads
+   (llama-30b) at LongBench's 4096-token clip and off the tiles, decode
+   over their 8192-row caches with 2048-4096 rows valid; the 32k paths'
+   shapes: ``flash_prefill`` at T = S = 32768, causal and under an 8192
+   window, against its plain version run 512 query rows at a time, and
+   ``decode_attention`` over 8 x 32768 valid rows and llama3-8b-sw's full
+   8192-row ring; the split-S decode also against its own algorithm in
+   plain PyTorch (``decode_attention_split_plain``), at lengths 0, 1, on
+   a split boundary and one either side of it, and with S off the split
+   size;
    ``rwkv6_scan`` in f32 (o and final state) over ragged T (1, one
    either side of the kernel's 64-step chunk, up to ``max_seq_len``),
    B 8, D 64 and 128, a carried-in state, and fast decays against a
@@ -81,7 +88,9 @@ Phases, in order (all by default):
    the prefill's ring is rolled and decode wraps it; a second qwen2-vl-2b
    run puts 64 vision patches through the frontend before its prompt.
    phi3.5-moe and llama4-scout run at full width and 1 layer (the host's
-   free memory logged first), with each side's smallest top-k router
+   free memory logged first, as for the paper's llama-30b, codellama2-34b
+   and qwen2-72b at full width, 2 layers, 101-token prompts after them),
+   with each side's smallest top-k router
    margin and whether the chosen experts agree logged, then one
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
@@ -104,15 +113,22 @@ Phases, in order (all by default):
    layers (9 for
    recurrentgemma-2b's 3-block pattern; full-depth llama3-8b and
    qwen3-4b serve in phases 6 and 5's API check), then of full-width
-   phi3.5-moe at 8 of its 32 layers and llama4-scout at 4 of its 48 (two
-   whole instances do not fit the card; ``reduced`` is logged), on a
-   wall clock; every request must finish with its token count, no logit row
-   may hold a NaN or an infinity, and the launch counts of the path's
-   kernels (all set to 0 just before each run, read just after it) must
-   be > 0.  Then one
-   ``EcoServeAPI.generate`` of 4 prompts, 8 new tokens each, on
-   full-depth bf16 qwen3-4b: 8 tokens a prompt, 32 streamed, its kernels
-   launched.
+   phi3.5-moe at 4 of its 32 layers and llama4-scout at 4 of its 48 (two
+   whole instances do not fit the card; ``reduced`` is logged), then the
+   paper's models at 8 layers under their Table-4 traffic
+   (``simulator/workload.WORKLOADS``, ``max_seq_len`` 8192): llama-30b
+   under ShareGPT, codellama2-34b under LongBench, qwen2-72b under Alpaca,
+   on a wall clock; every request must finish with its token count, no
+   logit row may hold a NaN or an infinity, and the launch counts of the
+   path's kernels (all set to 0 just before each run, read just after it)
+   must be > 0.  Then one ``EcoServeAPI.generate`` of 4 prompts, 8 new
+   tokens each, on full-depth bf16 qwen3-4b: 8 tokens a prompt, 32
+   streamed, its kernels launched.  Then ``ENGINE_PATHS`` through one
+   ``ServingEngine`` each, at full depth, held to the same rules: the
+   whole 48-layer codellama2-34b on one 4096-token prompt (32 tokens), and
+   32k-token contexts (llama3-8b and llama3-8b-sw, prompts of 32704 and
+   16411 tokens, 64 tokens each, ``max_seq_len`` 32832); qwen2-72b's
+   whole instance is logged as not fitting.
 6. ``calibrate``: ``bench_calibration_torch.py``'s real backend on the
    card.  Two instances of full-width, full-depth bf16 llama3-8b serve the
    first 24 records of each checked-in trace excerpt (Azure, BurstGPT),
@@ -207,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -276,6 +293,17 @@ PHI, SCOUT = "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e"
 # the mesh phase's model and its paths in the kernel table
 QWEN32 = "qwen1.5-32b"
 MESH_SERVE, MESH_TRAIN = f"mesh {QWEN32}", f"mesh train {QWEN32} bf16"
+# the paper's own evaluation models (configs/paper_*.py), each served under
+# one of its Table-4 traffic mixes (simulator/workload.WORKLOADS)
+LLAMA30, CODELLAMA, QWEN72 = "llama-30b", "codellama2-34b", "qwen2-72b"
+PAPER_TRAFFIC = {LLAMA30: "sharegpt", CODELLAMA: "longbench",
+                 QWEN72: "alpaca"}
+# one whole paper-model instance, and the 32k-token contexts (the
+# reference's prefill_32k / decode_32k length) of llama3-8b and its
+# sliding-window variant, in the kernel table
+LLAMA_SW = "llama3-8b-sw"
+WHOLE_PATH = f"whole {CODELLAMA}"
+LONG_PATH, LONG_SW_PATH = "32k llama3-8b", f"32k {LLAMA_SW}"
 
 
 def fail(msg: str) -> None:
@@ -380,6 +408,19 @@ def tol_text(tol_name: str) -> str:
 # (BF16_EXACT_SHARE_RATIO below); f32 keeps the plain-version limit.
 QWEN32_PREFILL = ((QWEN32, MESH_SERVE), 1, 1024, 1024, 40, 40, 128, True,
                   0, 0)
+# The paper's models at LongBench's 4096-token clip: qwen2-72b's and
+# codellama2-34b's G 8 (64 heads on 8), llama-30b's 52 MHA heads; bf16
+# only, the dtype that serves them (f32 runs them in phase 4's parity at
+# 101 tokens, and phase 3 at 333).  They are held as qwen1.5-32b's prefill
+# is, decided before their first run on the card: the kernel's algorithm
+# emulated on the CPU put its
+# worst element against the plain version at 1.17 of the two-step limit at
+# T 4096 (4 heads) and 1.04 at 8192 (1 head), where T 1024 gives 0.82, the
+# card's 0.74-0.88; against the f32 attention both at the same share, the
+# output's own rounding (tests/test_torch_long_context.py)
+PAPER_PREFILLS = [
+    ((QWEN72, CODELLAMA, WHOLE_PATH), 1, 4096, 4096, 64, 8, 128, True, 0, 0),
+    ((LLAMA30,), 1, 4096, 4096, 52, 52, 128, True, 0, 0)]
 FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
     # llama3-8b's shape is qwen3-4b's and phi3.5-moe's too
     (("llama3-8b", "qwen3-4b", PHI), 1, 1024, 1024, 32, 8, 128, True, 0, 0),
@@ -416,6 +457,12 @@ FLASH_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window, q_offset
     # qwen1.5-32b: MHA, 40 heads (G 1), served and sharded (mesh phase);
     # its bf16 output is held as the training shapes' are (QWEN32_PREFILL)
     QWEN32_PREFILL,
+    # the paper's models off the tiles (their 4096-token prefills are
+    # PAPER_PREFILLS, bf16 only): G 8 (8 positions a bf16 q tile, 333
+    # leaves 5) and 52 MHA heads (52 is no multiple of the 8- or 16-row
+    # fragments)
+    (None, 1, 333, 333, 64, 8, 128, True, 0, 0),
+    (None, 1, 333, 333, 52, 52, 128, True, 0, 0),
 ]
 # f32 only: head_dim 80 (hubert-xlarge; bf16 has no D 80 kernel) and the
 # training shapes, where the f32 numbers go into the table under the
@@ -453,6 +500,21 @@ FLASH_BF16_CASES = [
     ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
     ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048, 0),
 ]
+# bf16 only, the 32k-token prefills of the 32k paths (the reference's
+# prefill_32k length): llama3-8b causal, and llama3-8b-sw's 8192 window.
+# The plain version runs over LONG_PLAIN_ROWS query rows at a time
+# (flash_prefill_plain_chunked: a 32768 x 32768 score matrix a head would
+# take 137 GB); held as PAPER_PREFILLS are (the emulation's worst element
+# against the plain version grows with T and the elements)
+LONG_FLASH_CASES = [
+    ((LONG_PATH,), 1, 32768, 32768, 32, 8, 128, True, 0, 0),
+    ((LONG_SW_PATH,), 1, 32768, 32768, 32, 8, 128, True, 8192, 0),
+]
+LONG_PLAIN_ROWS = 512
+# every bf16-only case is held to the f32 attention, and so is
+# qwen1.5-32b's prefill
+FLASH_BF16_ONLY = FLASH_BF16_CASES + PAPER_PREFILLS + LONG_FLASH_CASES
+BF16_EXACT_CASES = FLASH_BF16_ONLY + [QWEN32_PREFILL]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
     (None, 8, 2048, 32, 8, 128, "ragged"),
@@ -494,6 +556,24 @@ DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (None, 8, 8192, 40, 8, 128, 8192),
     # qwen1.5-32b: G 1 (40 kv heads), half the ring valid
     ((QWEN32, MESH_SERVE), 8, 2048, 40, 40, 128, 1024),
+    # the paper's G 8 over an 8192-row cache on the split edges
+    (None, 6, 8192, 64, 8, 128, "edges"),
+]
+# bf16 only, the dtype that serves them: the paper's models over an
+# 8192-row cache (max_seq_len 8192), rows valid as LongBench's prompts
+# leave them (2048-4096, ragged): G 8 (qwen2-72b, codellama2-34b; 8 splits
+# of 1024 rows) and llama-30b's 52 MHA heads (2 splits of 4096: 436M
+# elements a cache); the whole codellama2-34b instance (one sequence, its
+# 4096-token prompt in the 8192-row cache: 64 splits of 128 rows); the 32k
+# paths: 32768 rows, every one valid (1.07 GB of bf16 K/V, 9 splits of
+# 3712), and llama3-8b-sw's 8192-row ring at its max_batch 2, full (as
+# after the prefill that rolled it)
+DECODE_BF16_CASES = [
+    ((QWEN72, CODELLAMA), 8, 8192, 64, 8, 128, (2048, 4096)),
+    ((LLAMA30,), 8, 8192, 52, 52, 128, (2048, 4096)),
+    ((WHOLE_PATH,), 1, 8192, 64, 8, 128, 4096),
+    ((LONG_PATH,), 8, 32768, 32, 8, 128, 32768),
+    ((LONG_SW_PATH,), 2, 8192, 32, 8, 128, 8192),
 ]
 
 
@@ -508,6 +588,8 @@ def decode_lengths(rng, lens, B, S, rows):
         return [0, 1, rows - 1, rows, rows + 1, 2 * rows][:B]
     if lens == "tail":
         return [S, S - 1, (S // rows) * rows, 1][:B]
+    if isinstance(lens, tuple):                  # (lo, hi): ragged within
+        return [int(x) for x in rng.integers(lens[0], lens[1] + 1, B)]
     return [lens] * B
 
 
@@ -533,6 +615,25 @@ def sdpa_mask(torch, T, S, causal, window, q_offset, device):
     return m
 
 
+# inputs larger than this are drawn on the card, from a generator seeded
+# by the run's numpy stream: numpy takes seconds for each of the long
+# cases' 134M-436M elements (no case before them exceeds 84M)
+HOST_DRAW_MAX = 1 << 27
+
+
+def card_randn(torch, rng, shape, dtype):
+    """Standard normal f32 draws of ``shape`` on the card, as ``dtype``."""
+    n = 1
+    for d in shape:
+        n *= d
+    if n <= HOST_DRAW_MAX:
+        x = rng.standard_normal(shape, "float32")
+        return torch.from_numpy(x).to("cuda", dtype)
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 62)))
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
 def record(results, name, paths, **numbers):
     """Keep a kernel's numbers at the main shape of served ``paths``."""
     for path in paths or ():
@@ -550,8 +651,7 @@ def run_kernels(torch, rng, results):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def randn(shape, dtype):
-        x = rng.standard_normal(shape, "float32")
-        return torch.from_numpy(x).to(dev, dtype)
+        return card_randn(torch, rng, shape, dtype)
 
     all_ok = True
     for dtype in (torch.bfloat16, torch.float32):
@@ -559,21 +659,23 @@ def run_kernels(torch, rng, results):
         esize = torch.finfo(dtype).bits // 8
         f32 = dtype == torch.float32
         for case in FLASH_CASES + (FLASH_F32_CASES if f32
-                                   else FLASH_BF16_CASES):
+                                   else FLASH_BF16_ONLY):
             paths, B, T, S, Hq, Hkv, D, causal, window, off = case
             q = randn((B, T, Hq, D), dtype)
             k = randn((B, S, Hkv, D), dtype)
             v = randn((B, S, Hkv, D), dtype)
             kw = dict(causal=causal, window=window, q_offset=off)
+            long = case in LONG_FLASH_CASES
+            plain = (functools.partial(FP.flash_prefill_plain_chunked,
+                                       rows=LONG_PLAIN_ROWS)
+                     if long else FP.flash_prefill_plain)
             got = FP.flash_prefill(q, k, v, **kw)
-            want = FP.flash_prefill_plain(q, k, v, **kw)
+            want, want_lse = plain(q, k, v, **kw, return_lse=True)
             torch.cuda.synchronize()
             ok, err, share = compare(torch, got, want, dn)
             exact_text = ""
-            if case in FLASH_BF16_CASES or (not f32
-                                            and case == QWEN32_PREFILL):
-                exact = FP.flash_prefill_plain(q.float(), k.float(),
-                                               v.float(), **kw)
+            if not f32 and case in BF16_EXACT_CASES:
+                exact = plain(q.float(), k.float(), v.float(), **kw)
                 shares = [compare(torch, x, exact, dn)[2]
                           for x in (got, want)]
                 exact_text = (f"; held instead to the f32 attention of the "
@@ -588,8 +690,6 @@ def run_kernels(torch, rng, results):
             # summed in f32 on both sides), and the output unchanged by it
             got2, lse = FP._forward_kernel(q, k, v, causal, window, off,
                                            True)
-            _, want_lse = FP.flash_prefill_plain(q, k, v, **kw,
-                                                 return_lse=True)
             torch.cuda.synchronize()
             empty = torch.isinf(want_lse)
             same_empty = torch.equal(empty, torch.isinf(lse)) and bool(
@@ -605,8 +705,10 @@ def run_kernels(torch, rng, results):
             ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
             lse_dev_ms = cuda_ms(torch, lambda: FP._forward_kernel(
                 q, k, v, causal, window, off, True), spin=True)
-            plain_ms = cuda_ms(
-                torch, lambda: FP.flash_prefill_plain(q, k, v, **kw))
+            # (a 32k case's plain version takes about a second a call and
+            # SDPA with a 32768 x 32768 mask 63 ms: 3 calls each)
+            few = dict(iters=3, warmup=1) if long else {}
+            plain_ms = cuda_ms(torch, lambda: plain(q, k, v, **kw), **few)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # (a window that no query position reaches masks nothing)
             if causal and not off and S == T and (not window
@@ -617,14 +719,17 @@ def run_kernels(torch, rng, results):
                 mask = sdpa_mask(torch, T, S, causal, window, off, dev)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            lib_ms, lib_dev_ms = cuda_ms(torch, lib), cuda_ms(torch, lib,
-                                                              spin=True)
+            lib_ms = cuda_ms(torch, lib, **few)
+            lib_dev_ms = cuda_ms(torch, lib, spin=True, **few)
             nbytes = esize * (2 * B * T * Hq * D + 2 * B * S * Hkv * D)
             ops = 4 * D * B * Hq * flash_pairs(T, S, causal, window, off)
             b_ms, b_by = bound(nbytes, ops, dn)
             all_ok &= ok
+            chunks = (f" (plain version over {LONG_PLAIN_ROWS}-row chunks)"
+                      if long else "")
             log(f"flash_prefill {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
-                f"D={D} causal={causal} window={window} q_offset={off}: "
+                f"D={D} causal={causal} window={window} q_offset={off}"
+                f"{chunks}: "
                 f"max_abs_err={err:.3e} ({tol_text(dn)}; worst element at "
                 f"{share:.3f} of its limit{exact_text}{lse_text}) "
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
@@ -640,7 +745,7 @@ def run_kernels(torch, rng, results):
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
                        library_device_ms=lib_dev_ms)
-        for case in DECODE_CASES:
+        for case in DECODE_CASES + ([] if f32 else DECODE_BF16_CASES):
             paths, B, S, Hq, Hkv, D, lens = case
             q = randn((B, Hq, D), dtype)
             kc = randn((B, S, Hkv, D), dtype)
@@ -1448,14 +1553,17 @@ def greedy(torch, params, cfg, prompt, n_new, device, patches=None):
 # chunks, recurrentgemma-2b's against rglru_scan's 16-step chunks and
 # flash_prefill's 6-position query tiles; chatglm3-6b's and qwen2-vl-2b's
 # against flash_prefill's 4- and 10-position query tiles (G 16 and 6);
-# llama4-scout's against its 12-position tiles (G 5)
+# llama4-scout's against its 12-position tiles (G 5); the paper's models'
+# against the f32 kernel's 16-position tiles at G 8 and inside one
+# 128-position tile at G 1 (llama-30b)
 PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190,
                  "qwen3-4b": 77, "chatglm3-6b": 101, "qwen2-vl-2b": 77,
-                 PHI: 77, SCOUT: 101}
+                 PHI: 77, SCOUT: 101, **dict.fromkeys(PAPER_TRAFFIC, 101)}
 # layers of the parity runs: 2, recurrentgemma-2b's one full (RG-LRU,
 # RG-LRU, local attention) cycle, or 1 for the MoE models (llama4-scout's
 # f32 weights are 16.6 GB a side at one layer, 8.1 GB of them the
-# 202048-row embedding and head)
+# 202048-row embedding and head; qwen2-72b's are 17.0 GB a side at 2
+# layers, 10.0 of them its 152064-row embedding and head)
 PARITY_LAYERS = {"recurrentgemma-2b": 3, PHI: 1, SCOUT: 1}
 # (arch, reduced sliding window or None, vision patches before the prompt):
 # the second recurrentgemma-2b run cuts the window to 128 under its
@@ -1466,7 +1574,8 @@ PARITY_RUNS = [("llama3-8b", None, 0), ("rwkv6-3b", None, 0),
                ("recurrentgemma-2b", None, 0), ("recurrentgemma-2b", 128, 0),
                ("qwen3-4b", None, 0), ("chatglm3-6b", None, 0),
                ("qwen2-vl-2b", None, 0), ("qwen2-vl-2b", None, 64),
-               (PHI, None, 0), (SCOUT, None, 0)]
+               (PHI, None, 0), (SCOUT, None, 0),
+               *((arch, None, 0) for arch in PAPER_TRAFFIC)]
 
 
 def host_free_gb() -> float:
@@ -1551,7 +1660,7 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
     if window:
         cfg = dataclasses.replace(cfg, sliding_window=window)
-    if cfg.is_moe:
+    if cfg.is_moe or arch in PAPER_TRAFFIC:
         log(f"parity {arch}: {host_free_gb():.1f} GB of host memory free "
             f"before {cfg.param_count() * 4 / 1e9:.1f} GB of f32 weights on "
             "each side")
@@ -1837,21 +1946,34 @@ PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
                 "qwen2-vl-2b": ("flash_prefill", "decode_attention"),
                 QWEN32: ("flash_prefill", "decode_attention"),
                 PHI: ("flash_prefill", "decode_attention"),
-                SCOUT: ("flash_prefill", "decode_attention")}
+                SCOUT: ("flash_prefill", "decode_attention"),
+                LLAMA30: ("flash_prefill", "decode_attention"),
+                CODELLAMA: ("flash_prefill", "decode_attention"),
+                QWEN72: ("flash_prefill", "decode_attention")}
 # depth of the served models.  2 instances of the whole MoE models do not
 # fit one 80 GB card (83.7 GB and 203.5 GB of bf16 weights each), so they
-# serve at their published width with 8 of 32 and 4 of 48 layers (21.3 and
-# 20.8 GB an instance).  The dense models serve at their published width
-# with 8 layers (recurrentgemma-2b 9: three whole cycles of its 3-block
-# pattern), so that the whole run stays well inside its time limit (with
-# the bf16 training runs it took 1025.5 s of 1200 at full depth): a served
+# serve at their published width with 4 of 32 and 4 of 48 layers (10.9 and
+# 20.8 GB an instance; phi3.5-moe served 8 layers, 21.3 GB, until the
+# paper's models joined and the run's time limit asked for its host-bound
+# MoE steps: its serve took 25-35 s of wall at 8 layers).  The dense
+# models serve at their published width with 8 layers (recurrentgemma-2b
+# 9: three whole cycles of its 3-block pattern), so that the whole run
+# stays well inside its time limit (with the bf16 training runs it took
+# 1025.5 s of 1200 at full depth): a served
 # step launches each kernel once a layer, and full-depth llama3-8b and
 # qwen3-4b still serve in the calibrate phase and the API check.
 # qwen1.5-32b (70.4 GB of bf16 weights: two whole instances do not fit
-# either) serves at 8 of its 64 layers, 11.5 GB an instance
-SERVE_LAYERS = {PHI: 8, SCOUT: 4, "llama3-8b": 8, "rwkv6-3b": 8,
+# either) serves at 8 of its 64 layers, 11.5 GB an instance.  So do the
+# paper's models (65.1, 67.5 and 145.4 GB an instance whole), at 8 of 60,
+# 48 and 80 layers (9.4, 12.2 and 19.1 GB an instance), under their
+# Table-4 traffic at max_seq_len PAPER_SEQ_LEN
+SERVE_LAYERS = {PHI: 4, SCOUT: 4, "llama3-8b": 8, "rwkv6-3b": 8,
                 "recurrentgemma-2b": 9, "qwen3-4b": 8, "chatglm3-6b": 8,
-                "qwen2-vl-2b": 8, QWEN32: 8}
+                "qwen2-vl-2b": 8, QWEN32: 8, LLAMA30: 8, CODELLAMA: 8,
+                QWEN72: 8}
+# Table-4's prompts clip at 4096 and its outputs at 2048, and the engine
+# stops a request at max_seq_len - 1: 4096 + 2048 + 1 rows fit in 8192
+PAPER_SEQ_LEN = 8192
 
 
 def kernel_wrappers():
@@ -1869,6 +1991,34 @@ def kernel_wrappers():
             "rglru_scan_bwd": rglru_scan_bwd}
 
 
+class FiniteCheck:
+    """While installed, counts non-finite logits of the engines' forward
+    on the device, read once after the run: the last position's row of
+    every slot, the one the engine takes its argmax of (two small device
+    ops per step beside the model's thousands)."""
+
+    def __init__(self, torch):
+        import repro_torch.serving.engine as engine_mod
+        self.torch, self.engine_mod = torch, engine_mod
+        self.real = engine_mod.forward
+        self.n = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        def checked(*args, **kwargs):
+            logits, cache = self.real(*args, **kwargs)
+            self.n.add_((~self.torch.isfinite(logits[:, -1])).sum())
+            return logits, cache
+        self.engine_mod.forward = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.engine_mod.forward = self.real
+
+    @property
+    def count(self) -> int:
+        return int(self.n)
+
+
 def run_serve(torch, rng, seed, arch):
     import numpy as np
 
@@ -1883,39 +2033,41 @@ def run_serve(torch, rng, seed, arch):
     reduced = ""
     if arch in SERVE_LAYERS:
         why = ("2 instances of the whole model do not fit the card"
-               if arch in (PHI, SCOUT, QWEN32) else "the run's time limit")
+               if arch in (PHI, SCOUT, QWEN32, *PAPER_TRAFFIC)
+               else "the run's time limit")
         reduced = f" (reduced from {cfg.num_layers}: {why})"
         cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
-    econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=2048,
+    traffic = PAPER_TRAFFIC.get(arch)
+    seq_len = PAPER_SEQ_LEN if traffic else 2048
+    econf = engine_mod.EngineConfig(max_batch=8, max_seq_len=seq_len,
                                     dtype=torch.bfloat16, eos_token=-1,
                                     device="cuda")
     # arrivals and lengths first, so that every path serves the same trace
-    # (how many draws the tokens take depends on the vocabulary's size)
-    shape, t = [], 0.0
-    for i in range(16):
-        shape.append((t, int(rng.integers(128, 1025)),
-                      int(rng.integers(16, 65))))
-        t += float(rng.exponential(1.0 / 4.0))
+    # (how many draws the tokens take depends on the vocabulary's size);
+    # a paper model's lengths from its Table-4 profile
+    if traffic:
+        from repro_torch.simulator.workload import WORKLOADS
+        times = np.concatenate([[0.0], np.cumsum(
+            rng.exponential(1.0 / 4.0, 15))])
+        profile = WORKLOADS[traffic]
+        ins = profile.input_dist.sample(rng, 16)
+        outs = profile.output_dist.sample(rng, 16)
+        shape = [(float(t), int(i), int(o))
+                 for t, i, o in zip(times, ins, outs)]
+    else:
+        traffic = "uniform 128-1024 / 16-64"
+        shape, t = [], 0.0
+        for i in range(16):
+            shape.append((t, int(rng.integers(128, 1025)),
+                          int(rng.integers(16, 65))))
+            t += float(rng.exponential(1.0 / 4.0))
     reqs = [Request(rid=i, arrival_time=t, prompt_len=plen, output_len=out,
                     prompt_tokens=[int(x) for x in
                                    rng.integers(2, cfg.vocab_size - 1, plen)])
             for i, (t, plen, out) in enumerate(shape)]
 
-    # count non-finite logits on the device, read once after the run; the
-    # last position's row of every slot, the one the engine takes its
-    # argmax of (two small device ops per step beside the model's
-    # thousands)
-    nonfinite = torch.zeros((), dtype=torch.int64, device="cuda")
-    real_forward = engine_mod.forward
-
-    def checked_forward(*args, **kwargs):
-        logits, cache = real_forward(*args, **kwargs)
-        nonfinite.add_((~torch.isfinite(logits[:, -1])).sum())
-        return logits, cache
-
     wrappers = kernel_wrappers()
-    engine_mod.forward = checked_forward
-    try:
+    with FiniteCheck(torch) as nonfinite:
         t0 = time.perf_counter()
         gc.collect()          # an earlier serve's engines, cycles included
         torch.cuda.empty_cache()
@@ -1931,24 +2083,27 @@ def run_serve(torch, rng, seed, arch):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in wrappers.items()}
+            kv_gb = sum(x.numel() * x.element_size() for x in
+                        server.instances[0].engine.engine.cache.values()
+                        ) / 1e9
         del server
-    finally:
-        engine_mod.forward = real_forward
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     summary = stats.summary()
     log(f"serve {arch} bf16, {cfg.num_layers} layers{reduced}, "
         f"{cfg.param_count() / 1e9:.2f}B parameters, 2 instances, max_batch"
-        f" 8, max_seq_len 2048: {len(reqs)} requests, prompts "
-        f"{sum(r.prompt_len for r in reqs)} tokens, outputs "
-        f"{sum(r.output_len for r in reqs)} tokens")
+        f" 8, max_seq_len {seq_len} ({kv_gb:.2f} GB of KV cache an "
+        f"instance): {len(reqs)} requests ({traffic}, Poisson at 4 req/s),"
+        f" prompts {sum(r.prompt_len for r in reqs)} tokens (longest "
+        f"{max(r.prompt_len for r in reqs)}), outputs "
+        f"{sum(r.output_len for r in reqs)} tokens (longest "
+        f"{max(r.output_len for r in reqs)})")
     log(f"serve {arch} summary {json.dumps(summary)}")
     log(f"serve {arch} wall_s={wall:.2f} (host clock) init_s={t_init:.2f} "
         f"peak_device_gb={peak_gb:.2f} launches={json.dumps(launches)}")
     log(f"serve {arch} steps (host clock): {steps.summary(np)}")
-    n_bad = int(nonfinite)
-    if n_bad:
-        fail(f"serve {arch}: {n_bad} non-finite logits")
+    if nonfinite.count:
+        fail(f"serve {arch}: {nonfinite.count} non-finite logits")
     if summary["finished"] != len(reqs) or stats.rejected:
         fail(f"serve {arch}: {summary['finished']} of {len(reqs)} finished")
     short = [r.rid for r in stats.finished
@@ -2009,6 +2164,104 @@ def run_api(torch, seed, arch=API_ARCH):
     for name in PATH_KERNELS[arch]:
         if launches[name] <= 0:
             fail(f"api {arch}: kernel {name} was never launched")
+
+
+# paths that drive one ServingEngine straight (no scheduler): one whole
+# codellama2-34b instance (48 layers, 67.5 GB of bf16 weights: the largest
+# paper model whose whole instance one 80 GB card holds) on one LongBench
+# prompt at its 4096-token clip; and the 32k-token contexts at full depth,
+# two ragged prompts at max_batch 2 (llama3-8b-sw's 8192-row ring rolled
+# by the prefills, overwritten in place by decode).  The prefill's logits
+# are 32704 x 128256 in bf16 (8.4 GB): the reference computes logits at
+# every position, and the port does as it does.
+# path -> (arch, max_batch, max_seq_len, prompt lengths, tokens a request)
+ENGINE_PATHS = {WHOLE_PATH: (CODELLAMA, 1, PAPER_SEQ_LEN, (4096,), 32),
+                LONG_PATH: ("llama3-8b", 2, 32832, (32704, 16411), 64),
+                LONG_SW_PATH: (LLAMA_SW, 2, 32832, (32704, 16411), 64)}
+ENGINE_KERNELS = {path: ("flash_prefill", "decode_attention")
+                  for path in ENGINE_PATHS}
+
+
+def run_engine_path(torch, rng, seed, path):
+    """ENGINE_PATHS[path] in bf16 at full width and depth: every prompt
+    prefilled, then decode steps until each request has its tokens (greedy),
+    no logit row non-finite, the path's kernels launched (counts set to 0
+    just before the prefills, read after the last step)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    arch, max_batch, seq_len, prompts, n_new = ENGINE_PATHS[path]
+    cfg = get_config(arch)
+    econf = EngineConfig(max_batch=max_batch, max_seq_len=seq_len,
+                         dtype=torch.bfloat16, eos_token=-1, device="cuda")
+    reqs = [Request(rid=i, arrival_time=0.0, prompt_len=n, output_len=n_new,
+                    prompt_tokens=[int(x) for x in rng.integers(
+                        2, cfg.vocab_size - 1, n)])
+            for i, n in enumerate(prompts)]
+    wrappers = kernel_wrappers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = StepLog()
+    with FiniteCheck(torch) as nonfinite:
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, seed=seed, econf=econf, recorder=steps)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        kv_gb = sum(x.numel() * x.element_size()
+                    for x in eng.cache.values()) / 1e9
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.prefill(r)
+        while eng.decode_step():
+            pass
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        del eng
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = (f", window {cfg.sliding_window} (a ring of that many rows)"
+              if cfg.sliding_window else "")
+    log(f"{path}: {arch} bf16 at full width and depth ({cfg.num_layers} "
+        f"layers, {cfg.param_count() / 1e9:.2f}B parameters{window}), one "
+        f"ServingEngine, max_batch {max_batch}, max_seq_len {seq_len} "
+        f"({kv_gb:.2f} GB of KV cache): prompts {list(prompts)}, {n_new} "
+        f"greedy tokens each; wall_s={wall:.2f} (host clock) "
+        f"init_s={t_init:.2f} peak_device_gb={peak_gb:.2f} "
+        f"launches={json.dumps(launches)}")
+    log(f"{path} steps (host clock): {steps.summary(np)}")
+    for r in reqs:
+        log(f"{path} request {r.rid} (prompt {r.prompt_len}): first tokens "
+            f"{r.generated[:8]}")
+    if nonfinite.count:
+        fail(f"{path}: {nonfinite.count} non-finite logits")
+    short = [r.rid for r in reqs if len(r.generated) != n_new
+             or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+    if short:
+        fail(f"{path}: requests {short} lack tokens")
+    for name in ENGINE_KERNELS[path]:
+        if launches[name] <= 0:
+            fail(f"{path}: kernel {name} was never launched on its path")
+    return {name: launches[name] for name in ENGINE_KERNELS[path]}
+
+
+def log_unfit(torch):
+    """qwen2-72b's whole instance is not run: its bf16 weights alone are
+    more than the card holds (the 4-card sharded serve is the
+    multi-device layer's measurement)."""
+    from repro_torch.configs import get_config
+
+    need = get_config(QWEN72).param_count() * 2 / 1e9
+    have = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"whole {QWEN72}: not run: {need:.1f} GB of bf16 weights an "
+        f"instance against the card's {have:.1f} GB")
 
 
 # --------------------------------------------------------------------- #
@@ -2773,8 +3026,8 @@ def kernel_row(name, numbers, counts):
     the first served path that runs it, launches summed over the runs
     (None when no serve ran), and each path's own numbers and launches
     under ``paths``."""
-    paths = [arch for arch, names in {**PATH_KERNELS, **CALIBRATE_KERNELS,
-                                      **TRAIN_KERNELS,
+    paths = [arch for arch, names in {**PATH_KERNELS, **ENGINE_KERNELS,
+                                      **CALIBRATE_KERNELS, **TRAIN_KERNELS,
                                       **MESH_KERNELS}.items()
              if name in names]
     first = numbers.get(paths[0], dict.fromkeys(NUMBER_KEYS))
@@ -2861,6 +3114,12 @@ def main() -> None:
             for name, n in counts.items():
                 launches.setdefault(name, {})[arch] = n
         run_api(torch, args.seed)
+        for path in ENGINE_PATHS:
+            counts = run_engine_path(torch, np.random.default_rng(args.seed),
+                                     args.seed, path)
+            for name, n in counts.items():
+                launches.setdefault(name, {})[path] = n
+        log_unfit(torch)
         phase_done("serve")
     if "calibrate" in phases:
         for name, n in run_calibrate(torch, args.seed, smi).items():

@@ -100,6 +100,31 @@ def flash_prefill_plain(q, k, v, *, causal=True, window=0, q_offset=0,
     return o
 
 
+def flash_prefill_plain_chunked(q, k, v, *, causal=True, window=0,
+                                q_offset=0, rows=512, return_lse=False):
+    """``flash_prefill_plain`` over ``rows`` query rows at a time, each
+    chunk against the keys its masks can open (from the first row's
+    window start to the last row's causal end) with its own ``q_offset``,
+    so that no score matrix is larger than (B, Hq, rows, S): the plain
+    version at T = S = 32768, where the whole one would take 137 GB.  The
+    same rows, maxima and keys as the unchunked version; the sums run over
+    the opened keys only (tests/test_torch_long_context.py)."""
+    T, S = q.shape[1], k.shape[1]
+    outs, lses = [], []
+    for r0 in range(0, T, rows):
+        r1 = min(T, r0 + rows)
+        p_lo, p_hi = q_offset + r0, q_offset + r1 - 1
+        k1 = max(1, min(S, p_hi + 1)) if causal else S
+        k0 = max(0, min(p_lo - window + 1, k1 - 1)) if window else 0
+        o, lse = flash_prefill_plain(q[:, r0:r1], k[:, k0:k1], v[:, k0:k1],
+                                     causal=causal, window=window,
+                                     q_offset=p_lo - k0, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    o = torch.cat(outs, 1)
+    return (o, torch.cat(lses, -1)) if return_lse else o
+
+
 def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):
     """(dq, dk, dv): autograd of ``flash_prefill_plain`` (q_offset 0)."""
     with torch.enable_grad():
