@@ -57,12 +57,18 @@ Phases, in order (all by default):
    of the plain version on the card, in f32 at D 64 / 80 / 128 / 256, G 1
    / 4 / 10 / 16, causal / bidirectional / window, T off the tiles, at D
    256 with its dK/dV launch split over 4 and 3 q-tile ranges and not
-   split, and at the three training shapes, and in bf16 (each element at
+   split, at the three training shapes and qwen2-vl-2b's (G 6, for its
+   f32-promoted patch path), and in bf16 (each element at
    ``TOL["grad_bf16"]``, each gradient within ``GRAD_BF16_REL_L2``
-   relative L2) at llama3-8b's and recurrentgemma-2b's training shapes, D
-   64 ragged and bidirectional, G 16 under a window, rows with no key and
-   D 256 split over 3 ranges, with the time of autograd's backward
-   through ``scaled_dot_product_attention`` beside it.  The scans'
+   relative L2) at the bf16 training shapes: llama3-8b's (also qwen3-4b's
+   and phi3.5-moe's), recurrentgemma-2b's, chatglm3-6b's (G 16 on 2 kv
+   heads, its dK/dV launch split over 4 ranges at D 128), qwen2-vl-2b's
+   (G 6) and llama4-scout's G 5 under its 8192 window at T 16384 (held
+   to the f32 gradient of the same inputs, see ``BWD_LONG_T``), then D 64
+   ragged and
+   bidirectional, G 16 under a window, rows with no key and D 256 split
+   over 3 ranges, with the time of autograd's backward through
+   ``scaled_dot_product_attention`` beside it.  The scans'
    backward kernels (``rwkv6_scan_bwd``, ``rglru_scan_bwd``) at their
    training shapes and off them, against autograd of the plain versions,
    and ``rwkv6_scan_bwd`` under fast decays and w under its clamp against
@@ -94,18 +100,24 @@ Phases, in order (all by default):
    margin and whether the chosen experts agree logged, then one
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
-   Train parity: hubert-xlarge, llama3-8b and rwkv6-3b at full width, 2
-   layers, and recurrentgemma-2b at full width, 3 layers, f32, then
-   llama3-8b and recurrentgemma-2b again in bf16 (through the bf16
-   backward kernel), one sequence of 256 frames / tokens: one training
+   Train parity: hubert-xlarge, rwkv6-3b, qwen3-4b, chatglm3-6b and
+   qwen2-vl-2b at full width, 2 layers, llama3-8b at 1 and
+   recurrentgemma-2b at 3, f32, then llama3-8b, recurrentgemma-2b, qwen3-4b,
+   chatglm3-6b and qwen2-vl-2b again in bf16 (through the bf16 backward
+   kernel), and qwen2-vl-2b's bf16 weights with 64 f32 vision patches
+   before its tokens (computing in f32, through the f32 kernels), then
+   phi3.5-moe and llama4-scout at full width, 1 layer, f32 (the host's
+   free memory logged first; their routing logged on both sides, the
+   chosen experts equal in every call of the forward and the
+   recomputation), one sequence of 256 frames / tokens: one training
    step (loss, gradients, AdamW) with the kernels on the card against the
    same step with the plain versions on the CPU, from the same weights:
    the loss, every gradient leaf (in bf16 by its relative L2 difference)
    and every parameter after the update within stated limits (compared
-   on the card), the card's
-   backward and update under ``set_sync_debug_mode("error")``, and each
-   kernel's launches (per layer its forward kernel twice, its backward
-   kernel once).
+   on the card leaf by leaf), the card's backward and update (the MoE
+   backward's capacity cumsum and scatters included) under
+   ``set_sync_debug_mode("error")``, and each kernel's launches (per
+   layer its forward kernel twice, its backward kernel once).
 5. ``serve``: the main paths.  ``PaDGServer(backend="real")`` serves 16
    requests on two instances (``max_batch`` 8, ``max_seq_len`` 2048) of
    bf16 llama3-8b, then of rwkv6-3b, recurrentgemma-2b, qwen3-4b,
@@ -113,9 +125,9 @@ Phases, in order (all by default):
    layers (9 for
    recurrentgemma-2b's 3-block pattern; full-depth llama3-8b and
    qwen3-4b serve in phases 6 and 5's API check), then of full-width
-   phi3.5-moe at 4 of its 32 layers and llama4-scout at 4 of its 48 (two
+   phi3.5-moe at 2 of its 32 layers and llama4-scout at 2 of its 48 (two
    whole instances do not fit the card; ``reduced`` is logged), then the
-   paper's models at 8 layers under their Table-4 traffic
+   paper's models at 4 layers under their Table-4 traffic
    (``simulator/workload.WORKLOADS``, ``max_seq_len`` 8192): llama-30b
    under ShareGPT, codellama2-34b under LongBench, qwen2-72b under Alpaca,
    on a wall clock; every request must finish with its token count, no
@@ -188,9 +200,15 @@ Phases, in order (all by default):
    ``TRAIN_BF16_FIRST_LOSS_RTOL`` of its f32 twin's, and whether the loss
    falls (printed; the reference rounds each update into bf16 parameters
    as the port does); hubert-xlarge keeps bf16 weights and computes in
-   f32 from its f32 frames on, as the reference promotes them.  Then
-   ``python -m repro_torch.launch.train --arch <arch> --steps 3 --device
-   cuda`` for llama3-8b and rwkv6-3b.
+   f32 from its f32 frames on, as the reference promotes them.  Then the
+   five decoders that train in bf16 only, at full width: qwen3-4b and
+   chatglm3-6b at 8 layers, qwen2-vl-2b whole (28), 4 x 1024 tokens;
+   phi3.5-moe at 2 layers, 4 x 1024; llama4-scout at 1 layer, 1 x 2048
+   (``reduced`` logged), 3 steps each, the same printout and launch
+   check, each first loss held within ``TRAIN_BF16_FIRST_LOSS_RTOL`` of an
+   f32 forward of the same first batch from the same seed's weights.
+   Then ``python -m repro_torch.launch.train --arch <arch> --steps 3
+   --device cuda`` for llama3-8b, rwkv6-3b and qwen3-4b, side by side.
 9. ``mesh``: the multi-device layer on the card's 1x1 NCCL mesh (one
    card holds one NCCL rank; ``launch.mesh.make_card_mesh``).
    qwen1.5-32b at full width with 8 of its 64 layers, bf16 weights from
@@ -323,7 +341,12 @@ def log(msg: str) -> None:
 SPIN_CYCLES = 10_000_000
 
 
-def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
+# timed calls a measurement: 10, so that the run keeps inside its time
+# limit with every training path
+TIMED_CALLS = 10
+
+
+def cuda_ms(torch, fn, iters: int = TIMED_CALLS, warmup: int = 2,
             spin: bool = False) -> float:
     """Mean time of ``fn`` over ``iters`` back-to-back calls on CUDA
     events: with the host's launch overhead wherever a call is shorter on
@@ -343,7 +366,7 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3,
     return start.elapsed_time(stop) / iters
 
 
-def cuda_ms_cold(torch, fn, flush, iters: int = 20) -> float:
+def cuda_ms_cold(torch, fn, flush, iters: int = TIMED_CALLS) -> float:
     """Mean device time of ``fn`` with the L2 cache flushed before each
     call (``flush`` is a device buffer larger than the 50 MB L2), as a
     decode step finds it after the layer's weights went through."""
@@ -472,6 +495,11 @@ TRAIN_RWKV, TRAIN_RG = "train rwkv6-3b", "train recurrentgemma-2b"
 TRAIN_HUBERT_BF16, TRAIN_LLAMA_BF16 = (f"{TRAIN_HUBERT} bf16",
                                        f"{TRAIN_LLAMA} bf16")
 TRAIN_RWKV_BF16, TRAIN_RG_BF16 = f"{TRAIN_RWKV} bf16", f"{TRAIN_RG} bf16"
+# the five decoders that train in bf16 only (phase 8)
+TRAIN_QWEN3_BF16, TRAIN_GLM_BF16 = ("train qwen3-4b bf16",
+                                    "train chatglm3-6b bf16")
+TRAIN_VL_BF16 = "train qwen2-vl-2b bf16"
+TRAIN_PHI_BF16, TRAIN_SCOUT_BF16 = f"train {PHI} bf16", f"train {SCOUT} bf16"
 FLASH_F32_CASES = [
     ((TRAIN_HUBERT,), 8, 1024, 1024, 16, 16, 80, False, 0, 0),
     (None, 1, 333, 333, 16, 16, 80, True, 0, 0),
@@ -497,7 +525,9 @@ FLASH_F32_CASES = [
 # the output's own bf16 rounding and p's take past two bf16 steps.)
 BF16_EXACT_SHARE_RATIO = 1.1
 FLASH_BF16_CASES = [
-    ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0, 0),
+    # (qwen3-4b's and phi3.5-moe's training shape too: 32 heads on 8)
+    ((TRAIN_LLAMA_BF16, TRAIN_QWEN3_BF16, TRAIN_PHI_BF16), 4, 1024, 1024, 32,
+     8, 128, True, 0, 0),
     ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048, 0),
 ]
 # bf16 only, the 32k-token prefills of the 32k paths (the reference's
@@ -547,19 +577,11 @@ DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (None, 4, 1000, 12, 2, 128, "tail"),
     (None, 4, 333, 32, 2, 128, "ragged"),
     (None, 4, 333, 12, 2, 128, "ragged"),
-    # llama4-scout: G = 5 over its S = 8192 ring (local attention keeps
-    # the whole window whatever max_seq_len is): 1024 valid rows, ragged,
-    # the split edges, and every row valid (as after a wrap)
-    ((SCOUT,), 8, 8192, 40, 8, 128, 1024),
-    (None, 8, 8192, 40, 8, 128, "ragged"),
-    (None, 6, 8192, 40, 8, 128, "edges"),
-    (None, 8, 8192, 40, 8, 128, 8192),
     # qwen1.5-32b: G 1 (40 kv heads), half the ring valid
     ((QWEN32, MESH_SERVE), 8, 2048, 40, 40, 128, 1024),
-    # the paper's G 8 over an 8192-row cache on the split edges
-    (None, 6, 8192, 64, 8, 128, "edges"),
 ]
-# bf16 only, the dtype that serves them: the paper's models over an
+# bf16 only, the dtype that serves them (the run's time limit keeps these
+# large caches out of f32): llama4-scout's ring, the paper's models over an
 # 8192-row cache (max_seq_len 8192), rows valid as LongBench's prompts
 # leave them (2048-4096, ragged): G 8 (qwen2-72b, codellama2-34b; 8 splits
 # of 1024 rows) and llama-30b's 52 MHA heads (2 splits of 4096: 436M
@@ -569,6 +591,16 @@ DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
 # 3712), and llama3-8b-sw's 8192-row ring at its max_batch 2, full (as
 # after the prefill that rolled it)
 DECODE_BF16_CASES = [
+    # llama4-scout: G = 5 over its S = 8192 ring (local attention keeps
+    # the whole window whatever max_seq_len is; its f32 parity decodes
+    # over a short cache): 1024 valid rows, ragged, the split edges, and
+    # every row valid (as after a wrap)
+    ((SCOUT,), 8, 8192, 40, 8, 128, 1024),
+    (None, 8, 8192, 40, 8, 128, "ragged"),
+    (None, 6, 8192, 40, 8, 128, "edges"),
+    (None, 8, 8192, 40, 8, 128, 8192),
+    # the paper's G 8 over an 8192-row cache on the split edges
+    (None, 6, 8192, 64, 8, 128, "edges"),
     ((QWEN72, CODELLAMA), 8, 8192, 64, 8, 128, (2048, 4096)),
     ((LLAMA30,), 8, 8192, 52, 52, 128, (2048, 4096)),
     ((WHOLE_PATH,), 1, 8192, 64, 8, 128, 4096),
@@ -687,9 +719,11 @@ def run_kernels(torch, rng, results):
                     shares[0] <= BF16_EXACT_SHARE_RATIO * shares[1])
             # the log-sum-exp the backward reads (f32 in both dtypes, held
             # to the f32 limit: the scores' products are exact in f32 and
-            # summed in f32 on both sides), and the output unchanged by it
-            got2, lse = FP._forward_kernel(q, k, v, causal, window, off,
-                                           True)
+            # summed in f32 on both sides), and the output unchanged by it;
+            # in bf16 the f32 output the backward reads, which must round
+            # to the bf16 output
+            got2, lse, o_grad = FP._forward_kernel(q, k, v, causal, window,
+                                                   off, True)
             torch.cuda.synchronize()
             empty = torch.isinf(want_lse)
             same_empty = torch.equal(empty, torch.isinf(lse)) and bool(
@@ -697,7 +731,8 @@ def run_kernels(torch, rng, results):
             ok_l, err_l, share_l = compare(
                 torch, lse.masked_fill(empty, 0.0),
                 want_lse.masked_fill(empty, 0.0), "float32")
-            ok = ok and ok_l and same_empty and torch.equal(got, got2)
+            ok = (ok and ok_l and same_empty and torch.equal(got, got2)
+                  and torch.equal(o_grad.to(dtype), got))
             lse_text = (f"; lse max_abs_err={err_l:.3e} ({share_l:.3f} of "
                         f"its limit), {int(empty.sum())} empty rows -inf on "
                         f"both sides: {same_empty}")
@@ -706,8 +741,8 @@ def run_kernels(torch, rng, results):
             lse_dev_ms = cuda_ms(torch, lambda: FP._forward_kernel(
                 q, k, v, causal, window, off, True), spin=True)
             # (a 32k case's plain version takes about a second a call and
-            # SDPA with a 32768 x 32768 mask 63 ms: 3 calls each)
-            few = dict(iters=3, warmup=1) if long else {}
+            # SDPA with a 32768 x 32768 mask 63 ms: 2 timed calls each)
+            few = dict(iters=2, warmup=1) if long else {}
             plain_ms = cuda_ms(torch, lambda: plain(q, k, v, **kw), **few)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # (a window that no query position reaches masks nothing)
@@ -735,6 +770,7 @@ def run_kernels(torch, rng, results):
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"(device: kernel {dev_ms:.4f}, with the log-sum-exp "
+                f"{'and the f32 output ' if not f32 else ''}"
                 f"{lse_dev_ms:.4f}, library {lib_dev_ms:.4f}) "
                 f"bound_ms={b_ms:.4f} ({b_by}; share "
                 f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
@@ -976,15 +1012,38 @@ BWD_CASES = [  # paths, B, T, S, Hq, Hkv, D, causal, window
     (None, 1, 200, 60, 10, 1, 256, True, 20),
     (None, 1, 1024, 1024, 8, 8, 256, False, 0),
     (None, 2, 1024, 1024, 10, 10, 256, True, 0),
+    # qwen2-vl-2b's training shape (G 6) in f32: a bf16 qwen2-vl-2b fed f32
+    # patches computes in f32, its attention through this kernel
+    (None, 4, 1024, 1024, 12, 2, 128, True, 0),
 ]
-# bf16 (csrc/flash_prefill_bwd_bf16.cu, on wgmma): llama3-8b's and
-# recurrentgemma-2b's training shapes (the dK/dV launch whole, and split
-# over 4 q-tile ranges), then D 64 ragged and bidirectional, G 16 under a
-# window, rows with no key, and D 256 with its dK/dV launch split over 3
-# ranges
+# bf16 (csrc/flash_prefill_bwd_bf16.cu, on wgmma): llama3-8b's training
+# shape (also qwen3-4b's and phi3.5-moe's: 32 heads on 8), recurrentgemma-
+# 2b's (the dK/dV launch whole, and split over 4 q-tile ranges), chatglm3-
+# 6b's and qwen2-vl-2b's (G 16 and 6 on 2 kv heads: 64 dK/dV blocks, split
+# over 4 ranges at D 128) and llama4-scout's G 5 under its 8192 window at
+# T 16384, where the window bites (its plain gradient over 512-row chunks,
+# flash_prefill_bwd_plain_chunked); then D 64 ragged and bidirectional, G
+# 16 under a window, rows with no key, and D 256 with its dK/dV launch
+# split over 3 ranges
+# From T 8192 on the plain gradient runs over 512-row chunks, and the
+# kernel is held to the f32 gradient of the same bf16 inputs, at the same
+# bf16 limits (as the long bf16 prefills are held to the f32 attention).
+# The limit's rms part is the whole gradient's, which the long rows make
+# small; the first rows, with a few keys, carry gradients 13-16 times that
+# rms, where the bf16 plain gradient's own rounding (of dP and of its
+# outputs) takes it to 0.94 of the limit from the f32 gradient, so the two
+# bf16 gradients can part by more than the limit though each is within it
+# of the exact one (tests/test_torch_attention_design.py --long, one kv
+# head: the kernel's algorithm 1.30 of the limit from the bf16 plain
+# gradient, 0.52 from the f32 one)
+BWD_LONG_T = 8192
 BWD_BF16_CASES = [
-    ((TRAIN_LLAMA_BF16,), 4, 1024, 1024, 32, 8, 128, True, 0),
+    ((TRAIN_LLAMA_BF16, TRAIN_QWEN3_BF16, TRAIN_PHI_BF16), 4, 1024, 1024, 32,
+     8, 128, True, 0),
     ((TRAIN_RG_BF16,), 1, 4096, 4096, 10, 1, 256, True, 2048),
+    ((TRAIN_GLM_BF16,), 4, 1024, 1024, 32, 2, 128, True, 0),
+    ((TRAIN_VL_BF16,), 4, 1024, 1024, 12, 2, 128, True, 0),
+    ((TRAIN_SCOUT_BF16,), 1, 16384, 16384, 40, 8, 128, True, 8192),
     (None, 2, 333, 333, 8, 2, 64, True, 0),
     (None, 2, 200, 200, 16, 4, 64, False, 0),
     (None, 1, 190, 190, 32, 2, 128, True, 64),
@@ -1019,22 +1078,41 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         q, do = randn((B, T, Hq, D), dtype), randn((B, T, Hq, D), dtype)
         k, v = randn((B, S, Hkv, D), dtype), randn((B, S, Hkv, D), dtype)
         kw = dict(causal=causal, window=window)
-        o, lse = FP._forward_kernel(q, k, v, causal, window, 0, True)
+        _, lse, o = FP._forward_kernel(q, k, v, causal, window, 0, True)
         got = FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
         got2 = FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
         same = all(torch.equal(a, b) for a, b in zip(got, got2))
-        want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+        long_t = T >= BWD_LONG_T
+        plain = (functools.partial(FP.flash_prefill_bwd_plain_chunked,
+                                   rows=LONG_PLAIN_ROWS) if long_t
+                 else FP.flash_prefill_bwd_plain)
+        want = plain(q, k, v, do, **kw)
+        held_to, against = want, ""
+        if long_t:
+            # held to the f32 gradient of the same inputs (see
+            # BWD_LONG_T), the plain version's own shares beside it
+            held_to = plain(*(x.float() for x in (q, k, v, do)), **kw)
+            against = (
+                "; held to the f32 gradient of the same inputs: the bf16 "
+                "plain gradient against it at " + "/".join(
+                    f"{compare(torch, w, e, tol_name)[2]:.3f}"
+                    for w, e in zip(want, held_to))
+                + " of the limit, the kernel against the bf16 plain "
+                "gradient at " + "/".join(
+                    f"{compare(torch, g, w, tol_name)[2]:.3f}"
+                    for g, w in zip(got, want)))
         torch.cuda.synchronize()
-        checks = [compare(torch, g, w, tol_name) for g, w in zip(got, want)]
+        checks = [compare(torch, g, w, tol_name)
+                  for g, w in zip(got, held_to)]
         rel = [float((g.double() - w.double()).norm() / w.double().norm())
-               for g, w in zip(got, want)]
+               for g, w in zip(got, held_to)]
         ok = same and all(c[0] for c in checks) and (
             f32 or max(rel) <= GRAD_BF16_REL_L2)
         def kern():
             return FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
-        plain_ms = cuda_ms(torch, lambda: FP.flash_prefill_bwd_plain(
-            q, k, v, do, **kw), iters=5, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: plain(q, k, v, do, **kw), iters=3,
+                           warmup=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         mask = (None if not window and (not causal or S == T)
@@ -1045,21 +1123,24 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         dot = do.transpose(1, 2)
         lib = lambda: torch.autograd.grad(  # noqa: E731
             out, (qt, kt, vt), dot, retain_graph=True)
-        lib_ms, lib_dev_ms = (cuda_ms(torch, lib, iters=10),
-                              cuda_ms(torch, lib, iters=10, spin=True))
+        lib_ms, lib_dev_ms = (cuda_ms(torch, lib, iters=5),
+                              cuda_ms(torch, lib, iters=5, spin=True))
         del out
         pairs = flash_pairs(T, S, causal, window, 0)
         ops = 10 * D * B * Hq * pairs
         # the kernels' own work: S and dP are computed in both launches
         ops_done = 14 * D * B * Hq * pairs
         esize = torch.finfo(dtype).bits // 8
-        nbytes = (esize * (4 * B * T * Hq * D + 4 * B * S * Hkv * D)
-                  + 4 * B * Hq * T)
+        # (o and lse f32: the backward's delta takes the forward's f32 output)
+        nbytes = (esize * (3 * B * T * Hq * D + 4 * B * S * Hkv * D)
+                  + 4 * B * T * Hq * D + 4 * B * Hq * T)
         b_ms, b_by = bound(nbytes, ops, dn)
         err = max(c[1] for c in checks)
         all_ok &= ok
+        chunks = (f", plain gradient over {LONG_PLAIN_ROWS}-row chunks"
+                  if long_t else "")
         log(f"flash_prefill_bwd {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
-            f"D={D} causal={causal} window={window} (dK/dV over "
+            f"D={D} causal={causal} window={window}{chunks} (dK/dV over "
             f"{FP.bwd_split(B, Hkv, S, D, n_sm, dtype)} q-tile ranges): "
             "dq/dk/dv "
             f"max_abs_err "
@@ -1068,7 +1149,7 @@ def run_bwd_kernel(torch, rng, results) -> bool:
             f"{tol_text(tol_name)}; relative L2 "
             + "/".join(f"{x:.4f}" for x in rel)
             + ("" if f32 else f", limit {GRAD_BF16_REL_L2:g}")
-            + f"), two calls bit-identical: {same} "
+            + f"{against}), two calls bit-identical: {same} "
             f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} (device "
             f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} (autograd of the plain "
             f"forward, forward included) library_ms={lib_ms:.4f} (SDPA's "
@@ -1493,8 +1574,10 @@ def run_rglru_bwd_kernel(torch, rng, results) -> bool:
                   if x is not None]
         ok = same and all(c[0] for c in checks)
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+        # (the plain version's call above is its warm-up: ~1.4 s a call at
+        # T 4096)
         plain_ms = cuda_ms(torch, lambda: RG.rglru_scan_bwd_plain(
-            la, b, h0, dy), iters=2, warmup=1)
+            la, b, h0, dy), iters=1, warmup=0)
         # log_a, h, dy in, dlog_a and db out (h0 in, dh0 out); per element
         # an exp, a sum and three products
         nbytes = 4 * (5 * B * T * d + (2 * B * d if carried else 0))
@@ -1602,6 +1685,13 @@ class RouteLog:
     def __exit__(self, *exc):
         self.layers.moe_route = self.real
 
+    def same(self, torch) -> bool:
+        """Whether both sides made as many routing calls and chose the same
+        experts in each."""
+        return len(self.calls["cuda"]) == len(self.calls["cpu"]) and all(
+            torch.equal(ec.cpu(), eh) for (_, ec), (_, eh) in zip(
+                self.calls["cuda"], self.calls["cpu"]))
+
     def summary(self, torch, k: int) -> str:
         """Each side's smallest top-k margin (k-th minus (k+1)-th logit of
         a token), whether the chosen experts match call by call, and the
@@ -1611,8 +1701,7 @@ class RouteLog:
                    for lg, _ in self.calls[side]]
             return torch.cat([v[:, k - 1] - v[:, k] for v in out])
         pairs = list(zip(self.calls["cuda"], self.calls["cpu"]))
-        same = (len(self.calls["cuda"]) == len(self.calls["cpu"]) and all(
-            torch.equal(ec.cpu(), eh) for (_, ec), (_, eh) in pairs))
+        same = self.same(torch)
         diff = max(float((lc.cpu() - lh).abs().max())
                    for (lc, _), (lh, _) in pairs)
         m_card, m_cpu = margins("cuda"), margins("cpu")
@@ -1717,14 +1806,30 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
 
 
 # train parity: one training step, kernels on the card vs plain on the CPU;
-# arch, layers, length, dtype (recurrentgemma-2b: one RG-LRU, RG-LRU, local
-# attention cycle); in bf16 the two archs whose attention is bf16
-TRAIN_PARITY = (("hubert-xlarge", 2, 256, "float32"),
-                ("llama3-8b", 2, 256, "float32"),
-                ("rwkv6-3b", 2, 256, "float32"),
-                ("recurrentgemma-2b", 3, 256, "float32"),
-                ("llama3-8b", 2, 256, "bfloat16"),
-                ("recurrentgemma-2b", 3, 256, "bfloat16"))
+# arch, layers, length, dtype, vision patches before the tokens
+# (recurrentgemma-2b: one RG-LRU, RG-LRU, local attention cycle).  In bf16
+# the archs whose attention is bf16, and qwen2-vl-2b with 64 f32 patches,
+# whose bf16 weights then compute in f32 (the attention through the f32
+# kernels), as the reference promotes them.  The MoE archs at 1 layer and
+# in f32 only: a bf16 router moves its logits by ~1e-2, so tokens near a
+# tie choose other experts on the two sides, and one token moved changes
+# the gradient of an expert fed by 16-32 tokens past the bf16 leaf limit.
+# llama3-8b at 1 layer, so that the run keeps inside its time limit
+TRAIN_PARITY = (("hubert-xlarge", 2, 256, "float32", 0),
+                ("llama3-8b", 1, 256, "float32", 0),
+                ("rwkv6-3b", 2, 256, "float32", 0),
+                ("recurrentgemma-2b", 3, 256, "float32", 0),
+                ("qwen3-4b", 2, 256, "float32", 0),
+                ("chatglm3-6b", 2, 256, "float32", 0),
+                ("qwen2-vl-2b", 2, 256, "float32", 0),
+                ("llama3-8b", 1, 256, "bfloat16", 0),
+                ("recurrentgemma-2b", 3, 256, "bfloat16", 0),
+                ("qwen3-4b", 2, 256, "bfloat16", 0),
+                ("chatglm3-6b", 2, 256, "bfloat16", 0),
+                ("qwen2-vl-2b", 2, 256, "bfloat16", 0),
+                ("qwen2-vl-2b", 2, 256, "bfloat16", 64),
+                (PHI, 1, 256, "float32", 0),
+                (SCOUT, 1, 256, "float32", 0))
 # the forward and backward kernel of each block kind
 KIND_KERNELS = {"attn": ("flash_prefill", "flash_prefill_bwd"),
                 "local": ("flash_prefill", "flash_prefill_bwd"),
@@ -1782,15 +1887,70 @@ def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt, p_round=2.0 ** -22,
     return opt.lr * (du + 1e-5) + p * p_round
 
 
-def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
+# elements a slice of the leaf-by-leaf comparisons: their f64 temporaries
+# stay near 0.5 GB, where a whole leaf of llama4-scout (its 202048-row
+# embedding or head, 1.03B elements) would take 8.3 GB each
+SLICE = 1 << 26
+
+
+def flat_slices(*xs):
+    """Aligned slices of at most ``SLICE`` elements of equally sized
+    tensors, flattened (views)."""
+    flat = [x.reshape(-1) for x in xs]
+    for i in range(0, flat[0].numel(), SLICE):
+        yield [f[i:i + SLICE] for f in flat]
+
+
+def sq_sum(torch, x) -> float:
+    """Sum of squares of ``x`` in f64 on the card, a slice at a time."""
+    return float(sum((s.to("cuda").double().square().sum()
+                      for (s,) in flat_slices(x)), torch.zeros((),
+                     dtype=torch.float64, device="cuda")))
+
+
+def grad_share(torch, gg, gc, f32: bool) -> float:
+    """The card's gradient leaf ``gg`` against the CPU's ``gc`` (on the
+    card), as a share of its limit: f32 element by element at
+    ``TOL["train_grad"]`` (the rms of the whole leaf), bf16 by the leaf's
+    relative L2 difference against ``TRAIN_BF16_GRAD_REL_L2``; inf where
+    the card's leaf is not finite."""
+    if not all(bool(torch.isfinite(g).all()) for (g,) in flat_slices(gg)):
+        return float("inf")
+    norm2 = sq_sum(torch, gc)
+    if f32:
+        tol = TOL["train_grad"]
+        rms = (norm2 / max(1, gc.numel())) ** 0.5
+        share = 0.0
+        for g, w in flat_slices(gg, gc):
+            diff = (g.double() - w.double()).abs()
+            limit = (tol["atol"] + tol["atol_rms"] * rms
+                     + tol["rtol"] * w.double().abs())
+            share = max(share, float(torch.where(diff == 0, 0.0,
+                                                 diff / limit).max()))
+        return share
+    diff2 = float(sum(((g.double() - w.double()).square().sum()
+                       for g, w in flat_slices(gg, gc)),
+                      torch.zeros((), dtype=torch.float64, device="cuda")))
+    rel = (diff2 / norm2) ** 0.5 if norm2 else diff2 ** 0.5
+    return rel / TRAIN_BF16_GRAD_REL_L2
+
+
+def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name,
+                     n_patches=0):
     """One ``train_step``-equivalent at full width, ``layers`` layers, in
-    ``dtype_name``, batch 1 x ``length``: on the card (kernels) and on the
-    CPU (plain versions) from the same weights; the card's backward and
-    AdamW update under ``set_sync_debug_mode("error")``."""
+    ``dtype_name`` (with ``n_patches`` f32 vision patches before the
+    tokens), batch 1 x ``length``: on the card (kernels) and on the CPU
+    (plain versions) from the same weights; the card's backward and AdamW
+    update under ``set_sync_debug_mode("error")``; a MoE arch's routing
+    logged on both sides, the chosen experts equal in every call.  The
+    card's moments are freed before the CPU step, and the two sides are
+    compared leaf by leaf on the card, where the reference's AdamW step
+    runs on the CPU's gradients (llama4-scout's f32 step holds 66 GB of
+    parameters, gradients and moments)."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params, make_loss_fn
+    from repro_torch.models import init_params, layers as L, make_loss_fn
     from repro_torch.params import tree_leaves, tree_unflatten
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.train_loop import loss_and_grads, to_batch
@@ -1798,6 +1958,12 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     dtype = getattr(torch, dtype_name)
     f32 = dtype == torch.float32
+    if cfg.is_moe:
+        log(f"train parity {arch}: {host_free_gb():.1f} GB of host memory "
+            f"free before {cfg.param_count() * 16 / 1e9:.1f} GB of "
+            f"{dtype_name} parameters, gradients and AdamW moments on each "
+            "side")
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, dtype, "cuda")
     p_cpu = tree_unflatten(p_gpu, iter(
@@ -1807,83 +1973,101 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
                                             "float32")}
     else:
         nb = {"tokens": rng.integers(2, cfg.vocab_size - 1, (1, length))}
+    if n_patches:
+        nb["patches"] = rng.standard_normal((1, n_patches, cfg.frontend_dim),
+                                            "float32")
     nb["labels"] = rng.integers(0, cfg.vocab_size, (1, length))
     opt = AdamW()
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
 
+    routes = RouteLog(L)
     t0 = time.perf_counter()
     leaves = tree_leaves(p_gpu)
     for x in leaves:
         x.requires_grad_(True)
-    loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, "cuda"))
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        grads = torch.autograd.grad(loss_gpu, leaves, allow_unused=True)
-        g_gpu = [torch.zeros_like(x) if g is None else g
-                 for g, x in zip(grads, leaves)]
-        state = opt.init(leaves)
-        opt.update(g_gpu, state, leaves)
-    except RuntimeError as e:
-        fail(f"train parity {arch}: the backward or the update synchronised "
-             f"with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in wrappers.items() if fn.launches}
+    with routes:
+        loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, "cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            grads = torch.autograd.grad(loss_gpu, leaves, allow_unused=True)
+            g_gpu = [torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, leaves)]
+            del grads
+            state = opt.init(leaves)
+            opt.update(g_gpu, state, leaves)
+        except RuntimeError as e:
+            fail(f"train parity {arch}: the backward or the update "
+                 f"synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {n: fn.launches for n, fn in wrappers.items()
+                    if fn.launches}
+        del state                       # the comparison needs no moments
+        torch.cuda.empty_cache()
 
-    torch.exp(torch.zeros(64))      # (ROADMAP Queue 3: the CPU's first exp)
-    t0 = time.perf_counter()
-    loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, "cpu"))
+        # the CPU's loss and gradients (the plain versions) from the same
+        # weights, copied before the card's update
+        torch.exp(torch.zeros(64))  # (ROADMAP Queue 3: the CPU's first exp)
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, "cpu"))
+        t_cpu = time.perf_counter() - t0
     g_cpu = tree_leaves(g_cpu)
-    p_before = [x.detach().clone() for x in tree_leaves(p_cpu)]
-    opt.update(g_cpu, opt.init(p_cpu), p_cpu)
-    t_cpu = time.perf_counter() - t0
 
     def clip(gs):
-        n = float(torch.sqrt(sum(g.double().square().sum() for g in gs)))
+        n = sum(sq_sum(torch, g) for g in gs) ** 0.5
         return min(1.0, opt.grad_clip / (n + 1e-12)), n
 
-    # the two sides are compared on the card, in the same f64 arithmetic:
-    # over these models' 0.1-1.5B parameters the CPU took minutes a run
-    g_ref = [g.to("cuda") for g in g_cpu]
-    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_ref)
+    # the two sides are compared on the card, in the same f64 arithmetic
+    # (over these models' 0.1-4.1B parameters the CPU took minutes a run),
+    # one CPU leaf at a time.  The reference's AdamW step (the same
+    # ``AdamW.update``, which has no kernel) runs there too, a leaf at a
+    # time, on the CPU's gradients scaled by their own global clip factor:
+    # each leaf's scaled norm is then within the clip, so ``update`` scales
+    # it by 1 and computes what it computes on the whole tree, f32
+    # elementwise as on the CPU (where the update took 10-40 s a row)
+    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_cpu)
     lg, lc = float(loss_gpu.detach()), float(loss_cpu)
     loss_rtol = TRAIN_LOSS_RTOL if f32 else TRAIN_BF16_LOSS_RTOL
     p_round = 2.0 ** -22 if f32 else 2.0 ** -7
     ok = abs(lg - lc) <= loss_rtol * abs(lc)
     g_share = p_share = 0.0
-    for i, (gg, gc, pg, pc, p0) in enumerate(zip(
-            g_gpu, g_ref, leaves, tree_leaves(p_cpu), p_before)):
-        pg, pc, p0 = pg.detach(), pc.detach().to("cuda"), p0.to("cuda")
-        if f32:
-            ok_g, _, sh = compare(torch, gg, gc, "train_grad")
-        else:   # each leaf's relative L2 difference, as a share of its limit
-            norm = float(gc.double().norm())
-            rel = (float((gg.double() - gc.double()).norm()) / norm if norm
-                   else float(gg.double().norm()))
-            sh = rel / TRAIN_BF16_GRAD_REL_L2
-            ok_g = sh <= 1.0 and bool(torch.isfinite(gg).all())
+    for i, (gg, pg, pl) in enumerate(zip(g_gpu, leaves,
+                                         tree_leaves(p_cpu))):
+        gr = g_cpu[i].to("cuda")
+        sh = grad_share(torch, gg, gr, f32)
         g_share = max(g_share, sh)
-        diff = (pg.double() - pc.double()).abs()
-        lim = adamw_limit(p0, gg, gc, s_gpu, s_cpu, opt, p_round,
-                          None if f32 else torch.maximum(pc.abs(), pg.abs()))
-        sh_p = float((diff / lim).max()) if diff.numel() else 0.0
+        p0 = pl.detach().to("cuda", copy=True)
+        pr = p0.clone()
+        opt.update([gr.float() * s_cpu], opt.init([pr]), [pr])
+        sh_p = 0.0
+        for g1, g2, a, b, before in flat_slices(gg, gr, pg.detach(), pr,
+                                                p0):
+            diff = (a.double() - b.double()).abs()
+            lim = adamw_limit(before, g1, g2, s_gpu, s_cpu, opt, p_round,
+                              None if f32 else torch.maximum(b.abs(),
+                                                             a.abs()))
+            sh_p = max(sh_p, float((diff / lim).max()))
         p_share = max(p_share, sh_p)
-        if not ok_g or sh_p > 1.0:
+        if not sh <= 1.0 or sh_p > 1.0:
             log(f"train parity {arch} {dtype_name}: leaf {i} "
-                f"{tuple(gc.shape)} gradient at {sh:.3f} of its limit, "
+                f"{tuple(gr.shape)} gradient at {sh:.3f} of its limit, "
                 f"parameter at {sh_p:.3f}")
             ok = False
+        del gr, pr, p0
     g_limit = (f"worst element at {g_share:.3f} of its limit "
                f"({tol_text('train_grad')})" if f32 else
                f"worst leaf at {g_share:.3f} of its limit (relative L2 "
                f"{TRAIN_BF16_GRAD_REL_L2:g})")
+    patches = (f" after {n_patches} f32 vision patches (the model computes "
+               "in f32 from them on)" if n_patches else "")
     log(f"train parity {arch} full width, {layers} layers, {dtype_name}, "
-        f"batch 1 x {length}: "
+        f"batch 1 x {length}{patches}: "
         f"loss card {lg:.6f} cpu {lc:.6f} (rtol {loss_rtol}); "
         f"gradients: {len(g_cpu)} leaves, {g_limit}, global norm card "
         f"{n_gpu:.6f} cpu {n_cpu:.6f}; parameters after AdamW: worst element "
@@ -1891,8 +2075,15 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
         f"eps) + 1e-5) + {'2^-22' if f32 else '2^-7'} |p|); backward and "
         f"update under "
         f"set_sync_debug_mode('error'): no host sync; launches "
-        f"{json.dumps(launches)}; card {t_gpu:.2f} s, cpu {t_cpu:.2f} s "
-        "(host clock)")
+        f"{json.dumps(launches)}; card {t_gpu:.2f} s (peak "
+        f"{peak_gb:.2f} GB), cpu {t_cpu:.2f} s (loss and gradients; its "
+        "AdamW step on the card, a leaf at a time) (host clock)")
+    if cfg.is_moe:
+        log(f"train parity {arch} routing (forward and recomputation): "
+            f"{routes.summary(torch, cfg.top_k)}")
+        if not routes.same(torch):
+            fail(f"train parity {arch}: the card and the CPU chose other "
+                 "experts (smallest top-k margins in the line above)")
     if not ok or not np.isfinite(lg):
         fail(f"train parity {arch} {dtype_name}: card and CPU steps differ "
              "(lines above)")
@@ -1902,7 +2093,8 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name):
              f"expected {want} "
              "(per layer the forward kernel twice, for the forward and its "
              "recomputation, and the backward kernel once)")
-    del p_gpu, g_gpu, g_ref, leaves, state
+    del p_gpu, g_gpu, leaves, p_cpu, g_cpu
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1952,10 +2144,10 @@ PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
                 QWEN72: ("flash_prefill", "decode_attention")}
 # depth of the served models.  2 instances of the whole MoE models do not
 # fit one 80 GB card (83.7 GB and 203.5 GB of bf16 weights each), so they
-# serve at their published width with 4 of 32 and 4 of 48 layers (10.9 and
-# 20.8 GB an instance; phi3.5-moe served 8 layers, 21.3 GB, until the
-# paper's models joined and the run's time limit asked for its host-bound
-# MoE steps: its serve took 25-35 s of wall at 8 layers).  The dense
+# serve at their published width with 2 of 32 and 2 of 48 layers (5.7 and
+# 12.4 GB an instance): their steps are host-bound, and the run's time
+# limit, with every training path in it, asks for the fewest layers that
+# still serve every kernel of the path.  The dense
 # models serve at their published width with 8 layers (recurrentgemma-2b
 # 9: three whole cycles of its 3-block pattern), so that the whole run
 # stays well inside its time limit (with the bf16 training runs it took
@@ -1963,14 +2155,15 @@ PATH_KERNELS = {"llama3-8b": ("flash_prefill", "decode_attention"),
 # step launches each kernel once a layer, and full-depth llama3-8b and
 # qwen3-4b still serve in the calibrate phase and the API check.
 # qwen1.5-32b (70.4 GB of bf16 weights: two whole instances do not fit
-# either) serves at 8 of its 64 layers, 11.5 GB an instance.  So do the
-# paper's models (65.1, 67.5 and 145.4 GB an instance whole), at 8 of 60,
-# 48 and 80 layers (9.4, 12.2 and 19.1 GB an instance), under their
-# Table-4 traffic at max_seq_len PAPER_SEQ_LEN
-SERVE_LAYERS = {PHI: 4, SCOUT: 4, "llama3-8b": 8, "rwkv6-3b": 8,
+# either) serves at 8 of its 64 layers, 11.5 GB an instance.  The paper's
+# models (65.1, 67.5 and 145.4 GB an instance whole) serve at 4 of 60, 48
+# and 80 layers (5.1, 6.6 and 12.0 GB an instance; the run's time limit
+# again), under their Table-4 traffic at max_seq_len PAPER_SEQ_LEN; the
+# whole 48-layer codellama2-34b serves in ENGINE_PATHS
+SERVE_LAYERS = {PHI: 2, SCOUT: 2, "llama3-8b": 8, "rwkv6-3b": 8,
                 "recurrentgemma-2b": 9, "qwen3-4b": 8, "chatglm3-6b": 8,
-                "qwen2-vl-2b": 8, QWEN32: 8, LLAMA30: 8, CODELLAMA: 8,
-                QWEN72: 8}
+                "qwen2-vl-2b": 8, QWEN32: 8, LLAMA30: 4, CODELLAMA: 4,
+                QWEN72: 4}
 # Table-4's prompts clip at 4096 and its outputs at 2048, and the engine
 # stops a request at max_seq_len - 1: 4096 + 2048 + 1 rows fit in 8192
 PAPER_SEQ_LEN = 8192
@@ -2461,6 +2654,21 @@ TRAIN_RUNS = {TRAIN_HUBERT: ("hubert-xlarge", None, 8, 1024, 5, "float32"),
               TRAIN_RG: ("recurrentgemma-2b", None, 1, 4096, 3, "float32")}
 TRAIN_RUNS.update({f"{name} bf16": run[:-1] + ("bfloat16",)
                    for name, run in TRAIN_RUNS.items()})
+# The five decoders that train in bf16 alone, at full width: depth and
+# batch from 12 bytes a parameter (bf16 weights and gradients, f32 AdamW
+# moments) plus activations, in the 80 GB card (qwen2-vl-2b whole, 28
+# layers, 21 GB of weights and state; qwen3-4b and chatglm3-6b at 8 of 36
+# and 28 layers, 19 and 26 GB; phi3.5-moe at 2 of 32, 34 GB; llama4-scout
+# at 1 of 48, 50 GB, 8.1 GB of it its 202048-row embedding and head, on
+# 2048 tokens so that its logits stay under 9 GB).  Each one's first loss
+# is held to an f32 forward of the same first batch from the same seed's
+# weights (no f32 run of these)
+TRAIN_RUNS.update({
+    TRAIN_QWEN3_BF16: ("qwen3-4b", 8, 4, 1024, 3, "bfloat16"),
+    TRAIN_GLM_BF16: ("chatglm3-6b", 8, 4, 1024, 3, "bfloat16"),
+    TRAIN_VL_BF16: ("qwen2-vl-2b", None, 4, 1024, 3, "bfloat16"),
+    TRAIN_PHI_BF16: (PHI, 2, 4, 1024, 3, "bfloat16"),
+    TRAIN_SCOUT_BF16: (SCOUT, 1, 1, 2048, 3, "bfloat16")})
 TRAIN_KERNELS = {TRAIN_HUBERT: ("flash_prefill", "flash_prefill_bwd"),
                  TRAIN_LLAMA: ("flash_prefill", "flash_prefill_bwd"),
                  TRAIN_RWKV: ("rwkv6_scan", "rwkv6_scan_bwd"),
@@ -2468,6 +2676,10 @@ TRAIN_KERNELS = {TRAIN_HUBERT: ("flash_prefill", "flash_prefill_bwd"),
                             "flash_prefill_bwd")}
 TRAIN_KERNELS.update({f"{name} bf16": kernels
                       for name, kernels in TRAIN_KERNELS.items()})
+BF16_ONLY_RUNS = (TRAIN_QWEN3_BF16, TRAIN_GLM_BF16, TRAIN_VL_BF16,
+                  TRAIN_PHI_BF16, TRAIN_SCOUT_BF16)
+TRAIN_KERNELS.update(dict.fromkeys(BF16_ONLY_RUNS, ("flash_prefill",
+                                                    "flash_prefill_bwd")))
 # a bf16 run's first loss against its f32 twin's: both draw one set of
 # initial weights from the seed (the bf16 run's rounded to bf16), and bf16
 # rounds every activation where f32 keeps 24 bits, roundings that compound
@@ -2514,8 +2726,10 @@ class StepClock:
         self._mark()
         if len(self.marks) == self.steps:
             from torch.profiler import ProfilerActivity, profile
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            # the card's activity alone: the busy share sums the
+            # kernels' device time, and the host's op events took 5-11 s
+            # a run to collect and aggregate (the same busy ms either way)
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
         return next(self.batches)
 
@@ -2554,6 +2768,28 @@ def hubert_batches(rng, cfg, B, T, steps):
     return out
 
 
+def f32_first_loss(torch, cfg, batch, seed) -> float:
+    """The loss of ``batch`` under f32 weights drawn as ``train`` draws
+    them from ``seed``, forward only: the f32 reference of a bf16 run
+    that has no f32 twin."""
+    from repro_torch.models import init_params, make_loss_fn
+    from repro_torch.training.train_loop import to_batch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, torch.float32, "cuda")
+    with torch.no_grad():
+        loss = float(make_loss_fn(cfg)(params, to_batch(batch, "cuda")))
+    log(f"train {cfg.name} float32 forward of the first batch from the "
+        f"seed's weights ({cfg.num_layers} layers, "
+        f"{cfg.param_count() * 4 / 1e9:.1f} GB): loss {loss:.5f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
 def run_train(torch, rng, seed, name, smi, first_losses):
     """One ``train`` run of ``TRAIN_RUNS``; ``first_losses`` maps each
     arch to its f32 run's first loss (this run's is added where it is f32,
@@ -2578,6 +2814,9 @@ def run_train(torch, rng, seed, name, smi, first_losses):
         ds = TokenDataset.from_texts(synthetic_corpus(512),
                                      ByteTokenizer(cfg.vocab_size))
         batches, unit = ds.batches(B, T, seed=seed), "tokens"
+        if dtype_name != "float32" and arch not in first_losses:
+            first_losses[arch] = f32_first_loss(
+                torch, cfg, next(ds.batches(B, T, seed=seed)), seed)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2629,7 +2868,8 @@ def run_train(torch, rng, seed, name, smi, first_losses):
         twin = first_losses.get(arch)
         falls = losses[-1] < losses[0]
         log(f"{name}: first loss {losses[0]:.5f} against the f32 "
-            f"twin's {twin} (rtol {TRAIN_BF16_FIRST_LOSS_RTOL:g}); the loss "
+            f"{'forward' if name in BF16_ONLY_RUNS else 'twin'}'s {twin} "
+            f"(rtol {TRAIN_BF16_FIRST_LOSS_RTOL:g}); the loss "
             f"{'falls' if falls else 'does not fall'} from the first step "
             f"to the last")
         if twin is None or abs(losses[0] - twin) > (
@@ -2642,27 +2882,37 @@ def run_train(torch, rng, seed, name, smi, first_losses):
     return {n: sum(c[n] for c in launches) for n in TRAIN_KERNELS[name]}
 
 
-TRAIN_CLI_ARCHS = ("llama3-8b", "rwkv6-3b")
+TRAIN_CLI_ARCHS = ("llama3-8b", "rwkv6-3b", "qwen3-4b")
 
 
 def run_train_cli(torch):
     """The launcher's own check: ``python -m repro_torch.launch.train
     --arch <arch> --steps 3 --device cuda`` (its smoke config) for each of
-    ``TRAIN_CLI_ARCHS``."""
+    ``TRAIN_CLI_ARCHS``, the processes run side by side (each spends most
+    of its ~24 s starting up)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    for arch in TRAIN_CLI_ARCHS:
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             arch, "--steps", "3", "--device", "cuda"], cwd=ROOT,
-            env=env, capture_output=True, text=True, timeout=600)
-        for line in out.stdout.strip().splitlines():
-            log(f"train cli {arch}: {line}")
-        if out.returncode != 0 or "(improved)" not in out.stdout:
-            fail(f"python -m repro_torch.launch.train --arch {arch} failed "
-                 f"(exit {out.returncode}): {out.stderr[-2000:]}")
-        log(f"train cli {arch}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--steps", "3", "--device", "cuda"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch in TRAIN_CLI_ARCHS}
+    try:
+        for arch, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            for line in out.strip().splitlines():
+                log(f"train cli {arch}: {line}")
+            if proc.returncode != 0 or "(improved)" not in out:
+                fail(f"python -m repro_torch.launch.train --arch {arch} "
+                     f"failed (exit {proc.returncode}): {err[-2000:]}")
+            log(f"train cli {arch}: exit 0, "
+                f"{time.perf_counter() - t0:.1f} s after the start")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 # --------------------------------------------------------------------- #
@@ -3103,9 +3353,10 @@ def main() -> None:
         for arch, window, n_patches in PARITY_RUNS:
             run_parity(torch, np.random.default_rng(args.seed), args.seed,
                        arch, window, n_patches)
-        for arch, layers, length, dtype_name in TRAIN_PARITY:
+        for arch, layers, length, dtype_name, n_patches in TRAIN_PARITY:
             run_train_parity(torch, np.random.default_rng(args.seed),
-                             args.seed, arch, layers, length, dtype_name)
+                             args.seed, arch, layers, length, dtype_name,
+                             n_patches)
         phase_done("parity")
     if "serve" in phases:
         for arch in PATH_KERNELS:

@@ -356,12 +356,16 @@ __device__ __forceinline__ void pv_wgmma(float (&o)[D / 2], const uint32_t (&a)[
 // lse (nullable): as the f32 kernel's, the f32 (B, Hq, T) natural-log
 // log-sum-exp m * scale + log l of each row's scaled scores (the softmax
 // runs in base 2; m and l are in registers at the end), -inf for a row
-// with no valid key.
+// with no valid key.  out32 (nullable): the output in f32 as well, before
+// its rounding to bf16, for the backward's delta = rowsum(dO * O): from
+// the bf16 output delta is off by ~2^-9 |dO| |O|, which in a row with a
+// few keys is a large share of dP - delta.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                        float* __restrict__ lse, int B, int T_len, int S, int Hq, int Hkv,
+                        float* __restrict__ lse, float* __restrict__ out32, int B, int T_len,
+                        int S, int Hq, int Hkv,
                         int G, int block_q, int n_qt, int causal, int window, int q_offset,
                         float scale, float scale_log2) {
   constexpr int CH = D / 8;      // 16-byte chunks per row
@@ -531,6 +535,19 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             l_r[i] > 0.f ? m_r[i] * scale + logf(l_r[i]) : -INFINITY;
     }
   }
+  if (out32 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < rows) {
+        float* dst = out32 + ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + kc;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd)
+          *reinterpret_cast<float2*>(dst + nd * 8) =
+              make_float2(o[4 * nd + 2 * i] * inv[i], o[4 * nd + 2 * i + 1] * inv[i]);
+      }
+    }
+  }
   bf16* Os = reinterpret_cast<bf16*>(Ks);
   bf16* stage_row = Os + r0 * LD + kc;
 #pragma unroll
@@ -551,8 +568,8 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-           int T_len, int S, int Hq, int Hkv, int causal, int window, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* out32,
+           int B, int T_len, int S, int Hq, int Hkv, int causal, int window, int q_offset,
            float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int block_q = kRows / G;
@@ -565,7 +582,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   if (err != cudaSuccess) return (int)err;
   flash_prefill_tc_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, B, T_len, S, Hq, Hkv, G,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, out32, B, T_len, S, Hq, Hkv, G,
       block_q, n_qt, causal, window, q_offset, scale, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -577,11 +594,12 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Tensors are contiguous in the JAX layouts; D is 64, 80 (f32 only), 128 or
 // 256; Hq/Hkv <= 64.  lse: null, or the (B, Hq, T) f32 row log-sum-exp
-// written beside the output (either dtype).  Returns the cudaError_t of the
-// launch (0 on success).
+// written beside the output (either dtype).  out32: null, or (bf16 only)
+// the output in f32 before its rounding, written beside it.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
-                                    int B, int T, int S, int Hq, int Hkv,
+                                    void* out32, int B, int T, int S, int Hq, int Hkv,
                                     int D, int causal, int window,
                                     int q_offset, float scale, int dtype,
                                     void* stream) {
@@ -590,6 +608,8 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > tc::kRows) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* o32 = static_cast<float*>(out32);
+  if (dtype == 0 && o32 != nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
     return f32::launch<64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 0 && D == 80)
@@ -599,10 +619,13 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   if (dtype == 0 && D == 256)
     return f32::launch<256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<64>(q, k, v, out, l, o32, B, T, S, Hq, Hkv, causal, window, q_offset, scale,
+                           st);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<128>(q, k, v, out, l, o32, B, T, S, Hq, Hkv, causal, window, q_offset, scale,
+                           st);
   if (dtype == 1 && D == 256)
-    return tc::launch<256>(q, k, v, out, l, B, T, S, Hq, Hkv, causal, window, q_offset, scale, st);
+    return tc::launch<256>(q, k, v, out, l, o32, B, T, S, Hq, Hkv, causal, window, q_offset, scale,
+                           st);
   return (int)cudaErrorInvalidValue;
 }

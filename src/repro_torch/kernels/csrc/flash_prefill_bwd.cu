@@ -568,17 +568,21 @@ int launch(const Args<E>& a, cudaStream_t stream) {
 }
 
 template <typename E>
-Args<E> make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const void* lse, void* delta, void* dq, void* dk, void* dv, void* part, int B,
-                  int T_len, int S, int Hq, int Hkv, int causal, int window, int n_split,
-                  float scale) {
+Args<E> make_args(const void* q, const void* k, const void* v, const void* o, const void* o32,
+                  const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
+                  void* part, int B, int T_len, int S, int Hq, int Hkv, int causal, int window,
+                  int n_split, float scale) {
   return Args<E>{static_cast<const E*>(q),    static_cast<const E*>(k),
                  static_cast<const E*>(v),    static_cast<const E*>(o),
                  static_cast<const E*>(dout), static_cast<const float*>(lse),
                  static_cast<float*>(delta),  static_cast<E*>(dq),
                  static_cast<E*>(dk),         static_cast<E*>(dv),
-                 static_cast<float*>(part),   B, T_len, S, Hq, Hkv, Hq / Hkv, causal, window,
-                 n_split, scale};
+                 static_cast<float*>(part),   static_cast<const float*>(o32),
+                 B,                           T_len,
+                 S,                           Hq,
+                 Hkv,                         Hq / Hkv,
+                 causal,                      window,
+                 n_split,                     scale};
 }
 
 }  // namespace
@@ -586,34 +590,37 @@ Args<E> make_args(const void* q, const void* k, const void* v, const void* o, co
 }  // namespace repro_torch
 
 // Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 =
-// bfloat16, the type of q, k, v, o, dout and the gradients, all contiguous:
-// q, o, dout, dq (B,T,Hq,D); k, v, dk, dv (B,S,Hkv,D); lse and the scratch
-// delta (B,Hq,T), f32; part: null at n_split 1, else the f32 scratch (2,
-// n_split, B, S, Hkv, D) of launch 2's partial sums.  D is 64, 80 (f32
+// bfloat16, the type of q, k, v, dout and the gradients, all contiguous:
+// q, dout, dq (B,T,Hq,D); k, v, dk, dv (B,S,Hkv,D); the forward's output,
+// (B,T,Hq,D): o in f32 (dtype 0; o32 null), or o32, f32 before its bf16
+// rounding (dtype 1; o null); lse and the scratch delta (B,Hq,T), f32;
+// part: null at n_split 1, else the f32 scratch (2, n_split, B, S, Hkv, D)
+// of launch 2's partial sums.  D is 64, 80 (f32
 // only), 128 or 256; Hq a multiple of Hkv; q_offset 0; n_split in 1..4.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int flash_prefill_bwd_launch(const void* q, const void* k, const void* v,
-                                        const void* o, const void* dout, const void* lse,
-                                        void* delta, void* dq, void* dk, void* dv, void* part,
-                                        int B, int T, int S, int Hq, int Hkv, int D,
-                                        int causal, int window, int n_split, float scale,
-                                        int dtype, void* stream) {
+                                        const void* o, const void* o32, const void* dout,
+                                        const void* lse, void* delta, void* dq, void* dk,
+                                        void* dv, void* part, int B, int T, int S, int Hq,
+                                        int Hkv, int D, int causal, int window, int n_split,
+                                        float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || T < 0 || S < 0 || n_split < 1 || n_split > 4 ||
-      (n_split > 1 && part == nullptr))
+      (n_split > 1 && part == nullptr) || (dtype == 1) != (o32 != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const auto a = bwd::make_args<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, T, S,
-                                         Hq, Hkv, causal, window, n_split, scale);
+    const auto a = bwd::make_args<float>(q, k, v, o, nullptr, dout, lse, delta, dq, dk, dv, part,
+                                         B, T, S, Hq, Hkv, causal, window, n_split, scale);
     if (D == 64) return bwd::launch<float, 64>(a, st);
     if (D == 80) return bwd::launch<float, 80>(a, st);
     if (D == 128) return bwd::launch<float, 128>(a, st);
     if (D == 256) return bwd::launch<float, 256>(a, st);
   } else if (dtype == 1) {
-    const auto a = bwd::make_args<bwd::bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, T,
-                                             S, Hq, Hkv, causal, window, n_split, scale);
+    const auto a = bwd::make_args<bwd::bf16>(q, k, v, nullptr, o32, dout, lse, delta, dq, dk, dv,
+                                             part, B, T, S, Hq, Hkv, causal, window, n_split,
+                                             scale);
     return bwd::launch_bf16(a, D, st);
   }
   return (int)cudaErrorInvalidValue;

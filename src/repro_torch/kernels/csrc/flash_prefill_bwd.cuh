@@ -30,6 +30,7 @@ struct Args {
   E* dk;
   E* dv;
   float* part;  // (2, n_split, B, S, Hkv, D) partial dK, dV; null at n_split 1
+  const float* o32;  // bf16: the forward's output in f32, for delta (o unused)
   int B, T, S, Hq, Hkv, G, causal, window, n_split;
   float scale;
 };

@@ -3,9 +3,12 @@
 //
 // No TPU kernel corresponds (see flash_prefill_bwd.cu, which holds the f32
 // kernels and the C entry point that calls launch_bf16 here).  Function:
-// dQ, dK, dV of softmax(scale*Q K^T + mask) V from q, k, v, the forward's
-// output o, its gradient dO (all bf16) and the forward's row log-sum-exp
-// lse (f32, -inf for a row with no valid key), P recomputed tile by tile:
+// dQ, dK, dV of softmax(scale*Q K^T + mask) V from q, k, v, its gradient
+// dO (all bf16), the forward's output O in f32 (before its bf16 rounding:
+// from the bf16 output delta is off by ~2^-9 |dO| |O|, a large share of
+// dP - delta in a row with a few keys, where dQ then missed its limit at
+// T 16384) and its row log-sum-exp lse (f32, -inf for a row with no valid
+// key), P recomputed tile by tile:
 //   delta = rowsum(dO * O),  dP = dO V^T,  dS = P * (dP - delta),
 //   dV = P^T dO,  dK = scale * dS^T Q,  dQ = scale * dS K,
 // every sum in f32; P and dS rounded to bf16 only as operands of dV, dK
@@ -344,7 +347,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args<bf16> a, int n_qt,
       const size_t off = row_offset_m(a, b, h, r, D, g_mul);
       for (int d = 8 * part; d < D; d += 8 * TPR) {
         float x[8], y[8];
-        load_vec<bf16>(a.o + off + d, x);
+        load_vec<float>(a.o32 + off + d, x);
+        load_vec<float>(a.o32 + off + d + 4, x + 4);
         load_vec<bf16>(a.dout + off + d, y);
 #pragma unroll
         for (int e = 0; e < 8; ++e) sum = fmaf(x[e], y[e], sum);

@@ -22,12 +22,13 @@ big*small + big*big summed in f32: ~22 bits of each operand, where one
 TF32 pass would miss the f32 limit), one warp per 16 rows, 64-key K/V
 tiles (32 at D 256) in a 2-stage ``cp.async`` ring; ``fwd_tiles`` gives
 its tiles.  Both can also write each row's f32 log-sum-exp, which the
-backward reads.
+backward reads, and the bf16 one its output in f32 as well (before the
+rounding), from which the backward takes delta = rowsum(dO * O).
 
 The gradient: the JAX package trains by differentiating the jnp attention
 its forward calls; here that call is the kernel, so ``FlashPrefillFn``
-(a ``torch.autograd.Function``) saves the forward's log-sum-exp and its
-backward launches ``csrc/flash_prefill_bwd.cu`` (``q_offset`` 0; f32 at D
+(a ``torch.autograd.Function``) saves the forward's log-sum-exp and f32
+output, and its backward launches ``csrc/flash_prefill_bwd.cu`` (``q_offset`` 0; f32 at D
 64 / 80 / 128 / 256, its five products in 3xTF32 on the tensor cores;
 bf16 at D 64 / 128 / 256 in ``csrc/flash_prefill_bwd_bf16.cu``, its five
 products on ``wgmma`` over 64-row warpgroup tiles with f32 sums; see
@@ -54,16 +55,17 @@ BWD_HEAD_DIMS = {torch.float32: (64, 80, 128, 256),
 MAX_GROUP = 64            # query heads per kv head in one tile
 
 
-def rounded_softmax_pv(s, v, pv: str):
+def rounded_softmax_pv(s, v, pv: str, p_dtype=None):
     """Softmax of the f32 scores ``s`` (-inf where masked) times ``v``,
     with the kernels' rounding: p = exp(s - row max) is rounded to v's
-    dtype before P.V, while the row sum l adds the unrounded p.  A row
-    with no valid key gives zeros.  ``pv`` is the einsum of P.V, whose
-    output keeps the score's row as its second-to-last axis."""
+    dtype (or ``p_dtype``) before P.V, while the row sum l adds the
+    unrounded p.  A row with no valid key gives zeros.  ``pv`` is the
+    einsum of P.V, whose output keeps the score's row as its
+    second-to-last axis."""
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum(pv, p.to(v.dtype).float(), v.float())
+    o = torch.einsum(pv, p.to(p_dtype or v.dtype).float(), v.float())
     return o / torch.where(l > 0, l, 1.0)       # l = 0: o is 0 already
 
 
@@ -131,6 +133,40 @@ def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
         o = flash_prefill_plain(qq, kk, vv, causal=causal, window=window)
         return torch.autograd.grad(o, (qq, kk, vv), dout)
+
+
+def flash_prefill_bwd_plain_chunked(q, k, v, dout, *, causal=True, window=0,
+                                    rows=512):
+    """``flash_prefill_bwd_plain`` over ``rows`` query rows at a time, each
+    chunk differentiated against the keys its masks open (as
+    ``flash_prefill_plain_chunked`` takes them), so that no score matrix
+    is larger than (B, Hq, rows, S): the plain gradient at T = 16384, where
+    the whole one would take 43 GB a score matrix at 40 heads.  Each row's
+    dQ comes from its chunk alone; dK and dV are summed over the chunks in
+    f32 and rounded to k's dtype once, as the unchunked version rounds its
+    f32 sums (tests/test_torch_long_context.py)."""
+    B, T, Hq, D = q.shape
+    S = k.shape[1]
+    dq = torch.empty_like(q)
+    dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+              for _ in range(2))
+    for r0 in range(0, T, rows):
+        r1 = min(T, r0 + rows)
+        k1 = max(1, min(S, r1)) if causal else S
+        k0 = max(0, min(r0 - window + 1, k1 - 1)) if window else 0
+        with torch.enable_grad():
+            qq = q[:, r0:r1].detach().requires_grad_()
+            kk, vv = (x[:, k0:k1].detach().float().requires_grad_()
+                      for x in (k, v))
+            s = _scores(qq, kk, causal, window, r0 - k0)
+            o = rounded_softmax_pv(s, vv, "bhgqs,bshd->bhgqd", v.dtype)
+            o = o.permute(0, 3, 1, 2, 4).reshape(B, r1 - r0, Hq, D)
+            gq, gk, gv = torch.autograd.grad(o.to(q.dtype), (qq, kk, vv),
+                                             dout[:, r0:r1])
+        dq[:, r0:r1] = gq
+        dk[:, k0:k1] += gk
+        dv[:, k0:k1] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def fwd_tiles(D: int):
@@ -249,8 +285,10 @@ def flash_prefill_bwd_tiled_plain(q, k, v, o, dout, lse, *, causal=True,
 def work(q, k, causal, window, q_offset):
     """((operations, bytes) of the forward, of the backward) at these
     inputs: 4 D a (query, key) pair and head forward, 10 D backward (its
-    five products), each input read and each output written once
-    (``chip_smoke.py``'s bounds)."""
+    five products), each input read and each output written once, the
+    backward's o and lse in f32 (``chip_smoke.py``'s bounds; the f32 copy
+    of its output that a training forward writes in bf16 is not
+    counted)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     es = q.element_size()
@@ -258,7 +296,8 @@ def work(q, k, causal, window, q_offset):
     fwd = (4 * D * B * Hq * pairs,
            es * (2 * B * T * Hq * D + 2 * B * S * Hkv * D))
     bwd = (10 * D * B * Hq * pairs,
-           es * (4 * B * T * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * T)
+           es * (3 * B * T * Hq * D + 4 * B * S * Hkv * D)
+           + 4 * B * T * Hq * D + 4 * B * Hq * T)
     return fwd, bwd
 
 
@@ -309,43 +348,51 @@ def no_backward_reason(dtype, D: int, q_offset: int) -> str:
     return ""
 
 
-def _forward_kernel(q, k, v, causal, window, q_offset, want_lse):
-    """Launch the forward kernel on checked CUDA inputs: (out, lse or
-    None)."""
+def _forward_kernel(q, k, v, causal, window, q_offset, for_grad):
+    """Launch the forward kernel on checked CUDA inputs: (out, lse, o) with
+    ``for_grad`` (what the backward takes: the rows' log-sum-exp, and the
+    output in f32, for bf16 the kernel's f32 values before their rounding),
+    else (out, None, None)."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lse = (torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
-           if want_lse else None)
+    lse = o32 = o = None
+    if for_grad:
+        lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+        if q.dtype != torch.float32:
+            o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        o = out if o32 is None else o32
     if B == 0 or T == 0:
-        return out, lse
+        return out, lse, o
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.flash_prefill_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if want_lse else None,
+            lse.data_ptr() if for_grad else None,
+            None if o32 is None else o32.data_ptr(),
             B, T, S, Hq, Hkv, D, int(bool(causal)), int(window),
             int(q_offset), D ** -0.5, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill")
     flash_prefill.launches += 1
-    return out, lse
+    return out, lse, o
 
 
 class FlashPrefillFn(torch.autograd.Function):
     """``flash_prefill`` with a gradient: the forward launches the kernel
-    and saves its log-sum-exp, the backward launches the backward kernel
-    (``flash_prefill_bwd``).  CPU tensors take the plain versions on both
-    sides."""
+    and saves its log-sum-exp and its output in f32, the backward launches
+    the backward kernel (``flash_prefill_bwd``).  CPU tensors take the plain
+    versions on both sides."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         if _on_cpu(q, k, v):
             out, lse = flash_prefill_plain(q, k, v, causal=causal,
                                            window=window, return_lse=True)
+            o = out
         else:
-            out, lse = _forward_kernel(q, k, v, causal, window, 0, True)
-        ctx.save_for_backward(q, k, v, out, lse)
+            out, lse, o = _forward_kernel(q, k, v, causal, window, 0, True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
@@ -386,9 +433,13 @@ flash_prefill.launches = 0    # kernel launches since the last reset
 
 def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
     """The gradient (dq, dk, dv) of ``flash_prefill(q, k, v)`` (q_offset 0)
-    from its output ``o``, the output's gradient ``dout`` and the forward's
-    row log-sum-exp ``lse`` (B, Hq, T).  CPU tensors take the plain version
-    (autograd of ``flash_prefill_plain``); CUDA tensors launch
+    from its output ``o`` in f32 (for bf16 inputs the forward kernel's f32
+    values before their rounding, ``_forward_kernel(..., for_grad=True)``:
+    delta = rowsum(dO * O) from the bf16 output is off by ~2^-9 |dO| |O|,
+    a large share of dP - delta in a row with a few keys), the output's
+    gradient ``dout`` and the forward's row log-sum-exp ``lse`` (B, Hq, T).
+    CPU tensors take the plain version (autograd of
+    ``flash_prefill_plain``); CUDA tensors launch
     ``csrc/flash_prefill_bwd.cu`` (f32 at D 64 / 80 / 128 / 256; bf16 at
     D 64 / 128 / 256 in ``csrc/flash_prefill_bwd_bf16.cu``; the gradients
     in the inputs' dtype, ``lse`` f32) or raise."""
@@ -403,12 +454,14 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
         return flash_prefill_bwd_plain(q, k, v, dout, causal=causal,
                                        window=window)
     S, Hkv = k.shape[1], k.shape[2]
-    _check_cuda("flash_prefill_bwd", (q, k, v, o, dout), _DTYPES,
+    _check_cuda("flash_prefill_bwd", (q, k, v, dout), _DTYPES,
                 BWD_HEAD_DIMS, D, Hq // Hkv)
-    if not (lse.device == q.device and lse.dtype == torch.float32
-            and lse.is_contiguous()):
-        raise ValueError("flash_prefill_bwd: lse must be a contiguous f32 "
-                         "tensor on q's device")
+    for name, x in (("o", o), ("lse", lse)):
+        if not (x.device == q.device and x.dtype == torch.float32
+                and x.is_contiguous() and x.data_ptr() % 16 == 0):
+            raise ValueError(f"flash_prefill_bwd: {name} must be a "
+                             "contiguous, 16-byte aligned f32 tensor on q's "
+                             "device")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if B == 0:
         return dq, dk, dv
@@ -420,8 +473,10 @@ def flash_prefill_bwd(q, k, v, o, dout, lse, *, causal=True, window=0):
                         device=q.device) if n_split > 1 else None)
     lib = _build.load()
     with torch.cuda.device(q.device):
+        bf16 = q.dtype == torch.bfloat16
         err = lib.flash_prefill_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bf16 else o.data_ptr(), o.data_ptr() if bf16 else None,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), B, T, S, Hq, Hkv,

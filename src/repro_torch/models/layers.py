@@ -659,7 +659,10 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def moe_route(params: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Dict[str, torch.Tensor]:
     """Top-k routing of x (T, d) as ``_moe_local`` does it: router logits
-    (T, E) in x's dtype then f32; the k largest with the lower expert index
+    (T, E) in f32 from x and the router as they are (XLA folds the
+    reference's ``(x @ router).astype(float32)`` into one f32 product of
+    the upcast operands, so bf16 logits are not rounded to bf16 first: a
+    rounding that ties or swaps near-equal experts); the k largest with the lower expert index
     first on ties (as ``jax.lax.top_k``; a stable descending sort, where
     ``torch.topk`` orders ties as it likes); their softmax in f32; each
     (token, choice)'s position in its expert's queue (an exclusive cumsum
@@ -668,7 +671,7 @@ def moe_route(params: Params, cfg: ModelConfig, x: torch.Tensor
     (T, E), and weights, experts, pos and keep (T, k)."""
     T = x.shape[0]
     E, k = cfg.num_experts, cfg.top_k
-    logits = matmul(x, params["router"]).float()                 # (T, E)
+    logits = matmul(x.float(), params["router"].float())         # (T, E)
     order = torch.sort(logits, dim=-1, descending=True, stable=True)
     weights = torch.softmax(order.values[:, :k], dim=-1)
     experts = order.indices[:, :k]                            # (T, k)

@@ -26,9 +26,11 @@ dP summed apart from big*big.)
 The bf16 backward (``csrc/flash_prefill_bwd_bf16.cu``) walks the same
 ranges and splits on its own tiles (``bwd_tiles(D, torch.bfloat16)``:
 64-row warpgroup tiles for ``wgmma``), with f32 sums: P and dS rounded to
-bf16 as the operands of dV, dK and dQ, Q, K, V and dO bf16 already.  Its emulation
+bf16 as the operands of dV, dK and dQ, Q, K, V and dO bf16 already, delta
+from the forward's output in f32.  Its emulation
 is ``flash_prefill_bwd_tiled_plain`` with ``mm_bf16``, fed the plain
-forward's bf16 output and log-sum-exp, its gradients rounded to bf16,
+forward's f32 output (p rounded to bf16, the output not) and log-sum-exp,
+its gradients rounded to bf16,
 against autograd of the plain forward in bf16, at ``chip_smoke.py``'s
 bf16 gradient limit.  The plain version rounds elsewhere (dP and its
 outputs), and where dP and delta nearly cancel in dS either side's
@@ -191,6 +193,9 @@ def test_forward_single_pass_tf32_misses_the_limit(B, T, S, Hq, Hkv, D,
 
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,window", CASES + [
     (1, 70, 30, 4, 2, 64, True, 20),       # rows with no valid key
+    (1, 100, 100, 10, 2, 128, True, 40),   # llama4-scout's G 5, window
+    (1, 90, 90, 12, 2, 128, True, 0),      # qwen2-vl-2b's G 6
+    (1, 64, 64, 32, 2, 128, True, 0),      # chatglm3-6b's G 16 on 2 kv heads
 ])
 def test_backward_design_holds_the_grad_limit(B, T, S, Hq, Hkv, D, causal,
                                               window):
@@ -233,6 +238,12 @@ BF16_CASES = [  # B, T, S, Hq, Hkv, D, causal, window
     # under a window
     (1, 203, 203, 10, 1, 256, True, 50),
     (2, 800, 800, 8, 4, 256, True, 0),     # D 256, dK/dV over 3 ranges
+    # the training paths of this card's other decoders: llama4-scout's G 5
+    # under a window, qwen2-vl-2b's G 6, chatglm3-6b's G 16 on 2 kv heads
+    # (T*G = 5120 rows; dK/dV over 4 ranges)
+    (1, 300, 300, 10, 2, 128, True, 100),
+    (1, 256, 256, 12, 2, 128, True, 0),
+    (2, 160, 160, 32, 2, 128, True, 0),
 ]
 
 
@@ -241,17 +252,27 @@ def _bf16_inputs(B, T, S, Hq, Hkv, D, seed):
                  for x in _inputs(B, T, S, Hq, Hkv, D, seed))
 
 
+def bf16_forward_for_grad(q, k, v, chunked=False, **kw):
+    """What the bf16 forward kernel hands its backward: the output in f32
+    (p rounded to v's bf16, the output not) and the rows' log-sum-exp; the
+    plain forward on f32 q and k (whose scores it takes in f32 anyway) and
+    the bf16 v."""
+    plain = (FP.flash_prefill_plain_chunked if chunked
+             else FP.flash_prefill_plain)
+    return plain(q.float(), k.float(), v, return_lse=True, **kw)
+
+
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,D,causal,window", BF16_CASES)
 def test_bf16_backward_design_holds_the_bf16_grad_limit(B, T, S, Hq, Hkv, D,
                                                         causal, window):
     """The bf16 backward's tiles, dK/dV ranges and products (``mm_bf16``),
-    from the plain forward's bf16 output and f32 log-sum-exp, its
-    gradients rounded to bf16 as the kernel writes them, against autograd
-    of the plain forward on the same bf16 inputs."""
+    from the plain forward's f32 output and log-sum-exp, its gradients
+    rounded to bf16 as the kernel writes them, against autograd of the
+    plain forward on the same bf16 inputs."""
     q, k, v, do = _bf16_inputs(B, T, S, Hq, Hkv, D, seed=D + 2)
     kw = dict(causal=causal, window=window)
-    o, lse = FP.flash_prefill_plain(q, k, v, return_lse=True, **kw)
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    o, lse = bf16_forward_for_grad(q, k, v, **kw)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
     got = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse, mm=mm_bf16,
                                            **kw)
     want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
@@ -260,6 +281,30 @@ def test_bf16_backward_design_holds_the_bf16_grad_limit(B, T, S, Hq, Hkv, D,
         g = g.to(torch.bfloat16).float()
         assert worst_share(g, w.float(), **TOL_GRAD_BF16) <= 1.0
         assert rel_l2(g, w.float()) <= GRAD_BF16_REL_L2
+
+
+def test_bf16_backward_takes_delta_from_the_f32_output():
+    """delta = rowsum(dO * O) from the bf16 output is off by ~2^-9 |dO| |O|,
+    a large share of dP - delta in a row with a few keys.  At llama4-scout's
+    heads (40 on 8) the emulated dQ of the first 4 rows, against the f32
+    gradient, is less accurate than the bf16 plain gradient with delta from
+    the bf16 output and no less accurate with delta from the f32 output,
+    which the kernel now reads.  (At T 16384 under an 8192 window, where
+    the long rows make the gradient's rms small, the first case took the
+    card's dQ past its limit: ``long_window_shares``.)"""
+    q, k, v, do = _bf16_inputs(1, 256, 256, 40, 8, 128, seed=11)
+    kw = dict(causal=True)
+    o32, lse = bf16_forward_for_grad(q, k, v, **kw)
+    exact = FP.flash_prefill_bwd_plain(*(x.float() for x in (q, k, v, do)),
+                                       **kw)[0][:, :4]
+    plain = rel_l2(FP.flash_prefill_bwd_plain(q, k, v, do, **kw)[0][:, :4]
+                   .float(), exact)
+    err = []
+    for o in (o32.to(torch.bfloat16), o32):
+        dq = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse,
+                                              mm=mm_bf16, **kw)[0]
+        err.append(rel_l2(dq[:, :4].to(torch.bfloat16).float(), exact))
+    assert err[0] > plain > err[1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -295,6 +340,9 @@ def test_bwd_split_rule(B, Hkv, S, D, n_split):
     (1, 17, 1024, 128, 1),     # 136 blocks: one wave and a bit
     (8, 8, 2048, 64, 1),       # 1024 blocks
     (1, 2, 200, 64, 4),        # 4 blocks
+    (4, 2, 1024, 128, 4),      # chatglm3-6b, qwen2-vl-2b training: 64 blocks
+    (1, 8, 2048, 128, 3),      # llama4-scout training: 128 blocks
+    (1, 8, 16384, 128, 1),     # llama4-scout at T 16384: 1024 blocks
 ])
 def test_bwd_split_rule_bf16(B, Hkv, S, D, n_split):
     """The bf16 kernel's dK/dV tiles (128 keys, 64 at D 256) split only
@@ -343,11 +391,54 @@ def test_tiles_fit_the_kernels():
     assert max(max(x) for x in smem) <= SMEM_LIMIT
 
 
+def long_window_shares(T=16384, window=8192, Hq=5, Hkv=1, D=128, seed=0):
+    """llama4-scout's T 16384 backward under its 8192 window on one kv head
+    (G 5): the bf16 kernel's algorithm emulated (``mm_bf16``, from the
+    plain forward's bf16 output and log-sum-exp) against the bf16 plain
+    gradient, and each against the f32 gradient of the same bf16 inputs,
+    all at the bf16 gradient limit; each gradient's worst element and
+    where it lies (its row, the row's keys, the row's rms against the
+    whole gradient's).  About 90 s."""
+    rng = np.random.default_rng(seed)
+
+    def draw(n, h):
+        return torch.from_numpy(rng.standard_normal(
+            (1, n, h, D), "float32")).to(torch.bfloat16)
+
+    q, do, k, v = draw(T, Hq), draw(T, Hq), draw(T, Hkv), draw(T, Hkv)
+    kw = dict(causal=True, window=window)
+    o, lse = bf16_forward_for_grad(q, k, v, chunked=True, **kw)
+    plain = FP.flash_prefill_bwd_plain_chunked(q, k, v, do, **kw)
+    exact = FP.flash_prefill_bwd_plain_chunked(
+        *(x.float() for x in (q, k, v, do)), **kw)
+    emu = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse, mm=mm_bf16,
+                                           **kw)
+    for name, g, p, e in zip(("dq", "dk", "dv"), emu, plain, exact):
+        g, p = g.to(torch.bfloat16).float(), p.float()
+        limit = TOL_GRAD_BF16["atol_rms"] * p.square().mean().sqrt() + \
+            TOL_GRAD_BF16["rtol"] * p.abs()
+        t = int((g - p).abs().div(limit).argmax()) // (g.shape[2] * D)
+        print(f"{name}: the kernel's algorithm against the bf16 plain "
+              f"gradient {worst_share(g, p, **TOL_GRAD_BF16):.3f} of the "
+              f"limit (relative L2 {rel_l2(g, p):.4f}); against the f32 "
+              f"gradient: the kernel's {worst_share(g, e, **TOL_GRAD_BF16):.3f}"
+              f", the bf16 plain {worst_share(p, e, **TOL_GRAD_BF16):.3f}; "
+              f"the worst element against the plain one in row {t} "
+              f"({min(t + 1, window)} keys), whose rms is "
+              f"{float(p[0, t].square().mean().sqrt() / p.square().mean().sqrt()):.1f}"
+              " times the gradient's")
+
+
 if __name__ == "__main__":
     # The worst element's share of its limit against the plain versions, in
     # the 3xTF32 split and in one TF32 pass, for each case above:
     #   PYTHONPATH=src:tests JAX_PLATFORMS=cpu python \
-    #       tests/test_torch_attention_design.py
+    #       tests/test_torch_attention_design.py [--long]
+    # (--long: long_window_shares alone)
+    import sys
+    if "--long" in sys.argv:
+        long_window_shares()
+        sys.exit(0)
     for case in CASES:
         B, T, S, Hq, Hkv, D, causal, window = case
         q, k, v, do = _inputs(B, T, S, Hq, Hkv, D, seed=D)
@@ -372,7 +463,7 @@ if __name__ == "__main__":
         B, T, S, Hq, Hkv, D, causal, window = case
         q, k, v, do = _bf16_inputs(B, T, S, Hq, Hkv, D, seed=D + 2)
         kw = dict(causal=causal, window=window)
-        o, lse = FP.flash_prefill_plain(q, k, v, return_lse=True, **kw)
+        o, lse = bf16_forward_for_grad(q, k, v, **kw)
         got = FP.flash_prefill_bwd_tiled_plain(q, k, v, o, do, lse,
                                                mm=mm_bf16, **kw)
         want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)

@@ -12,7 +12,9 @@ and their checks rest on.
 - ``split_rows`` at the card's long caches.
 - ``flash_prefill_plain_chunked`` (the plain version that ``chip_smoke.py``
   holds the 32768-position prefills against, query rows a chunk at a time)
-  against the unchunked plain version.
+  against the unchunked plain version, and its gradient
+  ``flash_prefill_bwd_plain_chunked`` (llama4-scout's T 16384 backward row)
+  against autograd of the unchunked one.
 - The bf16 prefill kernel's rounding at long causal rows: its algorithm
   emulated (64-key tiles, p rounded to bf16 against the running row max),
   held as ``chip_smoke.py`` holds the long bf16 prefills, to the f32
@@ -161,6 +163,46 @@ def test_chunked_plain_equals_unchunked(case, dtype):
     fin = torch.isfinite(want_lse)
     np.testing.assert_allclose(lse[fin].numpy(), want_lse[fin].numpy(),
                                atol=1e-5, rtol=0)
+
+
+BWD_CHUNK_CASES = [  # T, S, Hq, Hkv, causal, window
+    (300, 300, 4, 2, True, 0),
+    (300, 300, 10, 2, True, 70),          # llama4-scout's G 5 under a window
+    (257, 257, 2, 2, False, 50),          # bidirectional, one-sided window
+    (257, 200, 2, 1, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CHUNK_CASES,
+                         ids=[f"T{c[0]}-S{c[1]}-G{c[2] // c[3]}-c{int(c[4])}"
+                              f"-w{c[5]}" for c in BWD_CHUNK_CASES])
+def test_chunked_plain_gradient_equals_unchunked(case, dtype):
+    """``flash_prefill_bwd_plain_chunked`` (the plain gradient that
+    ``chip_smoke.py`` holds the backward kernel to at T 16384) against
+    autograd of the unchunked plain version: each row's dQ from its own
+    chunk, dK and dV summed over the chunks in f32 and rounded once, so the
+    two agree to f32 rounding; in bf16 equal or one bf16 step apart where
+    that rounding meets a rounding boundary."""
+    T, S, Hq, Hkv, causal, window = case
+    rng = np.random.default_rng(T + S + window + Hq)
+    q, do = (torch.from_numpy(rng.standard_normal(
+        (1, T, Hq, 64), "float32")).to(dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (1, S, Hkv, 64), "float32")).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    want = FP.flash_prefill_bwd_plain(q, k, v, do, **kw)
+    got = FP.flash_prefill_bwd_plain_chunked(q, k, v, do, **kw, rows=64)
+    # (one bf16 step is 2^-7 of a value at the bottom of its binade)
+    step = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        scale = float(w.float().abs().max())
+        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                   atol=1e-6 * scale, rtol=1e-5 + step)
+        if dtype == torch.bfloat16:
+            assert (g == w).float().mean() > 0.99
 
 
 def emulate_bf16_prefill(q, k, v, causal=True, window=0, bk=64):

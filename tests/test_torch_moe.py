@@ -11,7 +11,8 @@ decode steps within 1e-4 (llama4-scout also at its G 5 with a window that
 the requests overrun); and the greedy tokens of the port's
 ``ServingEngine`` and ``PaDGServer`` (with its decision log) equal to the
 JAX package's at ``max_batch`` 4, where a request that finishes early
-leaves a slot whose stale token is routed beside the live ones."""
+leaves a slot whose stale token is routed beside the live ones.  On bf16
+tokens and router, the router's logits are the reference's f32 product."""
 import dataclasses
 import os
 
@@ -191,6 +192,33 @@ def test_moe_routing_ties_take_the_lower_expert_first(arch):
     order = torch.sort(logits, dim=-1, descending=True,
                        stable=True).indices
     assert torch.equal(r["experts"], order[:, :cfg.top_k])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_router_logits_are_the_reference_f32_product(arch):
+    """On bf16 tokens and router, the reference's ``(x @ router).astype(
+    float32)`` compiles (under jit, as its model runs) into one f32 product
+    of the upcast operands, so its logits are not rounded to bf16 first.
+    The port's routing takes the same f32 logits (logits rounded to bf16
+    tie or swap near-equal experts at bf16's 8 bits), and its experts are
+    the reference's."""
+    cfg = moe_cfg(arch)
+    rng = np.random.default_rng(6)
+    x = jnp.asarray(rng.standard_normal((64, cfg.d_model)), jnp.bfloat16)
+    router = jnp.asarray(rng.standard_normal((cfg.d_model, 16))
+                         * cfg.d_model ** -0.5, jnp.bfloat16)
+    want = np.asarray(jax.jit(lambda a, w: (a @ w).astype(jnp.float32))(
+        x, router))
+    _, experts = jax.lax.top_k(jnp.asarray(want), cfg.top_k)
+
+    def port(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    r = L.moe_route({"router": port(router)}, cfg, port(x))
+    assert r["logits"].dtype == torch.float32
+    np.testing.assert_allclose(r["logits"].numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(r["experts"].numpy(), np.asarray(experts))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

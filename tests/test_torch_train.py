@@ -118,6 +118,42 @@ def test_adamw_matches_the_reference(clip):
     assert ts.step == int(js.step) == 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("clip", ["active", "inactive"])
+def test_adamw_one_leaf_of_preclipped_gradients_is_the_whole_update(dtype,
+                                                                    clip):
+    """``update`` on one leaf at a time, each gradient scaled first by the
+    whole tree's clip factor, gives the parameters of one update of the
+    whole tree: a leaf's scaled norm is within the clip, so ``update``
+    scales it by 1.  The factor comes from the float64 norm where
+    ``update`` takes an f32 one, so a parameter may round one step (of its
+    dtype) the other way, or move by lr * 1e-5 where p and its update
+    nearly cancel (``chip_smoke.adamw_limit`` allows both).
+    (``chip_smoke.py``'s train parity takes the reference's AdamW step so,
+    a leaf at a time on the card.)"""
+    rng = np.random.default_rng(7)
+    scale = 10.0 if clip == "active" else 1e-3
+    shapes = [(300, 70), (1000,), (5, 7, 9)]
+    params = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        dtype) for s in shapes]
+    grads = [torch.from_numpy((rng.normal(size=s) * scale).astype(
+        np.float32)).to(dtype) for s in shapes]
+    opt = AdamW()
+    whole = [p.clone() for p in params]
+    opt.update(grads, opt.init(whole), whole)
+    norm = sum(float(g.double().square().sum()) for g in grads) ** 0.5
+    factor = min(1.0, opt.grad_clip / (norm + 1e-12))
+    assert (factor < 1.0) == (clip == "active")
+    for p, g, w in zip(params, grads, whole):
+        leaf = p.clone()
+        opt.update([g.float() * factor], opt.init([leaf]), [leaf])
+        assert leaf.dtype == dtype
+        step = 2.0 ** -23 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(leaf, w, rtol=step, atol=opt.lr * 1e-5)
+        assert (leaf == w).float().mean() > 0.99
+
+
 @pytest.mark.parametrize("arch", ASSIGNED)
 def test_loss_and_grads_match_the_reference(arch):
     """``make_loss_fn``'s loss and every gradient leaf (mapped into the JAX
@@ -145,7 +181,10 @@ def test_loss_and_grads_match_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "hubert-xlarge", "rwkv6-3b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "qwen3-4b",
+                                  "chatglm3-6b", "qwen2-vl-2b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
 def test_train_step_loss_curve_matches_step_fn(arch):
     """Three steps of the port's ``train_step`` against the reference's
     ``step_fn`` (``jax.value_and_grad`` of its loss, then its AdamW, as

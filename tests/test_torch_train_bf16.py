@@ -200,8 +200,15 @@ def _tensor(a):
     return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
 
 
+# (The MoE archs' curves are held in f32, in test_torch_train.py.  In bf16
+# the two frameworks' activations differ by bf16 roundings, which move a
+# router logit by up to ~1e-2 on these configs: at this seed
+# llama4-scout's first layer sends a token near a tie to another expert in
+# each framework at step 0, and both MoE archs' curves part by more than
+# CURVE_RTOL from step 1.)
 @pytest.mark.parametrize("arch", ["llama3-8b", "hubert-xlarge",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "qwen3-4b",
+                                  "chatglm3-6b", "qwen2-vl-2b"])
 def test_bf16_train_curve_matches_the_reference(arch, monkeypatch):
     """``train(dtype=torch.bfloat16)`` against the reference's
     ``train(dtype=jnp.bfloat16)``, 3 steps of AdamW(lr=1e-3) on the same
