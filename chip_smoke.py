@@ -24,10 +24,16 @@ Phases, in order (all by default):
    shapes: ``flash_prefill`` at T = S = 32768, causal and under an 8192
    window, against its plain version run 512 query rows at a time, and
    ``decode_attention`` over 8 x 32768 valid rows and llama3-8b-sw's full
-   8192-row ring; the split-S decode also against its own algorithm in
-   plain PyTorch (``decode_attention_split_plain``), at lengths 0, 1, on
-   a split boundary and one either side of it, and with S off the split
-   size;
+   8192-row ring; the long_500k paths' shapes: ``flash_prefill`` at T = S
+   = 524288 under llama4-scout's 8192 window and recurrentgemma-2b's 2048
+   (q 2.7e9 elements at llama4-scout's) against the f32 attention run 512
+   query rows at a time, ``decode_attention`` at batch 1 over their full
+   rings, ``rwkv6_scan`` over (1, 524288, 40, 64) with its final state
+   and ``rglru_scan`` over (1, 524288, 2560) against their chunked plain
+   versions, inputs drawn on the card; the split-S decode also against
+   its own algorithm in plain PyTorch (``decode_attention_split_plain``),
+   at lengths 0, 1, on a split boundary and one either side of it, and
+   with S off the split size;
    ``rwkv6_scan`` in f32 (o and final state) over ragged T (1, one
    either side of the kernel's 64-step chunk, up to ``max_seq_len``),
    B 8, D 64 and 128, a carried-in state, and fast decays against a
@@ -84,7 +90,9 @@ Phases, in order (all by default):
    / 128 / 256, bf16 at D 128), ``rwkv6_scan`` and ``rglru_scan`` inputs
    that require grad get a ``grad_fn`` whose backward launches the
    backward kernel.
-4. ``parity``: llama3-8b, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
+4. ``parity``: first ``apply_rope`` of the long_500k archs on the card at
+   positions 524160-524351 against the CPU (``ROPE_ATOL``), then
+   llama3-8b, llama3-8b-sw, rwkv6-3b, qwen3-4b (qk_norm), chatglm3-6b (half
    rope) and qwen2-vl-2b (M-RoPE) at full width, 2 layers, and
    recurrentgemma-2b at full width, 3 layers (one RG-LRU, RG-LRU, local
    attention cycle), f32: one prompt and 8 greedy decode steps with the
@@ -100,6 +108,11 @@ Phases, in order (all by default):
    margin and whether the chosen experts agree logged, then one
    ``moe_block`` on a decode-shaped input under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync allowed.
+   The long_500k archs (rwkv6-3b, recurrentgemma-2b, llama3-8b-sw,
+   llama4-scout) also take one decode step at batch 1 and ``cache_len``
+   524287 from a cache drawn from the seed, logits and every cache tensor
+   within ``PARITY_ATOL``.  Each row's CPU side runs on a host thread
+   (one row's at a time) while the card side of the next dense row runs.
    Train parity: hubert-xlarge, rwkv6-3b, qwen3-4b, chatglm3-6b and
    qwen2-vl-2b at full width, 2 layers, llama3-8b at 1 and
    recurrentgemma-2b at 3, f32, then llama3-8b, recurrentgemma-2b, qwen3-4b,
@@ -137,10 +150,15 @@ Phases, in order (all by default):
    tokens each, on full-depth bf16 qwen3-4b: 8 tokens a prompt, 32
    streamed, its kernels launched.  Then ``ENGINE_PATHS`` through one
    ``ServingEngine`` each, at full depth, held to the same rules: the
-   whole 48-layer codellama2-34b on one 4096-token prompt (32 tokens), and
-   32k-token contexts (llama3-8b and llama3-8b-sw, prompts of 32704 and
-   16411 tokens, 64 tokens each, ``max_seq_len`` 32832); qwen2-72b's
-   whole instance is logged as not fitting.
+   whole 48-layer codellama2-34b on one 4096-token prompt (32 tokens),
+   32k-token contexts (llama3-8b whole and llama3-8b-sw at 8 layers,
+   prompts of 32704 and 16411 tokens, 64 tokens each, ``max_seq_len``
+   32832), and the reference's long_500k: one 524288-token prompt and 16
+   tokens at ``max_batch`` 1 on rwkv6-3b, recurrentgemma-2b and
+   llama3-8b-sw whole and llama4-scout at 2 layers, each path's peak
+   device memory beside its prefill's, reckoned from shapes
+   (``reckon_prefill_gb``); qwen2-72b's whole instance is logged as not
+   fitting.
 6. ``calibrate``: ``bench_calibration_torch.py``'s real backend on the
    card.  Two instances of full-width, full-depth bf16 llama3-8b serve the
    first 24 records of each checked-in trace excerpt (Azure, BurstGPT),
@@ -207,8 +225,10 @@ Phases, in order (all by default):
    (``reduced`` logged), 3 steps each, the same printout and launch
    check, each first loss held within ``TRAIN_BF16_FIRST_LOSS_RTOL`` of an
    f32 forward of the same first batch from the same seed's weights.
-   Then ``python -m repro_torch.launch.train --arch <arch> --steps 3
-   --device cuda`` for llama3-8b, rwkv6-3b and qwen3-4b, side by side.
+   Beside the runs, started with the phase, ``python -m
+   repro_torch.launch.train --arch <arch> --steps 3 --device cuda`` for
+   llama3-8b, rwkv6-3b and qwen3-4b, side by side (and the mesh phase's
+   dry run, host work in its own process).
 9. ``mesh``: the multi-device layer on the card's 1x1 NCCL mesh (one
    card holds one NCCL rank; ``launch.mesh.make_card_mesh``).
    qwen1.5-32b at full width with 8 of its 64 layers, bf16 weights from
@@ -222,13 +242,15 @@ Phases, in order (all by default):
    moments): its loss equal to the unsharded loss within
    ``TRAIN_LOSS_RTOL``, its parameters finite, each kernel launched as a
    step launches it.  The launches of both sharded runs (counts set to 0
-   just before each, read just after) go into the kernel table.  Then
+   just before each, read just after) go into the kernel table.
    ``python -m repro_torch.launch.dryrun --all --arch qwen1.5-32b`` (its
    four shapes on the 16x16 and 2x16x16 production meshes over the fake
-   process group, on the host: each ok or skipped with the reference's
-   reason, its H100 roofline terms printed), and
-   ``examples/quickstart_torch.py`` and ``examples/train_small_torch.py``
-   (150 steps; the loss must drop by more than 0.5) on the card.
+   process group, on the host, started with the train phase when it
+   runs: each ok or skipped with the reference's reason, its H100
+   roofline terms printed), and, started with the phase beside the
+   sharded steps, ``examples/quickstart_torch.py`` and
+   ``examples/train_small_torch.py`` (150 steps; the loss must drop by
+   more than 0.5) on the card.
 
 Every failure exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, the script exits
@@ -248,6 +270,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -322,6 +345,12 @@ PAPER_TRAFFIC = {LLAMA30: "sharegpt", CODELLAMA: "longbench",
 LLAMA_SW = "llama3-8b-sw"
 WHOLE_PATH = f"whole {CODELLAMA}"
 LONG_PATH, LONG_SW_PATH = "32k llama3-8b", f"32k {LLAMA_SW}"
+# the reference's long_500k shape (launch/input_specs.py): a decode step at
+# batch 1 over a 524288-position context, for the archs whose blocks all
+# see a bounded context (cfg.subquadratic); each serves one such context
+LONG500 = 524288
+LONG500_ARCHS = ("rwkv6-3b", "recurrentgemma-2b", LLAMA_SW, SCOUT)
+L500 = {arch: f"500k {arch}" for arch in LONG500_ARCHS}
 
 
 def fail(msg: str) -> None:
@@ -366,6 +395,19 @@ def cuda_ms(torch, fn, iters: int = TIMED_CALLS, warmup: int = 2,
     return start.elapsed_time(stop) / iters
 
 
+def timed_call(torch, fn):
+    """(``fn()``, its ms on CUDA events): one call, for a plain version
+    that takes seconds, timed where its output is made for the check."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def cuda_ms_cold(torch, fn, flush, iters: int = TIMED_CALLS) -> float:
     """Mean device time of ``fn`` with the L2 cache flushed before each
     call (``flush`` is a device buffer larger than the 50 MB L2), as a
@@ -394,13 +436,47 @@ def bound(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# elements a slice of the leaf-by-leaf comparisons and of the largest
+# outputs': their f64 temporaries stay near 0.5 GB, where a whole leaf of
+# llama4-scout (its 202048-row embedding or head, 1.03B elements) would take
+# 8.3 GB each
+SLICE = 1 << 26
+
+
+def flat_slices(*xs):
+    """Aligned slices of at most ``SLICE`` elements of equally sized
+    tensors, flattened (views)."""
+    flat = [x.reshape(-1) for x in xs]
+    for i in range(0, flat[0].numel(), SLICE):
+        yield [f[i:i + SLICE] for f in flat]
+
+
+def sq_sum(torch, x) -> float:
+    """Sum of squares of ``x`` in f64 on the card, a slice at a time."""
+    return float(sum((s.to("cuda").double().square().sum()
+                      for (s,) in flat_slices(x)), torch.zeros((),
+                     dtype=torch.float64, device="cuda")))
+
+
 def compare(torch, got, want, tol_name: str):
-    """(ok, max |got - want|, largest share of its limit an element uses)."""
+    """(ok, max |got - want|, largest share of its limit an element uses).
+    Outputs of more than ``SLICE`` elements (the 524288-row prefills' 2.7e9)
+    are compared a slice at a time, their rms summed in f64."""
     tol = TOL[tol_name]
+    if want.numel() > SLICE:
+        rms = (sq_sum(torch, want) / want.numel()) ** 0.5
+        parts = [_compare(torch, g, w, tol, rms)
+                 for g, w in flat_slices(got, want)]
+        return (all(p[0] for p in parts), max(p[1] for p in parts),
+                max(p[2] for p in parts))
+    want = want.float()
+    return _compare(torch, got, want, tol, want.square().mean().sqrt())
+
+
+def _compare(torch, got, want, tol, rms):
     want = want.float()
     diff = (got.float() - want).abs()
-    limit = (tol["atol"] + tol["atol_rms"] * want.square().mean().sqrt()
-             + tol["rtol"] * want.abs())
+    limit = tol["atol"] + tol["atol_rms"] * rms + tol["rtol"] * want.abs()
     max_abs = float(diff.max()) if diff.numel() else 0.0
     # (an element equal on both sides uses none of its limit, even a zero
     # limit: a gradient that is zero on both sides)
@@ -541,9 +617,19 @@ LONG_FLASH_CASES = [
     ((LONG_SW_PATH,), 1, 32768, 32768, 32, 8, 128, True, 8192, 0),
 ]
 LONG_PLAIN_ROWS = 512
+# bf16 only, the 524288-token prefills of the 500k paths: llama4-scout's G 5
+# under its 8192 window (q is 2.7e9 elements, past 2^31) and
+# recurrentgemma-2b's G 10 at D 256 under its 2048 window; held as the 32k
+# prefills are.  No SDPA time: its mask alone would be 275 GB
+LONG500_FLASH_CASES = [
+    ((L500[SCOUT],), 1, LONG500, LONG500, 40, 8, 128, True, 8192, 0),
+    ((L500["recurrentgemma-2b"],), 1, LONG500, LONG500, 10, 1, 256, True,
+     2048, 0),
+]
 # every bf16-only case is held to the f32 attention, and so is
 # qwen1.5-32b's prefill
-FLASH_BF16_ONLY = FLASH_BF16_CASES + PAPER_PREFILLS + LONG_FLASH_CASES
+FLASH_BF16_ONLY = (FLASH_BF16_CASES + PAPER_PREFILLS + LONG_FLASH_CASES
+                   + LONG500_FLASH_CASES)
 BF16_EXACT_CASES = FLASH_BF16_ONLY + [QWEN32_PREFILL]
 DECODE_CASES = [  # paths, B, S, Hq, Hkv, D, lengths (a count or a kind)
     (("llama3-8b", "qwen3-4b", PHI), 8, 2048, 32, 8, 128, 1024),
@@ -606,6 +692,10 @@ DECODE_BF16_CASES = [
     ((WHOLE_PATH,), 1, 8192, 64, 8, 128, 4096),
     ((LONG_PATH,), 8, 32768, 32, 8, 128, 32768),
     ((LONG_SW_PATH,), 2, 8192, 32, 8, 128, 8192),
+    # the 500k paths' decode steps: batch 1 over a full ring
+    ((L500[SCOUT],), 1, 8192, 40, 8, 128, 8192),
+    ((L500[LLAMA_SW],), 1, 8192, 32, 8, 128, 8192),
+    ((L500["recurrentgemma-2b"],), 1, 2048, 10, 1, 256, 2048),
 ]
 
 
@@ -648,9 +738,9 @@ def sdpa_mask(torch, T, S, causal, window, q_offset, device):
 
 
 # inputs larger than this are drawn on the card, from a generator seeded
-# by the run's numpy stream: numpy takes seconds for each of the long
-# cases' 134M-436M elements (no case before them exceeds 84M)
-HOST_DRAW_MAX = 1 << 27
+# by the run's numpy stream: numpy draws ~55M normals a second, so the
+# kernel checks' 2.5G elements took ~45 s of the phase on the host
+HOST_DRAW_MAX = 1 << 20
 
 
 def card_randn(torch, rng, shape, dtype):
@@ -697,12 +787,16 @@ def run_kernels(torch, rng, results):
             k = randn((B, S, Hkv, D), dtype)
             v = randn((B, S, Hkv, D), dtype)
             kw = dict(causal=causal, window=window, q_offset=off)
-            long = case in LONG_FLASH_CASES
+            huge = case in LONG500_FLASH_CASES
+            long = huge or case in LONG_FLASH_CASES
             plain = (functools.partial(FP.flash_prefill_plain_chunked,
                                        rows=LONG_PLAIN_ROWS)
                      if long else FP.flash_prefill_plain)
             got = FP.flash_prefill(q, k, v, **kw)
-            want, want_lse = plain(q, k, v, **kw, return_lse=True)
+            # (a long case's plain version takes 0.4-8 s a call: its time
+            # is this call's)
+            (want, want_lse), plain_ms = timed_call(
+                torch, lambda: plain(q, k, v, **kw, return_lse=True))
             torch.cuda.synchronize()
             ok, err, share = compare(torch, got, want, dn)
             exact_text = ""
@@ -717,6 +811,7 @@ def run_kernels(torch, rng, results):
                               f"{BF16_EXACT_SHARE_RATIO:g})")
                 ok = bool(torch.isfinite(got).all()) and (
                     shares[0] <= BF16_EXACT_SHARE_RATIO * shares[1])
+                del exact
             # the log-sum-exp the backward reads (f32 in both dtypes, held
             # to the f32 limit: the scores' products are exact in f32 and
             # summed in f32 on both sides), and the output unchanged by it;
@@ -736,46 +831,57 @@ def run_kernels(torch, rng, results):
             lse_text = (f"; lse max_abs_err={err_l:.3e} ({share_l:.3f} of "
                         f"its limit), {int(empty.sum())} empty rows -inf on "
                         f"both sides: {same_empty}")
+            del got2, o_grad
             kern = lambda: FP.flash_prefill(q, k, v, **kw)  # noqa: E731
-            ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
+            # (a 524288-row call takes 35-260 ms: 3 timed calls each)
+            few_k = dict(iters=3, warmup=1) if huge else {}
+            ms = cuda_ms(torch, kern, **few_k)
+            dev_ms = cuda_ms(torch, kern, spin=True, **few_k)
             lse_dev_ms = cuda_ms(torch, lambda: FP._forward_kernel(
-                q, k, v, causal, window, off, True), spin=True)
-            # (a 32k case's plain version takes about a second a call and
-            # SDPA with a 32768 x 32768 mask 63 ms: 2 timed calls each)
+                q, k, v, causal, window, off, True), spin=True, **few_k)
+            # (SDPA with a 32768 x 32768 mask takes 63 ms: 2 timed calls)
             few = dict(iters=2, warmup=1) if long else {}
-            plain_ms = cuda_ms(torch, lambda: plain(q, k, v, **kw), **few)
+            if not long:
+                plain_ms = cuda_ms(torch, lambda: plain(q, k, v, **kw))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             # (a window that no query position reaches masks nothing)
-            if causal and not off and S == T and (not window
-                                                  or window >= T):
+            if huge:
+                lib = None
+            elif causal and not off and S == T and (not window
+                                                    or window >= T):
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, is_causal=True, enable_gqa=True)
             else:
                 mask = sdpa_mask(torch, T, S, causal, window, off, dev)
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            lib_ms = cuda_ms(torch, lib, **few)
-            lib_dev_ms = cuda_ms(torch, lib, spin=True, **few)
+            lib_ms = lib and cuda_ms(torch, lib, **few)
+            lib_dev_ms = lib and cuda_ms(torch, lib, spin=True, **few)
             nbytes = esize * (2 * B * T * Hq * D + 2 * B * S * Hkv * D)
             ops = 4 * D * B * Hq * flash_pairs(T, S, causal, window, off)
             b_ms, b_by = bound(nbytes, ops, dn)
             all_ok &= ok
-            chunks = (f" (plain version over {LONG_PLAIN_ROWS}-row chunks)"
-                      if long else "")
+            chunks = (f" (plain version over {LONG_PLAIN_ROWS}-row chunks, "
+                      "its time that of the checked call)" if long else "")
+            lib_text = (
+                f"library_ms={lib_ms:.4f}" if lib else
+                f"library_ms=null (SDPA's {T} x {S} mask alone would be "
+                f"{T * S / 1e9:.0f} GB)")
             log(f"flash_prefill {dn} B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} "
                 f"D={D} causal={causal} window={window} q_offset={off}"
                 f"{chunks}: "
                 f"max_abs_err={err:.3e} ({tol_text(dn)}; worst element at "
                 f"{share:.3f} of its limit{exact_text}{lse_text}) "
                 f"{'ok' if ok else 'MISMATCH'} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} {lib_text} "
                 f"(device: kernel {dev_ms:.4f}, with the log-sum-exp "
                 f"{'and the f32 output ' if not f32 else ''}"
-                f"{lse_dev_ms:.4f}, library {lib_dev_ms:.4f}) "
-                f"bound_ms={b_ms:.4f} ({b_by}; share "
+                f"{lse_dev_ms:.4f}"
+                + (f", library {lib_dev_ms:.4f}" if lib else "") +
+                f") bound_ms={b_ms:.4f} ({b_by}; share "
                 f"{100 * b_ms / dev_ms:.0f}%) achieved on the device "
-                f"{ops / dev_ms * 1e-9:.1f} TFLOP/s (SDPA "
-                f"{ops / lib_dev_ms * 1e-9:.1f})")
+                f"{ops / dev_ms * 1e-9:.1f} TFLOP/s"
+                + (f" (SDPA {ops / lib_dev_ms * 1e-9:.1f})" if lib else ""))
             if dtype == torch.bfloat16 or case in FLASH_F32_CASES:
                 record(results, "flash_prefill", paths, max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -838,6 +944,7 @@ def run_kernels(torch, rng, results):
     all_ok &= run_bwd_kernel(torch, rng, results)
     all_ok &= run_rwkv6_kernel(torch, rng, results)
     all_ok &= run_rglru_kernel(torch, rng, results)
+    all_ok &= run_long_scans(torch, rng, results)
     all_ok &= run_rwkv6_bwd_kernel(torch, rng, results)
     all_ok &= run_rglru_bwd_kernel(torch, rng, results)
     if not all_ok:
@@ -1066,8 +1173,7 @@ def run_bwd_kernel(torch, rng, results) -> bool:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dtype):
-        x = rng.standard_normal(shape, "float32")
-        return torch.from_numpy(x).to(dev, dtype)
+        return card_randn(torch, rng, shape, dtype)
 
     all_ok = True
     for case, dtype in ([(c, torch.float32) for c in BWD_CASES]
@@ -1086,7 +1192,7 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         plain = (functools.partial(FP.flash_prefill_bwd_plain_chunked,
                                    rows=LONG_PLAIN_ROWS) if long_t
                  else FP.flash_prefill_bwd_plain)
-        want = plain(q, k, v, do, **kw)
+        want, plain_ms = timed_call(torch, lambda: plain(q, k, v, do, **kw))
         held_to, against = want, ""
         if long_t:
             # held to the f32 gradient of the same inputs (see
@@ -1111,8 +1217,9 @@ def run_bwd_kernel(torch, rng, results) -> bool:
         def kern():
             return FP.flash_prefill_bwd(q, k, v, o, do, lse, **kw)
         ms, dev_ms = cuda_ms(torch, kern), cuda_ms(torch, kern, spin=True)
-        plain_ms = cuda_ms(torch, lambda: plain(q, k, v, do, **kw), iters=3,
-                           warmup=1)
+        if not long_t:      # (the long case's time is its checked call's)
+            plain_ms = cuda_ms(torch, lambda: plain(q, k, v, do, **kw),
+                               iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         mask = (None if not window and (not causal or S == T)
@@ -1384,6 +1491,98 @@ def run_rglru_kernel(torch, rng, results) -> bool:
     return all_ok
 
 
+# the 500k paths' scans: rwkv6-3b's (1, 524288, 40, 64) with its final
+# state, against the plain chunked form (its 4096 chunks in turn), and
+# recurrentgemma-2b's (1, 524288, 2560) against the plain recurrence split
+# over time (rglru_scan_plain_chunked: the step loop would take 524288 steps
+# of whole-tensor ops); inputs drawn on the card (1.3e9 elements each), at
+# the decays of the served models (RWKV_CASES' slow ones, RGLRU_CASES'
+# model range)
+LONG500_SCAN_ROWS = 512
+
+
+def run_long_scans(torch, rng, results) -> bool:
+    import math
+
+    from repro_torch.kernels import rglru_scan as RG
+    from repro_torch.kernels import rwkv6_scan as RS
+
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(1 << 62)))
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(scale)
+
+    def rand(*shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda").mul_(
+            hi - lo).add_(lo)
+
+    few = dict(iters=3, warmup=1)
+    B, T, H, D = 1, LONG500, 40, 64
+    r, k, v = (randn(B, T, H, D, scale=0.5) for _ in range(3))
+    w = rand(B, T, H, D, lo=0.6, hi=0.999)
+    u = randn(H, D, scale=0.1)
+    o, st = RS.rwkv6_scan(r, k, v, w, u)
+    o2, st2 = RS.rwkv6_scan(r, k, v, w, u)
+    same = bool(torch.equal(o, o2) and torch.equal(st, st2))
+    del o2, st2
+    (p_o, p_st), plain_ms = timed_call(
+        torch, lambda: RS.rwkv6_scan_plain(r, k, v, w, u))
+    ok_o, err_o, share_o = compare(torch, o, p_o, "rwkv6")
+    ok_s, err_s, share_s = compare(torch, st, p_st, "rwkv6")
+    del o, p_o
+    kern = lambda: RS.rwkv6_scan(r, k, v, w, u)  # noqa: E731
+    ms = cuda_ms(torch, kern, **few)
+    dev_ms = cuda_ms(torch, kern, spin=True, **few)
+    b_ms, b_by = bound(4 * (5 * B * T * H * D + H * D + B * H * D * D),
+                       rwkv6_ops(B, T, H, D), "float32")
+    ok_w = ok_o and ok_s and same
+    log(f"rwkv6_scan float32 B={B} T={T} H={H} D={D} s0=False decay=slow "
+        f"(the 500k path's prefill; against plain): o max_abs_err="
+        f"{err_o:.3e} (worst element at {share_o:.3f} of its limit), final "
+        f"state max_abs_err={err_s:.3e} ({share_s:.3f}) "
+        f"({tol_text('rwkv6')}), two calls bit-identical: {same} "
+        f"{'ok' if ok_w else 'MISMATCH'} kernel_ms={ms:.4f} (device "
+        f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} library_ms=null bound_ms="
+        f"{b_ms:.4f} ({b_by}; share {100 * b_ms / dev_ms:.0f}%; the "
+        f"kernel's passes move "
+        f"{rwkv6_form_bytes(B, T, H, D, False) / 1e9:.2f} GB)")
+    record(results, "rwkv6_scan", (L500["rwkv6-3b"],),
+           max_abs_err=max(err_o, err_s), ms=ms, plain_ms=plain_ms,
+           bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=dev_ms,
+           library_device_ms=None)
+    del r, k, v, w
+
+    d = 2560
+    log_a = torch.sigmoid(randn(B, T, d)).mul_(-8.0 * math.log1p(math.e))
+    b = (1.0 - torch.exp(2.0 * log_a)).clamp_(min=1e-12).sqrt_().mul_(
+        randn(B, T, d))
+    got = RG.rglru_scan(log_a, b)
+    same = bool(torch.equal(got, RG.rglru_scan(log_a, b)))
+    want, plain_ms = timed_call(torch, lambda: RG.rglru_scan_plain_chunked(
+        log_a, b, chunk=LONG500_SCAN_ROWS))
+    ok_g, err, share = compare(torch, got, want, "rglru")
+    ok_g &= same
+    del got, want
+    kern = lambda: RG.rglru_scan(log_a, b)  # noqa: E731
+    ms = cuda_ms(torch, kern, **few)
+    dev_ms = cuda_ms(torch, kern, spin=True, **few)
+    b_ms, b_by = bound(4 * 3 * B * T * d, 3 * B * T * d, "float32")
+    log(f"rglru_scan float32 B={B} T={T} d={d} h0=False decay=model (the "
+        f"500k path's prefill; against the plain recurrence split into "
+        f"{LONG500_SCAN_ROWS}-step chunks, {RG.time_chunk(T)}-step chunks "
+        f"in the kernel): max_abs_err={err:.3e} ({tol_text('rglru')}; worst "
+        f"element at {share:.3f} of its limit), two calls bit-identical: "
+        f"{same} {'ok' if ok_g else 'MISMATCH'} kernel_ms={ms:.4f} (device "
+        f"{dev_ms:.4f}) plain_ms={plain_ms:.4f} library_ms=null bound_ms="
+        f"{b_ms:.4f} ({b_by}; share {100 * b_ms / dev_ms:.0f}%)")
+    record(results, "rglru_scan", (L500["recurrentgemma-2b"],),
+           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+           bound_by=b_by, library_ms=None, device_ms=dev_ms,
+           library_device_ms=None)
+    return ok_w and ok_g
+
+
 RWKV_BWD_CASES = [  # B, T, H, carried-in state, final-state cotangent, decay
     (4, 1024, 40, False, False, "slow"),   # rwkv6-3b training (main)
     (1, 1000, 40, False, False, "slow"),   # T not a chunk multiple
@@ -1605,6 +1804,37 @@ def run_rglru_bwd_kernel(torch, rng, results) -> bool:
 # --------------------------------------------------------------------- #
 # phase 4: model parity, kernels on the card vs plain versions on the CPU
 # --------------------------------------------------------------------- #
+def on_host_thread(fn, *args, after=None):
+    """Run ``fn(*args)`` on a host thread, once the event ``after`` (if
+    any) is set, so that CPU reference work runs while the main thread
+    drives the card (torch's CPU ops release the GIL), one such run at a
+    time.  Returns a function that waits for it and gives (its result, its
+    seconds), or raises what it raised; its ``done`` event is set when
+    ``fn`` returns or raises."""
+    out, done = {}, threading.Event()
+
+    def run():
+        if after is not None:
+            after.wait()
+        t0 = time.perf_counter()
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:     # noqa: BLE001 — re-raised below
+            out["error"] = e
+        out["seconds"] = time.perf_counter() - t0
+        done.set()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def result():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"], out["seconds"]
+    result.done = done
+    return result
+
+
 def greedy(torch, params, cfg, prompt, n_new, device, patches=None):
     """One prompt (after ``patches``, (1, P, frontend_dim), if given) and
     ``n_new`` greedy decode steps: the tokens and each step's logits."""
@@ -1639,9 +1869,10 @@ def greedy(torch, params, cfg, prompt, n_new, device, patches=None):
 # llama4-scout's against its 12-position tiles (G 5); the paper's models'
 # against the f32 kernel's 16-position tiles at G 8 and inside one
 # 128-position tile at G 1 (llama-30b)
-PARITY_PROMPT = {"llama3-8b": 77, "rwkv6-3b": 190, "recurrentgemma-2b": 190,
-                 "qwen3-4b": 77, "chatglm3-6b": 101, "qwen2-vl-2b": 77,
-                 PHI: 77, SCOUT: 101, **dict.fromkeys(PAPER_TRAFFIC, 101)}
+PARITY_PROMPT = {"llama3-8b": 77, LLAMA_SW: 77, "rwkv6-3b": 190,
+                 "recurrentgemma-2b": 190, "qwen3-4b": 77, "chatglm3-6b": 101,
+                 "qwen2-vl-2b": 77, PHI: 77, SCOUT: 101,
+                 **dict.fromkeys(PAPER_TRAFFIC, 101)}
 # layers of the parity runs: 2, recurrentgemma-2b's one full (RG-LRU,
 # RG-LRU, local attention) cycle, or 1 for the MoE models (llama4-scout's
 # f32 weights are 16.6 GB a side at one layer, 8.1 GB of them the
@@ -1657,8 +1888,80 @@ PARITY_RUNS = [("llama3-8b", None, 0), ("rwkv6-3b", None, 0),
                ("recurrentgemma-2b", None, 0), ("recurrentgemma-2b", 128, 0),
                ("qwen3-4b", None, 0), ("chatglm3-6b", None, 0),
                ("qwen2-vl-2b", None, 0), ("qwen2-vl-2b", None, 64),
-               (PHI, None, 0), (SCOUT, None, 0),
+               (PHI, None, 0), (SCOUT, None, 0), (LLAMA_SW, None, 0),
                *((arch, None, 0) for arch in PAPER_TRAFFIC)]
+# the rotary positions held card against CPU: the last 128 of a 524288-token
+# prompt and the first 64 decoded after it
+ROPE_POSITIONS = (LONG500 - 128, LONG500 + 64)
+ROPE_ATOL = 1e-6
+
+
+def run_rope_parity(torch):
+    """``apply_rope`` of every long_500k arch's rotary (theta, head_dim,
+    heads) on the card at positions 524160-524351 against the port's CPU
+    version of the same inputs, within ``ROPE_ATOL``; and whether the
+    card's frequencies (theta ** exponent in float64, rounded to f32) have
+    the CPU's bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    pos = torch.arange(*ROPE_POSITIONS)[None]
+    gen = torch.Generator().manual_seed(LONG500)
+    for arch in LONG500_ARCHS:
+        cfg = get_config(arch)
+        if cfg.rope == "none":
+            continue
+        n = cfg.head_dim // 2
+        x = torch.randn((1, pos.shape[1], cfg.num_heads, cfg.head_dim),
+                        generator=gen)
+        want = L.apply_rope(cfg, x, pos)
+        got = L.apply_rope(cfg, x.cuda(), pos.cuda()).cpu()
+        err = float((got - want).abs().max())
+        same = torch.equal(L._rope_freqs(cfg.rope_theta, n, "cuda").cpu(),
+                           L._rope_freqs(cfg.rope_theta, n, "cpu"))
+        log(f"parity rope {arch} (theta {cfg.rope_theta:g}, {n} "
+            f"frequencies, {cfg.num_heads} heads) at positions "
+            f"{ROPE_POSITIONS[0]}-{ROPE_POSITIONS[1] - 1}, f32: max |card - "
+            f"cpu| = {err:.3e} (tol {ROPE_ATOL:g}); frequencies bit-equal "
+            f"on both sides: {same}")
+        if not err <= ROPE_ATOL:
+            fail(f"rope {arch}: card and CPU differ by {err:.3e} at "
+                 f"positions past {LONG500 - 128}")
+
+
+def long500_decode(torch, rng, cfg, p_gpu, p_cpu):
+    """The long_500k step: one decode step at batch 1 and cache_len 524287
+    (position 524287, ring row 524287 % window) from a cache drawn from the
+    seed (full rings, conv histories, h, shifts and RWKV states), f32, on
+    the card and on the CPU: logits and every cache tensor within
+    ``PARITY_ATOL``."""
+    from repro_torch.models import forward, init_cache
+
+    cache_cpu = init_cache(cfg, 1, LONG500 + 32, torch.float32, "cpu")
+    for t in cache_cpu.values():
+        t.copy_(torch.from_numpy(rng.standard_normal(t.shape, "float32")))
+    cache_gpu = {key: t.to("cuda", copy=True)
+                 for key, t in cache_cpu.items()}
+    tok = torch.tensor([[int(rng.integers(2, cfg.vocab_size - 1))]])
+    cl = torch.full((1,), LONG500 - 1, dtype=torch.int32)
+    with torch.no_grad():
+        lg_gpu, c_gpu = forward(p_gpu, cfg, {"tokens": tok.cuda()},
+                                cache=cache_gpu, cache_len=cl.cuda())
+        lg_cpu, c_cpu = forward(p_cpu, cfg, {"tokens": tok}, cache=cache_cpu,
+                                cache_len=cl)
+    errs = {"logits": float((lg_gpu.cpu() - lg_cpu).abs().max())}
+    errs.update({key: float((c_gpu[key].cpu() - c_cpu[key]).abs().max())
+                 for key in c_cpu})
+    shapes = {key: list(t.shape) for key, t in c_cpu.items()}
+    shown = {key: f"{v:.3e}" for key, v in errs.items()}
+    log(f"parity {cfg.name} long_500k decode step (batch 1, cache_len "
+        f"{LONG500 - 1}, cache {json.dumps(shapes)} drawn from the seed), "
+        f"f32: max |card - cpu| {json.dumps(shown)} (tol {PARITY_ATOL}); "
+        f"token card {int(lg_gpu[0, 0].argmax())} cpu "
+        f"{int(lg_cpu[0, 0].argmax())}")
+    bad = {k: v for k, v in errs.items() if not v <= PARITY_ATOL}
+    if bad or not bool(torch.isfinite(lg_gpu).all()):
+        fail(f"{cfg.name} long_500k decode step: card and CPU differ: {bad}")
 
 
 def host_free_gb() -> float:
@@ -1741,7 +2044,14 @@ def check_moe_no_sync(torch, params, cfg, seed):
         "device-to-host sync, the same bits as its warm-up call")
 
 
-def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
+def run_parity(torch, rng, seed, arch, window=None, n_patches=0,
+               after=None):
+    """One prompt and 8 greedy decode steps of ``arch`` at full width, f32,
+    on the card and (on a host thread, once ``after`` is set) on the CPU
+    from the same weights; returns ``finish``, which waits for the CPU,
+    compares, and runs the row's other checks (a MoE arch's ``moe_block``
+    without a host sync, a long_500k arch's decode step at cache_len
+    524287); ``finish.cpu_done`` is set when the CPU's run ends."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -1769,40 +2079,83 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
     patches = (torch.from_numpy(rng.standard_normal(
         (1, n_patches, cfg.frontend_dim), "float32")) if n_patches else None)
     from repro_torch.models import layers
-    with RouteLog(layers) as routes:
-        t0 = time.perf_counter()
-        tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda",
-                                 patches)
-        t_gpu = time.perf_counter() - t0
-        # the first torch.exp of a CPU process can come out less accurate
-        # on part of its tensor (ROADMAP Queue 3): one call before the
-        # reference
-        torch.exp(torch.zeros(64))
-        t0 = time.perf_counter()
-        tok_cpu, lg_cpu = greedy(torch, p_cpu, cfg, prompt, 8, "cpu",
-                                 patches)
-        t_cpu = time.perf_counter() - t0
-    err = float((lg_gpu - lg_cpu).abs().max())
-    reduced = (f", window reduced to {window} (reduced run)" if window
-               else "")
-    if n_patches:
-        reduced += f", {n_patches} vision patches before the prompt"
-    log(f"parity {arch} width, {n_layers} layers{reduced}, f32, prompt {n} "
-        f"+ 8 decode steps: max |logit diff| = {err:.3e} (tol "
-        f"{PARITY_ATOL}), "
-        f"logit range [{float(lg_cpu.min()):.2f}, {float(lg_cpu.max()):.2f}]"
-        f"; tokens card {tok_gpu} cpu {tok_cpu}; card {t_gpu:.2f} s, "
-        f"cpu {t_cpu:.2f} s (host clock)")
-    if cfg.is_moe:
-        log(f"parity {arch} routing: {routes.summary(torch, cfg.top_k)}")
-    if not (torch.isfinite(lg_gpu).all() and err <= PARITY_ATOL):
-        fail(f"{arch} parity: logits differ by {err:.3e} > {PARITY_ATOL}")
-    if tok_gpu != tok_cpu:
-        fail(f"{arch} parity: greedy tokens differ between card and CPU")
-    if cfg.is_moe:
-        check_moe_no_sync(torch, p_gpu, cfg, seed)
-    del p_gpu, p_cpu
-    torch.cuda.empty_cache()
+    # the first torch.exp of a CPU process can come out less accurate on
+    # part of its tensor (ROADMAP Queue 3): one call before the reference
+    torch.exp(torch.zeros(64))
+    # a MoE arch's routing logged on both sides (a MoE row runs alone)
+    routes = RouteLog(layers) if cfg.is_moe else None
+    if routes:
+        routes.__enter__()
+    # the CPU's run on a host thread while the card's runs
+    cpu_run = on_host_thread(greedy, torch, p_cpu, cfg, prompt, 8, "cpu",
+                             patches, after=after)
+    t0 = time.perf_counter()
+    tok_gpu, lg_gpu = greedy(torch, p_gpu, cfg, prompt, 8, "cuda", patches)
+    t_gpu = time.perf_counter() - t0
+
+    def finish():
+        """The CPU's run waited for and compared, the row's other checks;
+        the row's weights freed."""
+        nonlocal p_gpu, p_cpu
+        try:
+            (tok_cpu, lg_cpu), t_cpu = cpu_run()
+        finally:
+            if routes:
+                routes.__exit__(None, None, None)
+        err = float((lg_gpu - lg_cpu).abs().max())
+        reduced = (f", window reduced to {window} (reduced run)" if window
+                   else "")
+        if n_patches:
+            reduced += f", {n_patches} vision patches before the prompt"
+        log(f"parity {arch} width, {n_layers} layers{reduced}, f32, prompt "
+            f"{n} + 8 decode steps: max |logit diff| = {err:.3e} (tol "
+            f"{PARITY_ATOL}), logit range [{float(lg_cpu.min()):.2f}, "
+            f"{float(lg_cpu.max()):.2f}]; tokens card {tok_gpu} cpu "
+            f"{tok_cpu}; card {t_gpu:.2f} s, cpu {t_cpu:.2f} s, side by side "
+            "(host clock)")
+        if cfg.is_moe:
+            log(f"parity {arch} routing: {routes.summary(torch, cfg.top_k)}")
+        if not (torch.isfinite(lg_gpu).all() and err <= PARITY_ATOL):
+            fail(f"{arch} parity: logits differ by {err:.3e} > "
+                 f"{PARITY_ATOL}")
+        if tok_gpu != tok_cpu:
+            fail(f"{arch} parity: greedy tokens differ between card and CPU")
+        if cfg.is_moe:
+            check_moe_no_sync(torch, p_gpu, cfg, seed)
+        if arch in LONG500_ARCHS and not window:
+            long500_decode(torch, rng, cfg, p_gpu, p_cpu)
+        p_gpu = p_cpu = None
+        torch.cuda.empty_cache()
+    finish.cpu_done = cpu_run.done
+    return finish
+
+
+def run_parities(torch, seed):
+    """``PARITY_RUNS`` in order, each dense row's card run made while the
+    row before it still runs on the CPU (on a host thread; the CPU runs
+    one row at a time, in order), and compared after it; a MoE row runs
+    alone (it logs its routing)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    pending = None
+    for arch, window, n_patches in PARITY_RUNS:
+        alone = get_config(arch).is_moe
+        if alone and pending:
+            pending()
+            pending = None
+        finish = run_parity(torch, np.random.default_rng(seed), seed, arch,
+                            window, n_patches,
+                            after=pending.cpu_done if pending else None)
+        if pending:
+            pending()
+        pending = finish
+        if alone:
+            pending()
+            pending = None
+    if pending:
+        pending()
 
 
 # train parity: one training step, kernels on the card vs plain on the CPU;
@@ -1815,7 +2168,8 @@ def run_parity(torch, rng, seed, arch, window=None, n_patches=0):
 # tie choose other experts on the two sides, and one token moved changes
 # the gradient of an expert fed by 16-32 tokens past the bf16 leaf limit.
 # llama3-8b at 1 layer, so that the run keeps inside its time limit
-TRAIN_PARITY = (("hubert-xlarge", 2, 256, "float32", 0),
+TRAIN_PARITY = ((PHI, 1, 256, "float32", 0),
+                ("hubert-xlarge", 2, 256, "float32", 0),
                 ("llama3-8b", 1, 256, "float32", 0),
                 ("rwkv6-3b", 2, 256, "float32", 0),
                 ("recurrentgemma-2b", 3, 256, "float32", 0),
@@ -1828,8 +2182,12 @@ TRAIN_PARITY = (("hubert-xlarge", 2, 256, "float32", 0),
                 ("chatglm3-6b", 2, 256, "bfloat16", 0),
                 ("qwen2-vl-2b", 2, 256, "bfloat16", 0),
                 ("qwen2-vl-2b", 2, 256, "bfloat16", 64),
-                (PHI, 1, 256, "float32", 0),
                 (SCOUT, 1, 256, "float32", 0))
+# a train parity row whose f32 parameters, gradients and AdamW moments (16
+# bytes a parameter) pass this runs alone: llama4-scout's 66 GB (79.6 GB
+# of the card at its peak); phi3.5-moe's 25 GB runs first, its CPU side
+# beside the dense rows' card steps
+TRAIN_PARITY_ALONE_BYTES = 40e9
 # the forward and backward kernel of each block kind
 KIND_KERNELS = {"attn": ("flash_prefill", "flash_prefill_bwd"),
                 "local": ("flash_prefill", "flash_prefill_bwd"),
@@ -1887,27 +2245,6 @@ def adamw_limit(p_cpu, g_gpu, g_cpu, s_gpu, s_cpu, opt, p_round=2.0 ** -22,
     return opt.lr * (du + 1e-5) + p * p_round
 
 
-# elements a slice of the leaf-by-leaf comparisons: their f64 temporaries
-# stay near 0.5 GB, where a whole leaf of llama4-scout (its 202048-row
-# embedding or head, 1.03B elements) would take 8.3 GB each
-SLICE = 1 << 26
-
-
-def flat_slices(*xs):
-    """Aligned slices of at most ``SLICE`` elements of equally sized
-    tensors, flattened (views)."""
-    flat = [x.reshape(-1) for x in xs]
-    for i in range(0, flat[0].numel(), SLICE):
-        yield [f[i:i + SLICE] for f in flat]
-
-
-def sq_sum(torch, x) -> float:
-    """Sum of squares of ``x`` in f64 on the card, a slice at a time."""
-    return float(sum((s.to("cuda").double().square().sum()
-                      for (s,) in flat_slices(x)), torch.zeros((),
-                     dtype=torch.float64, device="cuda")))
-
-
 def grad_share(torch, gg, gc, f32: bool) -> float:
     """The card's gradient leaf ``gg`` against the CPU's ``gc`` (on the
     card), as a share of its limit: f32 element by element at
@@ -1936,7 +2273,7 @@ def grad_share(torch, gg, gc, f32: bool) -> float:
 
 
 def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name,
-                     n_patches=0):
+                     n_patches=0, after=None):
     """One ``train_step``-equivalent at full width, ``layers`` layers, in
     ``dtype_name`` (with ``n_patches`` f32 vision patches before the
     tokens), batch 1 x ``length``: on the card (kernels) and on the CPU
@@ -1946,7 +2283,11 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name,
     card's moments are freed before the CPU step, and the two sides are
     compared leaf by leaf on the card, where the reference's AdamW step
     runs on the CPU's gradients (llama4-scout's f32 step holds 66 GB of
-    parameters, gradients and moments)."""
+    parameters, gradients and moments).  The CPU's loss and gradients run
+    on a host thread, once ``after`` is set; this returns, after the
+    card's step, ``finish``, which waits for them and compares
+    (``run_train_parities`` runs the next row's card step first), and
+    whose ``cpu_done`` is set when the CPU's part ends."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1964,6 +2305,7 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name,
             f"{dtype_name} parameters, gradients and AdamW moments on each "
             "side")
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9    # (a previous row's)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(cfg, gen, dtype, "cuda")
     p_cpu = tree_unflatten(p_gpu, iter(
@@ -1982,120 +2324,169 @@ def run_train_parity(torch, rng, seed, arch, layers, length, dtype_name,
     for fn in wrappers.values():
         fn.launches = 0
 
-    routes = RouteLog(L)
-    t0 = time.perf_counter()
+    # a MoE arch's routing logged on both sides (through a global hook: at
+    # most one MoE row is in flight, run_train_parities)
+    routes = RouteLog(L) if cfg.is_moe else None
     leaves = tree_leaves(p_gpu)
     for x in leaves:
         x.requires_grad_(True)
-    with routes:
-        loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, "cuda"))
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            grads = torch.autograd.grad(loss_gpu, leaves, allow_unused=True)
-            g_gpu = [torch.zeros_like(x) if g is None else g
-                     for g, x in zip(grads, leaves)]
-            del grads
-            state = opt.init(leaves)
-            opt.update(g_gpu, state, leaves)
-        except RuntimeError as e:
-            fail(f"train parity {arch}: the backward or the update "
-                 f"synchronised with the host: {e}")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        t_gpu = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = {n: fn.launches for n, fn in wrappers.items()
-                    if fn.launches}
-        del state                       # the comparison needs no moments
-        torch.cuda.empty_cache()
-
-        # the CPU's loss and gradients (the plain versions) from the same
-        # weights, copied before the card's update
-        torch.exp(torch.zeros(64))  # (ROADMAP Queue 3: the CPU's first exp)
-        t0 = time.perf_counter()
-        loss_cpu, g_cpu = loss_and_grads(cfg, p_cpu, to_batch(nb, "cpu"))
-        t_cpu = time.perf_counter() - t0
-    g_cpu = tree_leaves(g_cpu)
-
-    def clip(gs):
-        n = sum(sq_sum(torch, g) for g in gs) ** 0.5
-        return min(1.0, opt.grad_clip / (n + 1e-12)), n
-
-    # the two sides are compared on the card, in the same f64 arithmetic
-    # (over these models' 0.1-4.1B parameters the CPU took minutes a run),
-    # one CPU leaf at a time.  The reference's AdamW step (the same
-    # ``AdamW.update``, which has no kernel) runs there too, a leaf at a
-    # time, on the CPU's gradients scaled by their own global clip factor:
-    # each leaf's scaled norm is then within the clip, so ``update`` scales
-    # it by 1 and computes what it computes on the whole tree, f32
-    # elementwise as on the CPU (where the update took 10-40 s a row)
-    (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_cpu)
-    lg, lc = float(loss_gpu.detach()), float(loss_cpu)
-    loss_rtol = TRAIN_LOSS_RTOL if f32 else TRAIN_BF16_LOSS_RTOL
-    p_round = 2.0 ** -22 if f32 else 2.0 ** -7
-    ok = abs(lg - lc) <= loss_rtol * abs(lc)
-    g_share = p_share = 0.0
-    for i, (gg, pg, pl) in enumerate(zip(g_gpu, leaves,
-                                         tree_leaves(p_cpu))):
-        gr = g_cpu[i].to("cuda")
-        sh = grad_share(torch, gg, gr, f32)
-        g_share = max(g_share, sh)
-        p0 = pl.detach().to("cuda", copy=True)
-        pr = p0.clone()
-        opt.update([gr.float() * s_cpu], opt.init([pr]), [pr])
-        sh_p = 0.0
-        for g1, g2, a, b, before in flat_slices(gg, gr, pg.detach(), pr,
-                                                p0):
-            diff = (a.double() - b.double()).abs()
-            lim = adamw_limit(before, g1, g2, s_gpu, s_cpu, opt, p_round,
-                              None if f32 else torch.maximum(b.abs(),
-                                                             a.abs()))
-            sh_p = max(sh_p, float((diff / lim).max()))
-        p_share = max(p_share, sh_p)
-        if not sh <= 1.0 or sh_p > 1.0:
-            log(f"train parity {arch} {dtype_name}: leaf {i} "
-                f"{tuple(gr.shape)} gradient at {sh:.3f} of its limit, "
-                f"parameter at {sh_p:.3f}")
-            ok = False
-        del gr, pr, p0
-    g_limit = (f"worst element at {g_share:.3f} of its limit "
-               f"({tol_text('train_grad')})" if f32 else
-               f"worst leaf at {g_share:.3f} of its limit (relative L2 "
-               f"{TRAIN_BF16_GRAD_REL_L2:g})")
-    patches = (f" after {n_patches} f32 vision patches (the model computes "
-               "in f32 from them on)" if n_patches else "")
-    log(f"train parity {arch} full width, {layers} layers, {dtype_name}, "
-        f"batch 1 x {length}{patches}: "
-        f"loss card {lg:.6f} cpu {lc:.6f} (rtol {loss_rtol}); "
-        f"gradients: {len(g_cpu)} leaves, {g_limit}, global norm card "
-        f"{n_gpu:.6f} cpu {n_cpu:.6f}; parameters after AdamW: worst element "
-        f"at {p_share:.3f} of its limit (lr * (2|g1 - g2| / (|g1| + |g2| + "
-        f"eps) + 1e-5) + {'2^-22' if f32 else '2^-7'} |p|); backward and "
-        f"update under "
-        f"set_sync_debug_mode('error'): no host sync; launches "
-        f"{json.dumps(launches)}; card {t_gpu:.2f} s (peak "
-        f"{peak_gb:.2f} GB), cpu {t_cpu:.2f} s (loss and gradients; its "
-        "AdamW step on the card, a leaf at a time) (host clock)")
-    if cfg.is_moe:
-        log(f"train parity {arch} routing (forward and recomputation): "
-            f"{routes.summary(torch, cfg.top_k)}")
-        if not routes.same(torch):
-            fail(f"train parity {arch}: the card and the CPU chose other "
-                 "experts (smallest top-k margins in the line above)")
-    if not ok or not np.isfinite(lg):
-        fail(f"train parity {arch} {dtype_name}: card and CPU steps differ "
-             "(lines above)")
-    want = step_launches(cfg)
-    if launches != want:
-        fail(f"train parity {arch} {dtype_name}: launches {launches}, "
-             f"expected {want} "
-             "(per layer the forward kernel twice, for the forward and its "
-             "recomputation, and the backward kernel once)")
-    del p_gpu, g_gpu, leaves, p_cpu, g_cpu
-    gc.collect()
+    torch.exp(torch.zeros(64))  # (ROADMAP Queue 3: the CPU's first exp)
+    if routes:
+        routes.__enter__()
+    # the CPU's loss and gradients (the plain versions) from the same
+    # weights, copied before the card's update
+    cpu_run = on_host_thread(loss_and_grads, cfg, p_cpu, to_batch(nb, "cpu"),
+                             after=after)
+    t0 = time.perf_counter()
+    loss_gpu = make_loss_fn(cfg)(p_gpu, to_batch(nb, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = torch.autograd.grad(loss_gpu, leaves, allow_unused=True)
+        g_gpu = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, leaves)]
+        del grads
+        state = opt.init(leaves)
+        opt.update(g_gpu, state, leaves)
+    except RuntimeError as e:
+        fail(f"train parity {arch}: the backward or the update "
+             f"synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {n: fn.launches for n, fn in wrappers.items()
+                if fn.launches}
+    del state                       # the comparison needs no moments
     torch.cuda.empty_cache()
+
+    def finish():
+        """The CPU's loss and gradients waited for, the two steps
+        compared, the row's checks; the row's tensors freed."""
+        nonlocal p_gpu, g_gpu, leaves, p_cpu, loss_gpu
+        try:
+            (loss_cpu, g_cpu), t_cpu = cpu_run()
+        finally:
+            if routes:
+                routes.__exit__(None, None, None)
+        g_cpu = tree_leaves(g_cpu)
+
+        def clip(gs):
+            n = sum(sq_sum(torch, g) for g in gs) ** 0.5
+            return min(1.0, opt.grad_clip / (n + 1e-12)), n
+
+        # the two sides are compared on the card, in the same f64 arithmetic
+        # (over these models' 0.1-4.1B parameters the CPU took minutes a run),
+        # one CPU leaf at a time.  The reference's AdamW step (the same
+        # ``AdamW.update``, which has no kernel) runs there too, a leaf at a
+        # time, on the CPU's gradients scaled by their own global clip factor:
+        # each leaf's scaled norm is then within the clip, so ``update`` scales
+        # it by 1 and computes what it computes on the whole tree, f32
+        # elementwise as on the CPU (where the update took 10-40 s a row)
+        (s_gpu, n_gpu), (s_cpu, n_cpu) = clip(g_gpu), clip(g_cpu)
+        lg, lc = float(loss_gpu.detach()), float(loss_cpu)
+        loss_rtol = TRAIN_LOSS_RTOL if f32 else TRAIN_BF16_LOSS_RTOL
+        p_round = 2.0 ** -22 if f32 else 2.0 ** -7
+        ok = abs(lg - lc) <= loss_rtol * abs(lc)
+        g_share = p_share = 0.0
+        for i, (gg, pg, pl) in enumerate(zip(g_gpu, leaves,
+                                             tree_leaves(p_cpu))):
+            gr = g_cpu[i].to("cuda")
+            sh = grad_share(torch, gg, gr, f32)
+            g_share = max(g_share, sh)
+            p0 = pl.detach().to("cuda", copy=True)
+            pr = p0.clone()
+            opt.update([gr.float() * s_cpu], opt.init([pr]), [pr])
+            sh_p = 0.0
+            for g1, g2, a, b, before in flat_slices(gg, gr, pg.detach(), pr,
+                                                    p0):
+                diff = (a.double() - b.double()).abs()
+                lim = adamw_limit(before, g1, g2, s_gpu, s_cpu, opt, p_round,
+                                  None if f32 else torch.maximum(b.abs(),
+                                                                 a.abs()))
+                sh_p = max(sh_p, float((diff / lim).max()))
+            p_share = max(p_share, sh_p)
+            if not sh <= 1.0 or sh_p > 1.0:
+                log(f"train parity {arch} {dtype_name}: leaf {i} "
+                    f"{tuple(gr.shape)} gradient at {sh:.3f} of its limit, "
+                    f"parameter at {sh_p:.3f}")
+                ok = False
+            del gr, pr, p0
+        g_limit = (f"worst element at {g_share:.3f} of its limit "
+                   f"({tol_text('train_grad')})" if f32 else
+                   f"worst leaf at {g_share:.3f} of its limit (relative L2 "
+                   f"{TRAIN_BF16_GRAD_REL_L2:g})")
+        patches = (f" after {n_patches} f32 vision patches (the model "
+                   "computes in f32 from them on)" if n_patches else "")
+        log(f"train parity {arch} full width, {layers} layers, {dtype_name}, "
+            f"batch 1 x {length}{patches}: "
+            f"loss card {lg:.6f} cpu {lc:.6f} (rtol {loss_rtol}); "
+            f"gradients: {len(g_cpu)} leaves, {g_limit}, global norm card "
+            f"{n_gpu:.6f} cpu {n_cpu:.6f}; parameters after AdamW: worst "
+            f"element at {p_share:.3f} of its limit (lr * (2|g1 - g2| / "
+            f"(|g1| + |g2| + eps) + 1e-5) + {'2^-22' if f32 else '2^-7'} "
+            f"|p|); backward and "
+            f"update under "
+            f"set_sync_debug_mode('error'): no host sync; launches "
+            f"{json.dumps(launches)}; card {t_gpu:.2f} s (peak "
+            f"{peak_gb:.2f} GB, {held_gb:.2f} of it the previous row's), cpu "
+            f"{t_cpu:.2f} s beside it (loss and "
+            "gradients; its AdamW step on the card, a leaf at a time) (host "
+            "clock)")
+        if cfg.is_moe:
+            log(f"train parity {arch} routing (forward and recomputation): "
+                f"{routes.summary(torch, cfg.top_k)}")
+            if not routes.same(torch):
+                fail(f"train parity {arch}: the card and the CPU chose other "
+                     "experts (smallest top-k margins in the line above)")
+        if not ok or not np.isfinite(lg):
+            fail(f"train parity {arch} {dtype_name}: card and CPU steps "
+                 "differ (lines above)")
+        want = step_launches(cfg)
+        if launches != want:
+            fail(f"train parity {arch} {dtype_name}: launches {launches}, "
+                 f"expected {want} "
+                 "(per layer the forward kernel twice, for the forward and "
+                 "its recomputation, and the backward kernel once)")
+        del g_cpu
+        p_gpu = g_gpu = leaves = p_cpu = loss_gpu = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    finish.cpu_done = cpu_run.done
+    return finish
+
+
+def run_train_parities(torch, seed):
+    """``TRAIN_PARITY`` in order, each row's card step run while the row
+    before it still computes its CPU reference on a host thread (one row's
+    at a time, in order), and compared after it (the rows hold at most 30
+    GB of the card and 25 GB of the host each); a row past
+    ``TRAIN_PARITY_ALONE_BYTES`` runs alone.  Of the MoE rows, which log
+    their routing through one global hook, only one is ever in flight."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    pending = None
+    for arch, layers, length, dtype_name, n_patches in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        alone = cfg.param_count() * 16 > TRAIN_PARITY_ALONE_BYTES
+        if alone and pending:
+            pending()
+            pending = None
+        finish = run_train_parity(
+            torch, np.random.default_rng(seed), seed, arch, layers, length,
+            dtype_name, n_patches,
+            after=pending.cpu_done if pending else None)
+        if pending:
+            pending()
+        pending = finish
+        if alone:
+            pending()
+            pending = None
+    if pending:
+        pending()
 
 
 # --------------------------------------------------------------------- #
@@ -2362,34 +2753,81 @@ def run_api(torch, seed, arch=API_ARCH):
 # paths that drive one ServingEngine straight (no scheduler): one whole
 # codellama2-34b instance (48 layers, 67.5 GB of bf16 weights: the largest
 # paper model whose whole instance one 80 GB card holds) on one LongBench
-# prompt at its 4096-token clip; and the 32k-token contexts at full depth,
-# two ragged prompts at max_batch 2 (llama3-8b-sw's 8192-row ring rolled
-# by the prefills, overwritten in place by decode).  The prefill's logits
-# are 32704 x 128256 in bf16 (8.4 GB): the reference computes logits at
-# every position, and the port does as it does.
-# path -> (arch, max_batch, max_seq_len, prompt lengths, tokens a request)
-ENGINE_PATHS = {WHOLE_PATH: (CODELLAMA, 1, PAPER_SEQ_LEN, (4096,), 32),
-                LONG_PATH: ("llama3-8b", 2, 32832, (32704, 16411), 64),
-                LONG_SW_PATH: (LLAMA_SW, 2, 32832, (32704, 16411), 64)}
-ENGINE_KERNELS = {path: ("flash_prefill", "decode_attention")
+# prompt at its 4096-token clip; the 32k-token contexts, two ragged prompts
+# at max_batch 2 (llama3-8b-sw's 8192-row ring rolled by the prefills,
+# overwritten in place by decode); and the reference's long_500k shape:
+# one 524288-token prompt drawn from the seed and 16 greedy tokens at
+# max_batch 1 (the shape's batch), so that every decode step runs over a
+# context of 524288 positions or more, on rwkv6-3b, recurrentgemma-2b and
+# llama3-8b-sw whole and llama4-scout at its serve depth (SERVE_LAYERS: its
+# whole 48 layers are 217 GB of bf16 weights).  A prefill forms the logits
+# of its last position alone, as the reference's does.
+# The 32k llama3-8b-sw path serves 8 of its 32 layers: its 500k path
+# serves the arch whole, through the same kernels.
+# path -> (arch, layers or None for all, max_batch, max_seq_len, prompt
+# lengths, tokens a request)
+ENGINE_PATHS = {
+    WHOLE_PATH: (CODELLAMA, None, 1, PAPER_SEQ_LEN, (4096,), 32),
+    LONG_PATH: ("llama3-8b", None, 2, 32832, (32704, 16411), 64),
+    LONG_SW_PATH: (LLAMA_SW, 8, 2, 32832, (32704, 16411), 64),
+    **{L500[arch]: (arch, SERVE_LAYERS[arch] if arch == SCOUT else None,
+                    1, LONG500 + 32, (LONG500,), 16)
+       for arch in LONG500_ARCHS}}
+ENGINE_DEPTH_WHY = {
+    LONG_SW_PATH: f"the run's time limit; {L500[LLAMA_SW]} serves it whole",
+    L500[SCOUT]: "the whole model's bf16 weights do not fit the card"}
+ENGINE_KERNELS = {path: PATH_KERNELS.get(ENGINE_PATHS[path][0],
+                                         ("flash_prefill", "decode_attention"))
                   for path in ENGINE_PATHS}
 
 
+def reckon_prefill_gb(torch, cfg, T, econf) -> float:
+    """The engine's peak for a T-token prefill, reckoned from shapes: its
+    weights, its cache and the most that the prefill's tensors hold at
+    once, counted on meta tensors (``roofline.op_costs.OpCosts``; nothing
+    is allocated), plus the scratch that the kernels allocate themselves
+    (rwkv6_scan's chunk states, which its meta path does not make)."""
+    from repro_torch.kernels.rwkv6_scan import KERNEL_CHUNK
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.params import tree_leaves
+    from repro_torch.roofline.op_costs import OpCosts
+
+    params = init_params(cfg, None, econf.dtype, "meta")
+    cache = init_cache(cfg, econf.max_batch, econf.max_seq_len, econf.dtype,
+                       "meta")
+    toks = torch.zeros((1, T), dtype=torch.long, device="meta")
+    with torch.no_grad(), OpCosts(live=tree_leaves(params)
+                                  + tree_leaves(cache) + [toks]) as oc:
+        forward(params, cfg, {"tokens": toks}, return_cache=True,
+                last_only=True)
+    scratch = (4 * cfg.num_heads * -(-T // KERNEL_CHUNK)
+               * (cfg.head_dim ** 2 + cfg.head_dim)
+               if "rwkv6" in cfg.block_pattern else 0)
+    return (oc.costs.peak_live_bytes + scratch) / 1e9
+
+
 def run_engine_path(torch, rng, seed, path):
-    """ENGINE_PATHS[path] in bf16 at full width and depth: every prompt
-    prefilled, then decode steps until each request has its tokens (greedy),
-    no logit row non-finite, the path's kernels launched (counts set to 0
-    just before the prefills, read after the last step)."""
+    """ENGINE_PATHS[path] in bf16 at full width and its depth: every
+    prompt prefilled, then decode steps until each request has its tokens
+    (greedy), no logit row non-finite, the path's kernels launched (counts
+    set to 0 just before the prefills, read after the last step); the peak
+    device memory beside the prefill's, reckoned from shapes."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core.request import Request
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
-    arch, max_batch, seq_len, prompts, n_new = ENGINE_PATHS[path]
+    arch, layers, max_batch, seq_len, prompts, n_new = ENGINE_PATHS[path]
     cfg = get_config(arch)
+    depth = "full depth"
+    if layers:
+        depth = (f"{layers} of its {cfg.num_layers} layers (reduced: "
+                 f"{ENGINE_DEPTH_WHY[path]})")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     econf = EngineConfig(max_batch=max_batch, max_seq_len=seq_len,
                          dtype=torch.bfloat16, eos_token=-1, device="cuda")
+    reckoned = reckon_prefill_gb(torch, cfg, max(prompts), econf)
     reqs = [Request(rid=i, arrival_time=0.0, prompt_len=n, output_len=n_new,
                     prompt_tokens=[int(x) for x in rng.integers(
                         2, cfg.vocab_size - 1, n)])
@@ -2422,12 +2860,13 @@ def run_engine_path(torch, rng, seed, path):
     torch.cuda.empty_cache()
     window = (f", window {cfg.sliding_window} (a ring of that many rows)"
               if cfg.sliding_window else "")
-    log(f"{path}: {arch} bf16 at full width and depth ({cfg.num_layers} "
+    log(f"{path}: {arch} bf16 at full width, {depth} ({cfg.num_layers} "
         f"layers, {cfg.param_count() / 1e9:.2f}B parameters{window}), one "
         f"ServingEngine, max_batch {max_batch}, max_seq_len {seq_len} "
-        f"({kv_gb:.2f} GB of KV cache): prompts {list(prompts)}, {n_new} "
+        f"({kv_gb:.2f} GB of cache): prompts {list(prompts)}, {n_new} "
         f"greedy tokens each; wall_s={wall:.2f} (host clock) "
-        f"init_s={t_init:.2f} peak_device_gb={peak_gb:.2f} "
+        f"init_s={t_init:.2f} peak_device_gb={peak_gb:.2f} (reckoned for "
+        f"the longest prefill: {reckoned:.2f}) "
         f"launches={json.dumps(launches)}")
     log(f"{path} steps (host clock): {steps.summary(np)}")
     for r in reqs:
@@ -2885,34 +3324,34 @@ def run_train(torch, rng, seed, name, smi, first_losses):
 TRAIN_CLI_ARCHS = ("llama3-8b", "rwkv6-3b", "qwen3-4b")
 
 
-def run_train_cli(torch):
-    """The launcher's own check: ``python -m repro_torch.launch.train
+def start_train_cli():
+    """Start the launcher's own check: ``python -m repro_torch.launch.train
     --arch <arch> --steps 3 --device cuda`` (its smoke config) for each of
-    ``TRAIN_CLI_ARCHS``, the processes run side by side (each spends most
-    of its ~24 s starting up)."""
+    ``TRAIN_CLI_ARCHS``, side by side (each spends most of its ~24 s
+    starting up), while the train runs use the card.  Returns (start time,
+    processes) for ``finish_train_cli``."""
     import os
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
+    return time.perf_counter(), {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
          "--steps", "3", "--device", "cuda"], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for arch in TRAIN_CLI_ARCHS}
-    try:
-        for arch, proc in procs.items():
-            out, err = proc.communicate(timeout=600)
-            for line in out.strip().splitlines():
-                log(f"train cli {arch}: {line}")
-            if proc.returncode != 0 or "(improved)" not in out:
-                fail(f"python -m repro_torch.launch.train --arch {arch} "
-                     f"failed (exit {proc.returncode}): {err[-2000:]}")
-            log(f"train cli {arch}: exit 0, "
-                f"{time.perf_counter() - t0:.1f} s after the start")
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+
+
+def finish_train_cli(started):
+    """Wait for ``start_train_cli``'s processes: each must exit 0 with its
+    loss improved."""
+    t0, procs = started
+    for arch, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        for line in out.strip().splitlines():
+            log(f"train cli {arch}: {line}")
+        if proc.returncode != 0 or "(improved)" not in out:
+            fail(f"python -m repro_torch.launch.train --arch {arch} "
+                 f"failed (exit {proc.returncode}): {err[-2000:]}")
+        log(f"train cli {arch}: exit 0, "
+            f"{time.perf_counter() - t0:.1f} s after the start")
 
 
 # --------------------------------------------------------------------- #
@@ -3179,19 +3618,19 @@ def start_dryruns():
     """Start ``python -m repro_torch.launch.dryrun --all --arch
     qwen1.5-32b``: its four shapes on the 16x16 and 2x16x16 production
     meshes over the fake process group (meta tensors, on the host).
-    Returns (process, start time) for ``finish_dryruns``."""
-    proc = subprocess.Popen(
+    Returns (start time, {name: process}) for ``finish_dryruns``."""
+    return time.perf_counter(), {"dryrun": subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
          "--arch", QWEN32, "--out", str(ROOT / "build" / "dryrun")],
         cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    return proc, time.perf_counter()
+        text=True)}
 
 
-def finish_dryruns(proc, t0):
+def finish_dryruns(started):
     """Wait for the dry run and print each line with its H100 roofline
     terms; every pair must be ok or skipped with the reference's
     reason."""
+    t0, (proc,) = started[0], started[1].values()
     try:
         out, err = proc.communicate(timeout=600)
     except subprocess.TimeoutExpired:
@@ -3207,34 +3646,44 @@ def finish_dryruns(proc, t0):
         "start")
 
 
-def run_examples():
-    """``examples/quickstart_torch.py`` and ``examples/train_small_torch.py``
-    (its full 150 steps; it asserts the loss drops by more than 0.5) on
-    the card, side by side."""
-    t0 = time.perf_counter()
-    procs = {script: subprocess.Popen(
+def start_examples():
+    """Start ``examples/quickstart_torch.py`` and
+    ``examples/train_small_torch.py`` (its full 150 steps; it asserts the
+    loss drops by more than 0.5) on the card, side by side.  Returns (start
+    time, processes) for ``finish_examples``."""
+    return time.perf_counter(), {script: subprocess.Popen(
         [sys.executable, str(ROOT / "examples" / script), "--device",
          "cuda"], cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
         for script in ("quickstart_torch.py", "train_small_torch.py")}
+
+
+def finish_examples(started):
+    """Wait for ``start_examples``' processes: each must exit 0."""
+    t0, procs = started
     for script, proc in procs.items():
         try:
             out, err = proc.communicate(timeout=600)
         except subprocess.TimeoutExpired:
-            for p in procs.values():
-                p.kill()
-                p.communicate()
             fail(f"examples/{script} took more than 600 s")
         for line in out.strip().splitlines():
             log(f"example {script}: {line}")
         if proc.returncode != 0:
-            for p in procs.values():
-                p.kill()
-                p.communicate()
             fail(f"examples/{script} failed (exit {proc.returncode}): "
                  f"{err[-2000:]}")
         log(f"example {script}: exit 0, "
             f"{time.perf_counter() - t0:.1f} s after the start")
+
+
+def stop(*started):
+    """Kill whatever still runs of the (start time, {name: process}) that
+    the ``start_*`` functions return (a failed phase leaves none
+    behind)."""
+    for item in started:
+        for proc in (item[1].values() if item else ()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 # --------------------------------------------------------------------- #
@@ -3350,13 +3799,9 @@ def main() -> None:
         run_kernels(torch, np.random.default_rng(args.seed), results)
         phase_done("kernels")
     if "parity" in phases:
-        for arch, window, n_patches in PARITY_RUNS:
-            run_parity(torch, np.random.default_rng(args.seed), args.seed,
-                       arch, window, n_patches)
-        for arch, layers, length, dtype_name, n_patches in TRAIN_PARITY:
-            run_train_parity(torch, np.random.default_rng(args.seed),
-                             args.seed, arch, layers, length, dtype_name,
-                             n_patches)
+        run_rope_parity(torch)
+        run_parities(torch, args.seed)
+        run_train_parities(torch, args.seed)
         phase_done("parity")
     if "serve" in phases:
         for arch in PATH_KERNELS:
@@ -3379,30 +3824,34 @@ def main() -> None:
     if "experiments" in phases:
         run_experiments(args.seed, smi)
         phase_done("experiments")
-    if "train" in phases:
-        first_losses = {}
-        for name in TRAIN_RUNS:
-            counts = run_train(torch, np.random.default_rng(args.seed),
-                               args.seed, name, smi, first_losses)
-            for kname, n in counts.items():
-                launches.setdefault(kname, {})[name] = n
-        run_train_cli(torch)
-        phase_done("train")
-    if "mesh" in phases:
-        # the dry run is host work in its own process: it runs while the
-        # card serves and trains
-        proc, t0 = start_dryruns()
-        try:
+    # host work in processes of its own, run while the card trains: the
+    # mesh phase's dry run (on meta tensors) and the training CLIs; the
+    # examples beside the mesh phase's sharded steps
+    dry = cli = examples = None
+    try:
+        if "train" in phases:
+            if "mesh" in phases:
+                dry = start_dryruns()
+            cli = start_train_cli()
+            first_losses = {}
+            for name in TRAIN_RUNS:
+                counts = run_train(torch, np.random.default_rng(args.seed),
+                                   args.seed, name, smi, first_losses)
+                for kname, n in counts.items():
+                    launches.setdefault(kname, {})[name] = n
+            finish_train_cli(cli)
+            phase_done("train")
+        if "mesh" in phases:
+            dry = dry or start_dryruns()
+            examples = start_examples()
             for path, counts in run_mesh(torch, args.seed).items():
                 for kname, n in counts.items():
                     launches.setdefault(kname, {})[path] = n
-            run_examples()
-            finish_dryruns(proc, t0)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        phase_done("mesh")
+            finish_examples(examples)
+            finish_dryruns(dry)
+            phase_done("mesh")
+    finally:
+        stop(dry, cli, examples)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     table = {"kernels": [

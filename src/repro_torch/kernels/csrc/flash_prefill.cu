@@ -74,6 +74,12 @@
 //   f32<80>  195 registers, no spills, 129,024 B (1 block of 8 warps)
 //   f32<128> 255 registers, no spills, 202,752 B (1 block of 8 warps)
 //   f32<256> 255 registers, no spills, 199,680 B (1 block of 4 warps)
+//
+// Offsets.  Every offset into q, k, v, the outputs and the log-sum-exp is
+// formed in 64 bits from the batch index on (the long_500k prefills' q is
+// 524288 x 40 x 128 = 2.7e9 elements, past 2^31); positions, heads and
+// tile indices stay int.  The grid is one-dimensional (up to 2^31 - 1
+// blocks; the launch refuses more).
 #include <math.h>
 #include <stdint.h>
 
@@ -153,7 +159,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = c / CH, cc = c % CH;
     const bool ok = r < rows;
     const float* src =
-        ok ? q + ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 4 : q;
+        ok ? q + (((size_t)b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 4 : q;
     cp_async16(Qs + r * LD + cc * 4, src, ok);
   }
   auto load_kv = [&](int tile, int stage) {
@@ -161,7 +167,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = tid; c < BK * CH; c += kThreads) {
       const int j = c / CH, cc = c % CH;
       const bool ok = k0 + j < S;
-      const size_t off = ok ? ((size_t)(b * S + k0 + j) * Hkv + h) * D + cc * 4 : 0;
+      const size_t off = ok ? (((size_t)b * S + k0 + j) * Hkv + h) * D + cc * 4 : 0;
       cp_async16(Ks + (stage * BK + j) * LD + cc * 4, k + off, ok);
       cp_async16(Vs + (stage * BK + j) * LD + cc * 4, v + off, ok);
     }
@@ -296,7 +302,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = r0 + 8 * i;
     if (r >= rows) continue;
     const int qi = r / G, gi = r % G;
-    float* dst = out + ((size_t)(b * T_len + t0 + qi) * Hq + h * G + gi) * D + 2 * q4;
+    float* dst = out + (((size_t)b * T_len + t0 + qi) * Hq + h * G + gi) * D + 2 * q4;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<float2*>(dst + 8 * n) =
@@ -402,7 +408,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = c / CH, cc = c % CH;
     const bool ok = r < rows;
     const bf16* src =
-        ok ? q + ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 8 : q;
+        ok ? q + (((size_t)b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 8 : q;
     cp_async16(Qs + swizzled(r, cc), src, ok);
   }
   auto load_kv = [&](int tile, int stage) {
@@ -410,7 +416,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = tid; c < kBK * CH; c += kThreads) {
       const int j = c / CH, cc = c % CH;
       const bool ok = k0 + j < S;
-      const size_t off = ok ? ((size_t)(b * S + k0 + j) * Hkv + h) * D + cc * 8 : 0;
+      const size_t off = ok ? (((size_t)b * S + k0 + j) * Hkv + h) * D + cc * 8 : 0;
       cp_async16(Ks + stage * kTile + swizzled(j, cc), k + off, ok);
       cp_async16(Vs + stage * kTile + swizzled(j, cc), v + off, ok);
     }
@@ -540,7 +546,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
       if (r < rows) {
-        float* dst = out32 + ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + kc;
+        float* dst = out32 + (((size_t)b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + kc;
 #pragma unroll
         for (int nd = 0; nd < ND; ++nd)
           *reinterpret_cast<float2*>(dst + nd * 8) =
@@ -561,7 +567,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int c = lane; c < 16 * CH; c += 32) {
     const int r = warp * 16 + c / CH, cc = c % CH;
     if (r < rows) {
-      const size_t dst = ((size_t)(b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 8;
+      const size_t dst = (((size_t)b * T_len + t0 + r / G) * Hq + h * G + r % G) * D + cc * 8;
       *reinterpret_cast<uint4*>(out + dst) = *reinterpret_cast<const uint4*>(Os + r * LD + cc * 8);
     }
   }

@@ -32,6 +32,10 @@
 // and b before the dependent steps that use them, so those loads are all in
 // flight together, and the carry's aggregates a batch at a time likewise.  Steps past T are identity steps (log_a = 0, b = 0) and
 // are not written.  Deterministic: no atomics, the carry in chunk order.
+//
+// Offsets are 64-bit from the batch index on (recurrentgemma-2b's
+// 524288-step prefill: 1.3e9 elements an input); the grid is (channel
+// blocks, time chunks, B), and the launch refuses chunks or B past 65535.
 #include <math.h>
 #include <stdint.h>
 
@@ -178,6 +182,8 @@ int launch(const float* log_a, const float* b, const float* h0, float* out,
            float* scratch, int B, int T, int d, int len, cudaStream_t stream) {
   const int n = (T + len - 1) / len;
   const int blocks = (d + kThreads * V - 1) / (kThreads * V);
+  // the grid's y (time chunks) and z (batch) take at most 65535 each
+  if (n > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   float* agg_p = scratch;                              // (B, n-1, d)
   float* agg_h = scratch + (size_t)B * (n - 1) * d;    // (B, n-1, d)
   if (n > 1) {
@@ -347,6 +353,7 @@ int launch_bwd(const float* log_a, const float* h, const float* h0,
                cudaStream_t stream) {
   const int n = (T + len - 1) / len;
   const int blocks = (d + kThreads * V - 1) / (kThreads * V);
+  if (n > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   float* agg_p = scratch;                              // (B, n-1, d)
   float* agg_c = scratch + (size_t)B * (n - 1) * d;    // (B, n-1, d)
   if (n > 1) {

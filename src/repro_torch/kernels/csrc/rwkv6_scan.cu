@@ -50,6 +50,11 @@
 // shared memory into fragments with pitches chosen so that the 32 lanes of
 // a fragment load hit 32 banks.
 //
+// Offsets into the (B, T, H, D) inputs, the scratch and the states are
+// 64-bit (rwkv6-3b's 524288-step prefill: 1.3e9 elements an input, 1.4e9
+// floats of scratch); the grid is (chunks x column blocks, H, B), and the
+// launch refuses H or B past 65535.
+//
 // The score tile, per chunk split into four sub-blocks of 16 steps:
 //   inside a sub-block, s < t:  A[t,s] = sum_d r_t k_s exp(E_t - C_s), one
 //                               exp per (t, s, d) on the CUDA cores, two
@@ -520,6 +525,9 @@ int launch(const float* r, const float* k, const float* v, const float* w,
     err = allow_dynamic_smem(rwkv6_chunk_out<D>, out_smem, out_set);
   if (err != cudaSuccess) return (int)err;
   const int n = (T + kChunk - 1) / kChunk;
+  // the grid's y (heads) and z (batch) take at most 65535 each
+  if (H > 65535 || B > 65535 || (long long)n * (D / kDV) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   float* dstate = scratch;                              // (B, H, n, D, D)
   float* ddec = scratch + (size_t)B * H * n * D * D;    // (B, H, n, D)
   const dim3 grid(n * (D / kDV), H, B);

@@ -111,20 +111,19 @@ def flash_prefill_plain_chunked(q, k, v, *, causal=True, window=0,
     version at T = S = 32768, where the whole one would take 137 GB.  The
     same rows, maxima and keys as the unchunked version; the sums run over
     the opened keys only (tests/test_torch_long_context.py)."""
-    T, S = q.shape[1], k.shape[1]
-    outs, lses = [], []
+    B, T, Hq, _ = q.shape
+    S = k.shape[1]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
     for r0 in range(0, T, rows):
         r1 = min(T, r0 + rows)
         p_lo, p_hi = q_offset + r0, q_offset + r1 - 1
         k1 = max(1, min(S, p_hi + 1)) if causal else S
         k0 = max(0, min(p_lo - window + 1, k1 - 1)) if window else 0
-        o, lse = flash_prefill_plain(q[:, r0:r1], k[:, k0:k1], v[:, k0:k1],
-                                     causal=causal, window=window,
-                                     q_offset=p_lo - k0, return_lse=True)
-        outs.append(o)
-        lses.append(lse)
-    o = torch.cat(outs, 1)
-    return (o, torch.cat(lses, -1)) if return_lse else o
+        out[:, r0:r1], lse[..., r0:r1] = flash_prefill_plain(
+            q[:, r0:r1], k[:, k0:k1], v[:, k0:k1], causal=causal,
+            window=window, q_offset=p_lo - k0, return_lse=True)
+    return (out, lse) if return_lse else out
 
 
 def flash_prefill_bwd_plain(q, k, v, dout, *, causal=True, window=0):

@@ -62,6 +62,43 @@ def rglru_scan_plain(log_a, b, h0=None):
     return out
 
 
+def rglru_scan_plain_chunked(log_a, b, h0=None, chunk: int = 512):
+    """``rglru_scan_plain`` split over time as the kernel splits it, every
+    chunk of ``chunk`` steps at once: each chunk's steps from h = 0 with
+    the product of its decays, the h entering each chunk composed from
+    those in chunk order, then each chunk's steps again from there.  Within
+    a chunk the steps are the plain version's; the carried h differs from
+    it by the rounding of the composed products.  2 * chunk + T / chunk
+    steps of whole-tensor ops where the plain version takes T: the plain
+    version at T = 524288 (tests/test_torch_long_500k.py)."""
+    B, T, d = log_a.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    la, bb = log_a.float(), b.float()
+    if pad:    # identity steps past T
+        la = torch.cat([la, la.new_zeros((B, pad, d))], 1)
+        bb = torch.cat([bb, bb.new_zeros((B, pad, d))], 1)
+    la = la.reshape(B, n, chunk, d)
+    bb = bb.reshape(B, n, chunk, d)
+    h = la.new_zeros((B, n, d))
+    P = la.new_ones((B, n, d))
+    for t in range(chunk):
+        a = torch.exp(la[:, :, t])
+        h = a * h + bb[:, :, t]
+        P = P * a
+    carry = (la.new_zeros((B, d)) if h0 is None else h0.float())
+    h_in = torch.empty_like(h)
+    for j in range(n):
+        h_in[:, j] = carry
+        carry = P[:, j] * carry + h[:, j]
+    out = torch.empty_like(la)
+    h = h_in
+    for t in range(chunk):
+        h = torch.exp(la[:, :, t]) * h + bb[:, :, t]
+        out[:, :, t] = h
+    return out.reshape(B, n * chunk, d)[:, :T]
+
+
 def rglru_scan_bwd_plain(log_a, b, h0, dy):
     """(dlog_a, db, dh0 or None): autograd of ``rglru_scan_plain``."""
     with torch.enable_grad():

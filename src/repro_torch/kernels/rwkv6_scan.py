@@ -85,7 +85,7 @@ def rwkv6_scan_plain(r, k, v, w, u, s0=None):
     uf = u.float()
     causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                    device=r.device), diagonal=-1)
-    outs = []
+    o = r.new_empty((B, n * chunk, H, D), dtype=torch.float32)
     for c in range(n):
         rb, kb, vb, lwb = rc[:, c], kc[:, c], vc[:, c], logw[:, c]
         cum = torch.cumsum(lwb, dim=1)                 # inclusive decay sums
@@ -100,9 +100,8 @@ def rwkv6_scan_plain(r, k, v, w, u, s0=None):
         k_end = kb * torch.exp(cum[:, -1][:, None] - cum)
         S = S * dec_all[..., None] + torch.einsum("bchd,bche->bhde",
                                                   k_end, vb)
-        outs.append(o_state + o_intra + o_diag)
-    o = torch.cat(outs, dim=1)[:, :T]
-    return o, S
+        o[:, c * chunk:(c + 1) * chunk] = o_state + o_intra + o_diag
+    return o[:, :T], S
 
 
 def rwkv6_scan_bwd_plain(r, k, v, w, u, s0, do, ds_final=None):

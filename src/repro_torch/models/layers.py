@@ -149,9 +149,16 @@ def soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # not interleaved)
 # --------------------------------------------------------------------------- #
 def _rope_freqs(theta: float, n_freq: int, device) -> torch.Tensor:
+    """1 / theta^(i / n_freq) in f32, with the reference's bits: the f32
+    exponent, ``theta ** exponent`` taken in float64 and rounded to f32
+    (the correctly rounded f32 power that XLA's pow gives, where torch's
+    f32 pow is an ulp off at some (theta, i)), then the f32 reciprocal.
+    At position 524287 that ulp (recurrentgemma-2b's frequency 111) moved
+    the rotated output by 2.8e-5."""
     exponent = torch.arange(0, n_freq, dtype=torch.float32,
                             device=device) / n_freq
-    return 1.0 / (theta ** exponent)
+    power = (theta ** exponent.double()).float()
+    return 1.0 / power
 
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor,
@@ -437,9 +444,11 @@ def _rglru_coeffs(params: Params, u: torch.Tensor
     i_gate = torch.sigmoid(matmul(u, params["w_in_gate"]).float())
     r_gate = torch.sigmoid(matmul(u, params["w_rec_gate"]).float())
     log_a = -RGLRU_C * r_gate * F.softplus(params["lambda"].float())
+    del r_gate      # (each f32 (T, d) goes when spent: 5.4 GB at T 524288)
     a2 = torch.exp(2.0 * log_a)
-    b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * i_gate * u.float()
-    return log_a, b
+    scale = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12))
+    del a2
+    return log_a, scale * i_gate * u.float()
 
 
 def rglru_block(
@@ -490,7 +499,9 @@ def rglru_block(
                           xin], dim=1)
         u = sum(hist[:, i:i + T].float() * conv_w[i]
                 for i in range(CONV_WIDTH)).to(xin.dtype)
-        return u, hist[:, -(CONV_WIDTH - 1):]
+        # (copies: a view would keep the whole (B, T + 3, d) history alive
+        # in the prefill's cache, 2.7 GB a layer at 524288 positions)
+        return u, hist[:, -(CONV_WIDTH - 1):].clone()
 
     hc = layer_cache["conv"] if decoding else None
     if mi.mesh is None:
@@ -506,7 +517,9 @@ def rglru_block(
         def scan(log_a, b):
             return region(mi, rglru_scan_op, (log_a, b), (ch, ch), ch)
 
+    del xin
     log_a, b = _rglru_coeffs(params, u)
+    del u           # (a long prefill's intermediates go as they finish)
     if decoding:
         h = torch.exp(log_a[:, 0]) * layer_cache["h"].float() + b[:, 0]
         y = h[:, None]
@@ -514,7 +527,8 @@ def rglru_block(
         new_cache = layer_cache
     else:
         y = scan(log_a, b)
-        new_cache = ({"conv": hist, "h": y[:, -1].to(x.dtype)}
+        del log_a, b
+        new_cache = ({"conv": hist, "h": y[:, -1].to(x.dtype, copy=True)}
                      if return_cache else None)
     out = matmul(y.to(x.dtype) * gate, params["w_out"])
     return out, new_cache
@@ -571,10 +585,13 @@ def rwkv6_block(
     k = split_heads(mi, matmul(mix(1), params["w_k"]), H, D).float()
     v = split_heads(mi, matmul(mix(2), params["w_v"]), H, D).float()
     g = F.silu(matmul(mix(3), params["w_g"]))
+    del x_prev          # (a long prefill's intermediates go as they finish)
 
     dd = matmul(matmul(x, params["decay_lora_a"]), params["decay_lora_b"])
     logit = params["decay_base"].float() + dd.float()
+    del dd
     w = split_heads(mi, torch.exp(-torch.exp(logit)), H, D)  # in (0, 1)
+    del logit
     u = params["bonus_u"].float()
 
     def step(r, k, v, w, u, S):
@@ -610,8 +627,9 @@ def rwkv6_block(
             o, state = region(mi, scan, (r, k, v, w, u),
                               (hs, hs, hs, hs, P(h_ax, None)),
                               [flat, P(bb, h_ax, None, None)])
-        new_cache = ({"shift": x[:, -1], "state": state} if return_cache
-                     else None)
+        del r, k, v, w
+        new_cache = ({"shift": x[:, -1].clone(), "state": state}
+                     if return_cache else None)
 
     o = o.reshape(B, T, d).to(x.dtype)
     # the reference's simplification of RWKV's group norm: rms over all d
@@ -714,8 +732,8 @@ def _moe_local(params: Params, cfg: ModelConfig, x: torch.Tensor,
             buf, params["w_up"][j])
         eo = matmul(h, params["w_down"][j]).float()              # (cap, d)
         gathered = torch.cat([eo, zero_row])[slot_t]
-        out = out + gathered * w_t[:, None]
-    return out
+        out += gathered * w_t[:, None]    # (in place: (T, d) f32 is 10.7 GB
+    return out                            # at llama4-scout's 524288 tokens)
 
 
 def _moe_local_wtp(params: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -249,6 +249,15 @@ def write_slot(cache: Params, pcache: Params, slot: int, T: int) -> None:
 # --------------------------------------------------------------------------- #
 # Forward
 # --------------------------------------------------------------------------- #
+# positions of a prefill's norm, dense FFN and residual at a time where no
+# gradient is taken (each row's result is the same: all three are
+# row-wise).  At 524288 positions llama3-8b-sw's SwiGLU would hold three
+# (T, 14336) bf16 tensors at once, 45 GB, and rwkv6-3b's channel mix three
+# (T, 8960), 28 GB.  The MoE block is not chunked: its capacity is over all
+# tokens of the call, so chunks would keep other tokens.
+FFN_ROWS = 65536
+
+
 def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor, layer_cache: Optional[Params],
                  cache_len: Optional[torch.Tensor], return_cache: bool,
@@ -270,6 +279,22 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
             layer_cache=layer_cache, cache_len=cache_len,
             return_cache=return_cache, mi=mi)
     x = x + L.batch_placed(mi, core)
+    del core, h
+    if (torch.is_grad_enabled() or cfg.is_moe or mi.mesh is not None
+            or x.shape[1] <= FFN_ROWS):
+        return _ffn_residual(cfg, kind, bp, x, mi), new_cache
+    out = None
+    for r0 in range(0, x.shape[1], FFN_ROWS):
+        y = _ffn_residual(cfg, kind, bp, x[:, r0:r0 + FFN_ROWS], mi)
+        if out is None:
+            out = y.new_empty(x.shape)
+        out[:, r0:r0 + FFN_ROWS] = y
+    return out, new_cache
+
+
+def _ffn_residual(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
+                  mi: MeshInfo) -> torch.Tensor:
+    """x plus the block's FFN (channel mix, MoE or SwiGLU) of its norm."""
     h = L.rms_norm(bp["norm2"], x, cfg.norm_eps)
     if kind == RWKV6:
         ffn = L.channel_mix(bp["ffn"], h)
@@ -277,7 +302,7 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
         ffn = L.moe_block(bp["ffn"], cfg, h, mi)
     else:
         ffn = L.mlp_block(bp["ffn"], h)
-    return x + L.batch_placed(mi, ffn), new_cache
+    return x + L.batch_placed(mi, ffn)
 
 
 def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
@@ -352,9 +377,14 @@ def forward(
     cache: Optional[Params] = None,
     cache_len: Optional[torch.Tensor] = None,   # (B,) context so far
     return_cache: bool = False,
+    last_only: bool = False,
     mi: MeshInfo = MeshInfo(),
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (logits, new_cache).
+    """Returns (logits, new_cache).  With ``last_only`` the final norm,
+    the head and the soft cap take the last position alone and the logits
+    are (B, 1, V): the engine's prefill, as the reference's
+    ``_prefill_impl`` returns ``logits[:, -1]`` (a 524288-token prompt's
+    every row would be 69-268 GB of bf16 logits).
 
     On a mesh (``mi.mesh``) the parameters, batch and cache are DTensors
     placed by ``repro_torch.models.shardings`` and the activations follow
@@ -423,6 +453,8 @@ def forward(
             for bk, ck in keys.items():
                 new.setdefault(ck, []).append(nc[bk])
 
+    if last_only:
+        x = x[:, -1:]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = L.soft_cap(L.matmul(x, head), cfg.logit_soft_cap)

@@ -7,7 +7,10 @@ The JAX package stacks the layers of each block-pattern position under
 (layer ``n_full * plen + i``; ``repro/models/model.py:63-96``).  The port
 keeps one dict per layer in ``params["layers"]``, in layer order, with the
 same leaf names and the same (in, out) weight layout.  ``params_to_jax``
-is the inverse (numpy, JAX layout), and ``tree_leaves`` /
+is the inverse (numpy, JAX layout); ``cache_from_jax`` /
+``cache_to_jax`` map the reference's ``init_cache`` pytree (stacked by
+pattern cycle, like the parameters) onto the port's per-kind cache and
+back; and ``tree_leaves`` /
 ``tree_unflatten`` / ``jax_treedef`` re-implement JAX's tree flattening
 (dict keys sorted, tuples and lists in order) without importing JAX: for
 the checkpoint format both packages read, and to order the port's own
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import check_supported
+from repro_torch.models.model import CACHE_KEYS, _block_cache, _cache_index
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -66,6 +70,61 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     if cfg.frontend_dim:
         params["frontend"] = to_tensor(tree["frontend"], device)
     return params
+
+
+def _layer_slots(cfg: ModelConfig):
+    """(layer i's place in the JAX layout: (cycle c, pattern position p) in
+    ``scan``/``layers_scan``, or (None, tail index)), (its kind, its index
+    among the port's layers of that kind)) for every layer, in order."""
+    from repro_torch.models.model import _cache_index
+    plen = len(cfg.block_pattern)
+    n_scan = cfg.num_layers // plen * plen
+    return [(divmod(i, plen) if i < n_scan else (None, i - n_scan), kj)
+            for i, kj in enumerate(_cache_index(cfg))]
+
+
+def cache_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                   device="cuda") -> Dict[str, Any]:
+    """``tree``: ``jax.tree.map(np.asarray, repro.models.init_cache(...))``
+    (or a cache the reference's forward returned), ``{"scan": {pos{p}:
+    {key: (n_full, B, ...)}}, "tail": ({key: (B, ...)}, ...)}``: the port's
+    cache, one tensor per key stacking the layers of the kind that uses it
+    in layer order (``repro_torch.models.model.CACHE_KEYS``)."""
+    check_supported(cfg)
+    stacks: Dict[str, list] = {}
+    for (c, p), (kind, _) in _layer_slots(cfg):
+        block = (tree["tail"][p] if c is None else
+                 {k: np.asarray(a)[c]
+                  for k, a in tree["scan"][f"pos{p}"].items()})
+        for key, ck in CACHE_KEYS[kind].items():
+            stacks.setdefault(ck, []).append(np.asarray(block[key]))
+    return {ck: to_tensor(np.stack(vals), device)
+            for ck, vals in stacks.items()}
+
+
+def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig
+                 ) -> Dict[str, Any]:
+    """The inverse of ``cache_from_jax``: the port's cache as numpy in the
+    reference's ``init_cache`` layout."""
+    plen = len(cfg.block_pattern)
+    n_full = cfg.num_layers // plen
+    blocks = [{key: to_numpy(cache[ck][j])
+               for key, ck in CACHE_KEYS[kind].items()}
+              for _, (kind, j) in _layer_slots(cfg)]
+    if n_full:
+        scan = {f"pos{p}": {key: np.stack([blocks[c * plen + p][key]
+                                           for c in range(n_full)])
+                            for key in blocks[p]}
+                for p in range(plen)}
+    else:       # no whole cycle: the reference keeps empty stacks
+        batch = next(iter(cache.values())).shape[1]
+        rows = cache["k"].shape[2] if "k" in cache else 0
+        scan = {f"pos{p}": {
+            key: np.zeros((0,) + shape, np.float32)
+            for key, (shape, _) in _block_cache(
+                cfg, kind, batch, rows, torch.float32).items()}
+            for p, kind in enumerate(cfg.block_pattern)}
+    return {"scan": scan, "tail": tuple(blocks[n_full * plen:])}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

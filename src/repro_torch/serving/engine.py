@@ -179,12 +179,16 @@ class ServingEngine:
         T = len(prompt)
         t0 = time.perf_counter()
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
-        logits, pcache = forward(self.params, self.cfg, {"tokens": toks},
-                                 return_cache=True)
+        # the head on the last position alone, as the reference's prefill
+        # returns logits[:, -1]
+        with torch.no_grad():
+            logits, pcache = forward(self.params, self.cfg, {"tokens": toks},
+                                     return_cache=True, last_only=True)
         # global k/v rows [:T] (decode masks out a previous request's rows
         # past T: it attends over min(len + 1, S)); the rest of the slot
         # whole (models.write_slot)
         write_slot(self.cache, pcache, slot, T)
+        del pcache
         self.tokens[slot, 0] = logits[0, -1].argmax()
         first = int(self.tokens[slot, 0])        # waits for the device
         dt = time.perf_counter() - t0
@@ -207,9 +211,10 @@ class ServingEngine:
         lengths = torch.from_numpy(self.lengths).to(self.device)
         live = torch.from_numpy(np.array(
             [r is not None for r in self.slot_req])).to(self.device)
-        logits, self.cache = forward(
-            self.params, self.cfg, {"tokens": self.tokens},
-            cache=self.cache, cache_len=lengths)
+        with torch.no_grad():
+            logits, self.cache = forward(
+                self.params, self.cfg, {"tokens": self.tokens},
+                cache=self.cache, cache_len=lengths)
         # only the occupied slots take their new token, as in the
         # reference: a free slot decodes its stale token again, which a MoE
         # model routes beside the live ones (one capacity for the step)

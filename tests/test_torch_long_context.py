@@ -1,11 +1,13 @@
 """Long contexts in the port on the CPU: what the card's 32k-token paths
 and their checks rest on.
 
-- Rotary embeddings at positions 0, 8191, 8192 and 32767 for theta 500000
-  (llama3-8b) and 1e6 (codellama2-34b, qwen2-72b) against the reference's
-  ``apply_rope``: both compute in f32 and part only where one of the 64
-  frequencies rounds one ulp apart (theta 1e6, frequency 37: the two
-  packages' pow), which position 32767 turns into 2.3e-6 of the output.
+- Rotary embeddings at positions 0, 8191, 8192, 32767 and 524287 for
+  theta 500000 (llama3-8b) and 1e6 (codellama2-34b, qwen2-72b) against the
+  reference's ``apply_rope``: both compute in f32 with the same frequency
+  bits (theta 1e6's frequency 37 was one ulp apart, the two packages'
+  pow, 2.3e-6 of the output at position 32767, until the port took
+  theta ** exponent in float64), so they part only where their cos / sin
+  do.
 - llama3-8b-sw's smoke config (window 64) in the port's ``ServingEngine``
   against the JAX engine: prompts longer than the window (the prefill rolls
   the ring), and decode that wraps the ring more than twice.
@@ -46,10 +48,11 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.params import params_from_jax  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
-POSITIONS = [0, 8191, 8192, 32767]
-# f32 rotary: 1e-5, four times the 2.3e-6 that one frequency's ulp makes
-# at position 32767 (theta 1e6); equal elsewhere to a few f32 ulps
-ROPE_ATOL = 1e-5
+POSITIONS = [0, 8191, 8192, 32767, 524287]
+# f32 rotary: with the frequencies' bits equal to the reference's (theta
+# 1e6, frequency 37, was one ulp off before, 2.3e-6 of the output at
+# position 32767), the two sides part only where their cos / sin do
+ROPE_ATOL = 1e-6
 # chip_smoke.py's TOL["bfloat16"] and BF16_EXACT_SHARE_RATIO
 BF16_ATOL_RMS, BF16_RTOL, EXACT_SHARE_RATIO = 1e-2, 2.0 ** -6, 1.1
 
@@ -63,7 +66,7 @@ def test_apply_rope_at_long_positions_matches_jax(arch, theta):
     hd = cfg.head_dim
     np.testing.assert_array_max_ulp(
         L._rope_freqs(theta, hd // 2, "cpu").numpy(),
-        np.asarray(JL._rope_freqs(hd, theta, hd // 2)), maxulp=1)
+        np.asarray(JL._rope_freqs(hd, theta, hd // 2)), maxulp=0)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, len(POSITIONS), 4, hd)).astype("float32")
     pos = np.array([POSITIONS, POSITIONS[::-1]], dtype=np.int32)
