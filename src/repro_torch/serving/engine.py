@@ -11,6 +11,9 @@ is attached to.  Counterpart of ``repro.serving.engine`` with the surface
 ``slot_req`` and ``params``.  Durations are measured on the host clock
 after the step's device-to-host read of its argmax, which waits for the
 device, so the executor sees device time and not launch time.
+``host_s`` sums, over the engine's steps, the host's seconds from a
+step's start to that read: what the host took to enqueue the step's work
+(``repro_torch.serving.spans`` reads it around each slot).
 """
 from __future__ import annotations
 
@@ -164,6 +167,7 @@ class ServingEngine:
             cost_model = InstanceCostModel(cfg=cfg, hw=H100_SXM)
         self.executor = MeasuredExecutor(seed_model=cost_model)
         self.recorder = recorder      # optional CalibrationRecorder
+        self.host_s = 0.0             # host seconds to each step's wait
 
     # --------------------------------------------------------------- #
     def free_slots(self) -> List[int]:
@@ -190,8 +194,10 @@ class ServingEngine:
         write_slot(self.cache, pcache, slot, T)
         del pcache
         self.tokens[slot, 0] = logits[0, -1].argmax()
+        t_wait = time.perf_counter()
         first = int(self.tokens[slot, 0])        # waits for the device
         dt = time.perf_counter() - t0
+        self.host_s += t_wait - t0
         self.executor.observe_prefill(T, dt)
         if self.recorder is not None:
             self.recorder.record_prefill(T, dt)
@@ -220,8 +226,10 @@ class ServingEngine:
         # model routes beside the live ones (one capacity for the step)
         new = logits[:, 0].argmax(-1, keepdim=True)
         self.tokens = torch.where(live[:, None], new, self.tokens)
+        t_wait = time.perf_counter()
         new_tokens = new[:, 0].tolist()           # waits for the device
         dt = time.perf_counter() - t0
+        self.host_s += t_wait - t0
         ctx_sum = int(sum(self.lengths[i] for i in occupied))
         self.executor.observe_decode(dt, batch=len(occupied),
                                      ctx_sum=ctx_sum)

@@ -24,7 +24,8 @@ from repro_torch.core.request import Request, RequestState
 from repro_torch.core.slo import SLO
 from repro_torch.obs.events import attach_tracer
 from repro_torch.serving.replay import (FakeEngine, RealEngineBackend,
-                                        ReplayEngine, WallClock)
+                                        ReplayEngine, VirtualClock,
+                                        WallClock)
 
 
 @dataclasses.dataclass
@@ -74,7 +75,11 @@ class _SchedulerModel:
 class RealEcoServeSystem(EcoServeSystem):
     """EcoServeSystem whose instances carry engine backends and the
     engine's physical slot geometry (``max_decode_batch`` /
-    ``max_prefill_batch`` = the engine's slot count)."""
+    ``max_prefill_batch`` = the engine's slot count).  While a traced
+    serve runs on a wall clock, ``spans`` (``serving.spans.ServeSpans``)
+    records each submitted request that goes to the queue."""
+
+    spans = None
 
     def __init__(self, executors, engines, econf, slo, scheduler_model,
                  **kw):
@@ -96,6 +101,11 @@ class RealEcoServeSystem(EcoServeSystem):
         inst.engine = self._engines[iid]
         register_instance(inst)
         return inst
+
+    def submit(self, req: Request, now: float, engine) -> None:
+        super().submit(req, now, engine)
+        if self.spans is not None and self.queue and self.queue[-1] is req:
+            self.spans.refuse(self, req, now)
 
 
 class PaDGServer:
@@ -157,7 +167,8 @@ class PaDGServer:
         time on the default wall clock; pass a ``VirtualClock`` for a
         deterministic (conformance) replay.  ``tracer`` attaches a
         flight recorder (``repro_torch.obs.events.Tracer``) to the served
-        run."""
+        run; on any clock but a ``VirtualClock`` it also gets the loop's
+        own spans (``repro_torch.serving.spans``)."""
         usable = self.econf.max_seq_len - 2
         accepted, rejected = [], []
         for r in requests:
@@ -169,6 +180,11 @@ class PaDGServer:
 
         if clock is None:
             clock = WallClock(time_scale)
+        spans = None
+        if tracer is not None and not isinstance(clock, VirtualClock):
+            from repro_torch.serving.spans import ServeSpans
+            spans = clock = ServeSpans(tracer, clock, accepted)
+            spans.install(self.system)
         engine = ReplayEngine(self.system, clock=clock)
         log: Optional[list] = [] if record_decisions else None
         if record_decisions:
@@ -184,6 +200,8 @@ class PaDGServer:
             if record_decisions:
                 engine.decision_log = None
                 self.system.decision_log = None
+            if spans is not None:
+                spans.uninstall(self.system)
         self.finished.extend(finished)
         return ServeStats(list(finished), rejected=rejected, decisions=log)
 
