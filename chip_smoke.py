@@ -2577,14 +2577,16 @@ def kernel_wrappers():
 
 class FiniteCheck:
     """While installed, counts non-finite logits of the engines' forward
-    on the device, read once after the run: the last position's row of
-    every slot, the one the engine takes its argmax of (two small device
-    ops per step beside the model's thousands)."""
+    and of their graphed decode steps (``DecodeGraphs.step``) on the
+    device, read once after the run: the last position's row of every
+    slot, the one the engine takes its argmax of (two small device ops per
+    step beside the model's thousands)."""
 
     def __init__(self, torch):
         import repro_torch.serving.engine as engine_mod
         self.torch, self.engine_mod = torch, engine_mod
         self.real = engine_mod.forward
+        self.real_step = engine_mod.DecodeGraphs.step
         self.n = torch.zeros((), dtype=torch.int64, device="cuda")
 
     def __enter__(self):
@@ -2592,11 +2594,18 @@ class FiniteCheck:
             logits, cache = self.real(*args, **kwargs)
             self.n.add_((~self.torch.isfinite(logits[:, -1])).sum())
             return logits, cache
+
+        def checked_step(runner, *args):
+            logits, new = self.real_step(runner, *args)
+            self.n.add_((~self.torch.isfinite(logits[:, -1])).sum())
+            return logits, new
         self.engine_mod.forward = checked
+        self.engine_mod.DecodeGraphs.step = checked_step
         return self
 
     def __exit__(self, *exc):
         self.engine_mod.forward = self.real
+        self.engine_mod.DecodeGraphs.step = self.real_step
 
     @property
     def count(self) -> int:

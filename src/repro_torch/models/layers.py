@@ -229,14 +229,36 @@ def attention_block(
     cache's memory) and returns the same dict.  With a ``window`` the
     prefill attends over it and returns its k/v ring-ordered in ``window``
     rows, the size of a sliding-window layer's cache (S == window).
+    Without a mesh the decode is ``attention_decode_in``, the kernel and
+    ``attention_decode_out``.
 
     On a mesh the projections are DTensor products; rotary, the cache
     write and the kernel run in a local region (``_attend_sharded``) with
     the heads on the model axis and the batch on the batch axes, the
     placements the reference's sharding constraints name."""
     B, T, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if mi.mesh is None and layer_cache is not None and T == 1:
+        q, valid = attention_decode_in(params, cfg, x, positions,
+                                       layer_cache, cache_len)
+        out = decode_attention_op(q, layer_cache["k"], layer_cache["v"],
+                                  valid)
+        return attention_decode_out(params, cfg, out), layer_cache
+    q, k, v = _qkv(params, cfg, x, mi)
+    if mi.mesh is None:
+        out, new_cache = _attend(cfg, q, k, v, positions, window,
+                                 layer_cache, cache_len, return_cache)
+        out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
+    else:          # (B, T, hq * hd) already
+        out, new_cache = _attend_sharded(mi, cfg, q, k, v, positions, window,
+                                         layer_cache, cache_len,
+                                         return_cache)
+    return matmul(out, params["wo"]), new_cache
 
+
+def _qkv(params: Params, cfg: ModelConfig, x: torch.Tensor, mi: MeshInfo):
+    """q (B, T, Hq, D), k and v (B, T, Hkv, D): the projections, the qkv
+    bias and the per-head q/k RMSNorm (qwen3-4b), before rotary."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = matmul(x, params["wq"])
     k = matmul(x, params["wk"])
     v = matmul(x, params["wv"])
@@ -249,15 +271,40 @@ def attention_block(
         # per head, over head_dim
         q = rms_norm({"scale": params["q_norm"]}, q, cfg.norm_eps)
         k = rms_norm({"scale": params["k_norm"]}, k, cfg.norm_eps)
-    if mi.mesh is None:
-        out, new_cache = _attend(cfg, q, k, v, positions, window,
-                                 layer_cache, cache_len, return_cache)
-        out = out.reshape(B, T, hq * hd)
-    else:          # (B, T, hq * hd) already
-        out, new_cache = _attend_sharded(mi, cfg, q, k, v, positions, window,
-                                         layer_cache, cache_len,
-                                         return_cache)
-    return matmul(out, params["wo"]), new_cache
+    return q, k, v
+
+
+def _cache_write(k_cache, v_cache, k, v, cache_len) -> None:
+    """A decode step's k/v (B, 1, Hkv, D) into row ``cache_len % S`` of
+    each sequence's (B, S, Hkv, D) cache ring, in place."""
+    idx = (cache_len % k_cache.shape[1]).long()
+    bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache[bidx, idx] = k[:, 0]
+    v_cache[bidx, idx] = v[:, 0]
+
+
+def attention_decode_in(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, layer_cache: Params,
+                        cache_len: torch.Tensor):
+    """A decode step's attention up to its kernel, without a mesh: the
+    projections, qkv bias, heads, qk-norm and rotary, the new k/v written
+    into the ring at ``cache_len % S``.  Returns the kernel's q (B, Hq, D)
+    and its valid rows, ``min(cache_len + 1, S)`` in int32."""
+    q, k, v = _qkv(params, cfg, x, MeshInfo())
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
+    S = layer_cache["k"].shape[1]
+    _cache_write(layer_cache["k"], layer_cache["v"], k, v, cache_len)
+    return q[:, 0], torch.clamp(cache_len + 1, max=S).to(torch.int32)
+
+
+def attention_decode_out(params: Params, cfg: ModelConfig,
+                         out: torch.Tensor) -> torch.Tensor:
+    """The rest of a decode step's attention from the kernel's output
+    (B, Hq, D): the output projection, (B, 1, d)."""
+    B = out.shape[0]
+    return matmul(out.reshape(B, 1, cfg.num_heads * cfg.head_dim),
+                  params["wo"])
 
 
 def _attend(cfg: ModelConfig, q, k, v, positions, window, layer_cache,
@@ -281,11 +328,7 @@ def _attend(cfg: ModelConfig, q, k, v, positions, window, layer_cache,
         k_cache, v_cache = layer_cache["k"], layer_cache["v"]
         S = k_cache.shape[1]
         if write:
-            B = q.shape[0]
-            idx = (cache_len % S).long()
-            bidx = torch.arange(B, device=q.device)
-            k_cache[bidx, idx] = k[:, 0]
-            v_cache[bidx, idx] = v[:, 0]
+            _cache_write(k_cache, v_cache, k, v, cache_len)
         valid = torch.clamp(cache_len + 1, max=S).to(torch.int32)
         out = decode_attention_op(q[:, 0], heads(k_cache), heads(v_cache),
                                   valid)[:, None]
@@ -364,12 +407,7 @@ def _attend_sharded(mi: MeshInfo, cfg: ModelConfig, q, k, v, positions,
             d_spec = P(b, None, None, head_axis(mi, hd))
 
             def write_fn(k, v, kc, vc, lens, pos):
-                k = apply_rope(cfg, k, pos)
-                S = kc.shape[1]
-                idx = (lens % S).long()
-                bidx = torch.arange(kc.shape[0], device=kc.device)
-                kc[bidx, idx] = k[:, 0]
-                vc[bidx, idx] = v[:, 0]
+                _cache_write(kc, vc, apply_rope(cfg, k, pos), v, lens)
                 return kc
             region(mi, write_fn, (k, v, layer_cache["k"], layer_cache["v"],
                                   cache_len, positions),

@@ -305,6 +305,28 @@ def _ffn_residual(cfg: ModelConfig, kind: str, bp: Params, x: torch.Tensor,
     return x + L.batch_placed(mi, ffn)
 
 
+# An attention layer's decode step without a mesh, in two halves around
+# its kernel, so that ``serving.decode_graph`` can replay each gap between
+# two kernels as one CUDA graph while the kernel runs eagerly.
+def block_decode_in(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                    positions: torch.Tensor, layer_cache: Params,
+                    cache_len: torch.Tensor):
+    """The layer's norm and its attention up to the kernel (the new k/v
+    written into ``layer_cache``): the kernel's q (B, Hq, D) and valid
+    rows (B,)."""
+    h = L.rms_norm(bp["norm1"], x, cfg.norm_eps)
+    return L.attention_decode_in(bp["core"], cfg, h, positions, layer_cache,
+                                 cache_len)
+
+
+def block_decode_out(cfg: ModelConfig, kind: str, bp: Params,
+                     x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """The rest of the layer from the kernel's output ``attn`` (B, Hq, D):
+    the output projection, the residual and the FFN."""
+    x = x + L.attention_decode_out(bp["core"], cfg, attn)
+    return _ffn_residual(cfg, kind, bp, x, MeshInfo())
+
+
 def _default_positions(cfg: ModelConfig, batch: int, seqlen: int,
                        device, num_patches: int = 0) -> torch.Tensor:
     """(B, T) positions, or (B, T, 3) for mrope: with ``num_patches``
@@ -369,6 +391,24 @@ def _embed_sharded(mi: MeshInfo, embed, tokens):
     return x.redistribute(mi.mesh, out_pl)
 
 
+def decode_positions(cfg: ModelConfig, cache_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """A decode step's positions: ``cache_len`` as (B, 1), repeated 3
+    times for mrope (B, 1, 3)."""
+    positions = cache_len[:, None]
+    if cfg.rope == "mrope":
+        positions = positions[..., None].expand(cache_len.shape[0], 1, 3)
+    return positions
+
+
+def head_logits(params: Params, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """The final norm, the head (tied or not) and the soft cap."""
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.soft_cap(L.matmul(x, head), cfg.logit_soft_cap)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -412,9 +452,7 @@ def forward(
     if "positions" in batch:
         positions = batch["positions"]
     elif decoding:
-        positions = cache_len[:, None]
-        if cfg.rope == "mrope":
-            positions = positions[..., None].expand(B, 1, 3)
+        positions = decode_positions(cfg, cache_len)
     else:
         n_patches = (batch["patches"].shape[1]
                      if cfg.modality == "vision" and "patches" in batch
@@ -455,9 +493,7 @@ def forward(
 
     if last_only:
         x = x[:, -1:]
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = L.soft_cap(L.matmul(x, head), cfg.logit_soft_cap)
+    logits = head_logits(params, cfg, x)
 
     if decoding:
         return logits, cache

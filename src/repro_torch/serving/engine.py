@@ -14,6 +14,14 @@ device, so the executor sees device time and not launch time.
 ``host_s`` sums, over the engine's steps, the host's seconds from a
 step's start to that read: what the host took to enqueue the step's work
 (``repro_torch.serving.spans`` reads it around each slot).
+
+On a CUDA device, a model whose every layer is dense attention decodes
+through ``serving.decode_graph.DecodeGraphs`` (``graphs_apply``): the step
+replayed as CUDA graphs between its eager ``decode_attention`` calls,
+captured at the first decode step after the weights or the cache were
+set.  ``graph_captures`` and ``graph_steps`` count the captures and the
+decode steps served by replay.  Every other engine runs ``forward``'s
+eager step.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.request import Request
 from repro_torch.models import (forward, init_cache, init_params,
                                  write_slot)
+from repro_torch.serving.decode_graph import (DecodeGraphs, graphs_apply,
+                                              next_tokens)
 from repro_torch.simulator.cost_model import HardwareProfile
 
 # H100 SXM datasheet figures (dense bf16 tensor-core peak, HBM3 rate and
@@ -35,10 +45,12 @@ from repro_torch.simulator.cost_model import HardwareProfile
 # engine's one-card executor (tp=1) never reads.  The two efficiencies are
 # not fitted values.  chip_smoke.py's calibrate phase fits the cost model's
 # constants on the card, and PERF.md's calibration record keeps them.  The
-# engine's step times are host-clock and serving is host-bound, so the
-# fitted decode terms hold host dispatch; an efficiency derived from them
-# would charge HBM for host time.  The values stay as the roofline's, and
-# MeasuredExecutor's gains track the gap while it serves.
+# engine's step times are host-clock, and what the host enqueues besides
+# the card's work (all of an eager step's ops; a graphed step's replays
+# and attention calls) sits in the fitted decode terms, so an efficiency
+# derived from them would charge HBM for host time.  The values stay as
+# the roofline's, and MeasuredExecutor's gains track the gap while it
+# serves.
 H100_SXM = HardwareProfile(
     name="h100-sxm", flops=989e12, hbm_bw=3.35e12, hbm_bytes=80e9,
     intra_node_bw=450e9, inter_node_bw=450e9, devices_per_node=1,
@@ -139,7 +151,9 @@ def resolve_device(device) -> torch.device:
 
 class ServingEngine:
     """Slot-based continuous batching with a fixed-shape decode step over
-    all ``max_batch`` slots."""
+    all ``max_batch`` slots.  ``params`` and ``cache`` may be replaced
+    (the benchmark swaps in weights that engines share): setting either
+    drops the captured decode graphs, and the next step captures anew."""
 
     def __init__(self, cfg: ModelConfig, params=None, seed: int = 0,
                  econf: EngineConfig = EngineConfig(),
@@ -152,6 +166,10 @@ class ServingEngine:
         self.cfg = cfg
         self.econf = econf
         self.device = resolve_device(econf.device)
+        self._graphed = graphs_apply(cfg, self.device)
+        self._graphs: Optional[DecodeGraphs] = None
+        self.graph_captures = 0       # decode graphs captured
+        self.graph_steps = 0          # decode steps served by replay
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, econf.dtype, self.device)
@@ -168,6 +186,24 @@ class ServingEngine:
         self.executor = MeasuredExecutor(seed_model=cost_model)
         self.recorder = recorder      # optional CalibrationRecorder
         self.host_s = 0.0             # host seconds to each step's wait
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        self._params = value
+        self._graphs = None
+
+    @property
+    def cache(self):
+        return self._cache
+
+    @cache.setter
+    def cache(self, value) -> None:
+        self._cache = value
+        self._graphs = None
 
     # --------------------------------------------------------------- #
     def free_slots(self) -> List[int]:
@@ -214,18 +250,22 @@ class ServingEngine:
         if not occupied:
             return {}
         t0 = time.perf_counter()
-        lengths = torch.from_numpy(self.lengths).to(self.device)
-        live = torch.from_numpy(np.array(
-            [r is not None for r in self.slot_req])).to(self.device)
+        live = np.array([r is not None for r in self.slot_req])
         with torch.no_grad():
-            logits, self.cache = forward(
-                self.params, self.cfg, {"tokens": self.tokens},
-                cache=self.cache, cache_len=lengths)
-        # only the occupied slots take their new token, as in the
-        # reference: a free slot decodes its stale token again, which a MoE
-        # model routes beside the live ones (one capacity for the step)
-        new = logits[:, 0].argmax(-1, keepdim=True)
-        self.tokens = torch.where(live[:, None], new, self.tokens)
+            if self._graphed:
+                new = self._graph_step(live)
+            else:
+                logits, _ = forward(
+                    self.params, self.cfg, {"tokens": self.tokens},
+                    cache=self.cache,
+                    cache_len=torch.from_numpy(self.lengths).to(self.device))
+                # only the occupied slots take their new token, as in the
+                # reference: a free slot decodes its stale token again,
+                # which a MoE model routes beside the live ones (one
+                # capacity for the step)
+                new = next_tokens(logits,
+                                  torch.from_numpy(live).to(self.device),
+                                  self.tokens)
         t_wait = time.perf_counter()
         new_tokens = new[:, 0].tolist()           # waits for the device
         dt = time.perf_counter() - t0
@@ -250,6 +290,16 @@ class ServingEngine:
                 self.slot_req[i] = None
                 self.lengths[i] = 0
         return out
+
+    def _graph_step(self, live: np.ndarray) -> torch.Tensor:
+        if self._graphs is None:
+            self._graphs = DecodeGraphs(self.params, self.cfg, self.cache,
+                                        self.tokens)
+        replay = self._graphs.captured
+        _, new = self._graphs.step(self.lengths, live)
+        self.graph_steps += replay
+        self.graph_captures += not replay and self._graphs.captured
+        return new
 
     def release(self, req: Request) -> None:
         """Free the slot holding ``req`` (scheduler-side early finish,

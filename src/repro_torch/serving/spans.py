@@ -30,6 +30,10 @@ While ``torch.profiler`` records, runs and waits also open
 ``repro_torch.wait.<cause>``, so they sit in the device trace.
 ``tracer.meta["perf_counter_origin"]`` is the ``time.perf_counter()``
 reading at loop time 0: a tuple's loop time plus it is the host's clock.
+``tracer.meta["decode_graph"]`` maps each instance's ``iid`` to the
+serve's own counts of its engine's decode graphs, ``{"captures": n,
+"steps": n}`` (``ServingEngine.graph_captures`` / ``graph_steps``: steps
+served by replay), or None for a backend without them (``FakeEngine``).
 
 A wait's cause is known before it sleeps, so its range can carry it: the
 loop sleeps once to each arrival, in order, and once to each slot's end,
@@ -77,6 +81,14 @@ def first_failed_constraint(status, req, slo, predict_prefill, now: float,
     return None
 
 
+def _graph_counts(backend) -> Optional[Tuple[int, int]]:
+    """(graph_captures, graph_steps) of a backend's engine, or None."""
+    engine = getattr(backend, "engine", None)
+    if not hasattr(engine, "graph_steps"):
+        return None
+    return engine.graph_captures, engine.graph_steps
+
+
 class ServeSpans:
     """The loop's clock, wrapped: ``start`` / ``now`` / ``sleep_until``
     of the clock it is given, each sleep recorded with its cause."""
@@ -90,17 +102,25 @@ class ServeSpans:
         self._ends: Dict[float, Tuple[int, str]] = {}   # modeled slot ends
         self._scanned = 0             # tracer events read for slot spans
         self._slot: Optional[tuple] = None   # (t_end, iid, kind) slept to
+        self._graphs0: Dict[int, Optional[Tuple[int, int]]] = {}
 
     # ---------------- install for one serve --------------------------- #
     def install(self, system) -> None:
+        self._graphs0 = {inst.iid: _graph_counts(inst.engine)
+                         for inst in system.instances}
         for inst in system.instances:
             inst.engine = SpanBackend(inst.engine, inst.iid, self)
         system.spans = self
 
     def uninstall(self, system) -> None:
+        graphs = {}
         for inst in system.instances:
+            c0, c1 = self._graphs0.get(inst.iid), _graph_counts(inst.engine)
+            graphs[inst.iid] = None if c0 is None or c1 is None else {
+                "captures": c1[0] - c0[0], "steps": c1[1] - c0[1]}
             if isinstance(inst.engine, SpanBackend):
                 inst.engine = inst.engine.backend
+        self.tracer.meta["decode_graph"] = graphs
         system.spans = None
 
     # ---------------- the clock's protocol ---------------------------- #

@@ -2,7 +2,8 @@
 ``run`` / ``wait`` / ``refuse`` tuples from a wall-clock serve over a
 backend that sleeps a fixed time a slot, none on a ``VirtualClock``, the
 profiler ranges beside them, their JSONL round trip, the constraint named
-for each refusal, and the engine's host seconds."""
+for each refusal, the engine's host seconds, and each instance's
+decode-graph counts in the tracer's meta."""
 import dataclasses
 import json
 import os
@@ -222,3 +223,24 @@ def test_engine_host_seconds():
     h = eng.host_s
     eng.decode_step()
     assert 0 < eng.host_s - h <= rec.dt
+
+
+def test_decode_graph_counts_per_instance():
+    trc, _ = serve([one_request(output_len=3)], CountingClock(),
+                   n_instances=2)
+    assert trc.meta["decode_graph"] == {0: None, 1: None}   # FakeEngine
+    cfg = dataclasses.replace(
+        get_smoke_config("qwen2-72b"), num_layers=2, d_model=128,
+        num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256, vocab_size=300)
+    trc = Tracer()
+    req = one_request(output_len=4, prompt_len=8)
+    req.prompt_tokens = list(range(2, 10))
+    with PaDGServer(cfg, 2, slo=SLO(ttft=5.0, tpot=0.5),
+                    econf=EngineConfig(max_batch=2, max_seq_len=64,
+                                       eos_token=-1),
+                    backend="real", device="cpu") as server:
+        stats = server.serve([req], clock=CountingClock(), tracer=trc)
+    assert len(stats.finished) == 1 and len(req.generated) == 4
+    # a CPU engine decodes eagerly: no capture, no replay
+    assert trc.meta["decode_graph"] == {
+        0: {"captures": 0, "steps": 0}, 1: {"captures": 0, "steps": 0}}
