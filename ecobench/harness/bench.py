@@ -7,21 +7,17 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
-import json
 import os
-import pathlib
 import sys
 import tempfile
 import time
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
-from ecobench.harness import judge, traffic
+from ecobench.harness import files, judge, traffic
 from ecobench.harness.clock import BenchClock
-from ecobench.harness.model import Model, load_config, model_of
+from ecobench.harness.model import family_of, load_config
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]        # ecobench/
-REPO = ROOT.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")             # whole top-level names
 TRACE_FROM = 0.85     # the traced run profiles the window from here to its close
 
@@ -29,7 +25,8 @@ TRACE_FROM = 0.85     # the traced run profiles the window from here to its clos
 @dataclasses.dataclass
 class Run:
     """What the metric readers read."""
-    model: Model
+    model: object               # the family's Model
+    family: ModuleType
     dtype: str
     slo: dict
     seconds: float
@@ -40,22 +37,22 @@ class Run:
     requests: List[dict]
     prefills: List[tuple]
     decodes: List[tuple]
+    # the traced run's: the kernel files' counted calls by name, the
+    # trace's reduction (on a card), the program's tuples and counters
+    calls: Dict[str, List[tuple]] = dataclasses.field(default_factory=dict)
     trace: Optional[dict] = None
-
-
-def benchmark() -> dict:
-    return json.loads((REPO / "BENCHMARK.json").read_text())
+    events: Optional[list] = None
+    meta: Optional[dict] = None
 
 
 def cell_spec(name: str) -> dict:
     """The cell's entry with its configuration, traffic and rate files."""
-    bench = benchmark()
+    bench = files.benchmark()
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-    cell = json.loads((ROOT / "cells" / f"{name}.json").read_text())
-    mix = json.loads((ROOT / "traffic" / f"{entry['traffic']}.json")
-                     .read_text())
+    cell = files.read_json("cells", name)
+    mix = files.read_json("traffic", entry["traffic"])
     return {"entry": entry, "cell": cell, "mix": mix,
             "conf": load_config(entry["config"]), "bench": bench}
 
@@ -71,14 +68,12 @@ def load_reader(name: str) -> Callable:
     such as ``ttft_p50_s.sat`` (the same quantity in cells that report
     another end-to-end metric), reads through the file of its name less
     its last dotted part."""
-    path = ROOT / "metrics" / f"{name}.py"
-    if not path.is_file() and "." in name:
-        path = ROOT / "metrics" / f"{name.rsplit('.', 1)[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        "ecobench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    try:
+        return files.module("metrics", name).read
+    except FileNotFoundError:
+        if "." not in name:
+            raise
+        return files.module("metrics", name.rsplit(".", 1)[0]).read
 
 
 def forbidden_modules() -> List[str]:
@@ -104,7 +99,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
              shrink: Optional[Callable[[dict], dict]] = None,
              fault: Optional[Callable] = None, control: bool = False,
              rate: Optional[float] = None, drain: bool = False,
-             log=print) -> dict:
+             spans: Optional[bool] = None, log=print) -> dict:
     """One run: returns the result line's dict, with the numbers compared
     under ``"checks"`` (last).  ``shrink`` edits the spec (tests at a tiny
     size); ``fault(server)`` breaks the program underneath (tests);
@@ -112,16 +107,18 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     sample (``limits.py``); ``rate`` replaces the cell's (``sweep.py``).
     The record the readers see is kept under ``"run"`` when ``rate`` or
     ``control`` is given.  ``drain`` serves every request to its end
-    (CPU tests: what finishes then does not hang on the host's speed)."""
+    (CPU tests: what finishes then does not hang on the host's speed).
+    ``spans`` (default: ``trace``) gives the window's serve a ``Tracer``
+    (``spans.py``: what the tracer costs)."""
     import torch
     from ecobench.harness import serve as S
-    from ecobench.harness.weights import draw
 
     spec = cell_spec(name)
     if shrink is not None:
         spec = shrink(spec)
     conf, mix, cell = spec["conf"], spec["mix"], spec["cell"]
-    m = model_of(conf)
+    fam = family_of(conf)
+    m = fam.Model(**conf["model"])
     dtype_name = conf["engine"]["dtype"]
     dtype = getattr(torch, dtype_name)
     on_card = device != "cpu"
@@ -135,7 +132,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
         marks.append(("cuda", time.perf_counter()))
     clock = BenchClock()
     rec = S.Log()
-    server, w = S.build(conf, m, mix, lambda: draw(m, seed, dtype, device),
+    server, w = S.build(conf, m, mix,
+                        lambda: fam.draw(m, seed, dtype, device),
                         device, clock, rec, dtype)
     engines = S.engines_of(server)
     marks.append(("server", time.perf_counter()))
@@ -157,18 +155,21 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     arrivals = traffic.window(mix, rate or cell["rate"], seconds, seed,
                               vocab)
     reqs = S.to_requests(arrivals)
-    shims = sub = None
+    shims = sub = tracer = None
     trace_path = None
     if trace:
         from ecobench.harness.trace import Shims, SubWindow
         shims = Shims()
-        shims.install(engines, conf["engine"]["max_seq_len"])
-        fd, trace_path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        sub = SubWindow(TRACE_FROM * seconds, shims, trace_path)
+        shims.install(engines)
         if on_card:
-            clock.on_time = sub
-            clock.sleep_span = sub.sleep_span
+            fd, trace_path = tempfile.mkstemp(suffix=".json")
+            os.close(fd)
+        sub = SubWindow(TRACE_FROM * seconds, shims, trace_path)
+        clock.on_time = sub
+        clock.sleep_span = sub.sleep_span
+    if (trace if spans is None else spans):
+        from repro_torch.obs.events import Tracer
+        tracer = Tracer()
     rec.clear()
     setup_peak = 0
     if on_card:
@@ -179,7 +180,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
     # ---- the window --------------------------------------------------- #
     stats = server.serve(reqs, clock=clock,
-                         horizon=float("inf") if drain else seconds)
+                         horizon=float("inf") if drain else seconds,
+                         tracer=tracer)
+    if tracer is not None:
+        tracer.clock = None     # it reads the loop, which holds the engines
     # a window whose work ended early still lasts its seconds
     window_s = max(time.perf_counter() - clock.t0, seconds)
     close = window_s
@@ -197,14 +201,17 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     records = [request_record(r, by_rid[r.rid], rec.last_token)
                for r in reqs]
     refused = len(stats.rejected)
-    run = Run(model=m, dtype=dtype_name, slo=mix["slo"], seconds=seconds,
-              window_s=window_s, close=close, setup_s=setup_s,
-              slept_s=clock.slept, requests=records,
+    run = Run(model=m, family=fam, dtype=dtype_name, slo=mix["slo"],
+              seconds=seconds, window_s=window_s, close=close,
+              setup_s=setup_s, slept_s=clock.slept, requests=records,
               prefills=list(rec.prefills), decodes=list(rec.decodes))
-    if trace and on_card and sub.state == "done":
+    if shims is not None:
+        run.calls = shims.calls
+    if tracer is not None:
+        run.events, run.meta = tracer.events, tracer.meta
+    if trace_path and sub.state == "done":
         from ecobench.harness.trace import read
         run.trace = read(trace_path)
-        run.trace["calls"] = shims.calls
     if trace_path:
         os.unlink(trace_path)
 
@@ -221,7 +228,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     picked = judge.sample([r for r in records if r["finished"]], seed,
                           check["tokens"], check["requests"])
     t_ref = time.perf_counter()
-    served, ctrl = judge.gaps(w, m, picked, control_too=control)
+    served, ctrl = judge.gaps(fam.logits_at, w, m, picked,
+                              control_too=control)
     ref_s = time.perf_counter() - t_ref
     gap = judge.widest(served)
     limit = conf["limits"]["widest_logit_gap"]

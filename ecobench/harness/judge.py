@@ -4,13 +4,13 @@ After the window: every request's engine-side tokens must agree with the
 scheduler's count (``token_count_errors``, limit 0).  Then a sample drawn
 from the seed of the requests that finished, the one with the most served
 tokens first, then others in the seed's order until ``check_tokens``
-tokens or ``check_requests`` requests: the plain reference runs once over
-each prompt with its served tokens (teacher-forced), and at each served
-position the gap between the reference's best logit and the served
-token's logit is read.  The widest gap over the sample
-(``widest_logit_gap``) is held to the configuration's limit.  The
-control reads, at the same positions, the gap of the token that the
-reference in float8 puts first.
+tokens or ``check_requests`` requests: the plain reference (the model
+family's ``logits_at``) runs once over each prompt with its served tokens
+(teacher-forced), and at each served position the gap between the
+reference's best logit and the served token's logit is read.  The widest
+gap over the sample (``widest_logit_gap``) is held to the configuration's
+limit.  The control reads, at the same positions, the gap of the token
+that the reference in float8 puts first.
 """
 from __future__ import annotations
 
@@ -18,9 +18,6 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
-
-from ecobench.harness import reference
-
 
 MIN_REQUESTS = 4        # prompts compared at least, where that many finished
 
@@ -55,13 +52,14 @@ def _inputs(picked):
     return seqs, rows
 
 
-def gaps(w, m, picked, control_too: bool = False):
-    """Per sampled request, the served tokens' gaps below the reference's
-    best logit; with ``control_too`` also the gaps of the float8
-    reference's first choices.  Returns (served, control or None)."""
+def gaps(logits_at, w, m, picked, control_too: bool = False):
+    """Per sampled request, the served tokens' gaps below the best logit
+    of the reference ``logits_at``; with ``control_too`` also the gaps of
+    the float8 reference's first choices.  Returns (served, control or
+    None)."""
     seqs, rows = _inputs(picked)
     with torch.no_grad():
-        ref = reference.logits_at(w, m, seqs, rows)
+        ref = logits_at(w, m, seqs, rows)
         served = []
         for lg, r in zip(ref, picked):
             tok = torch.as_tensor(r["generated"], device=lg.device)
@@ -69,7 +67,7 @@ def gaps(w, m, picked, control_too: bool = False):
             served.append((best - lg.gather(-1, tok[:, None])[:, 0]).cpu())
         ctrl = None
         if control_too:
-            low = reference.logits_at(w, m, seqs, rows, control=True)
+            low = logits_at(w, m, seqs, rows, control=True)
             ctrl = []
             for lg, lo in zip(ref, low):
                 pick = lo.argmax(-1)

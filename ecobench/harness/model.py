@@ -1,17 +1,24 @@
 """A configuration file's model, in the benchmark's own terms.
 
-``Model`` is read from the ``model`` block of ``configs/<name>.json``; the
-file's top-level keys are the source's ``config.json`` as it is run, and
-``test_ecobench_configs`` holds the two to each other.  Nothing here
-imports the port.
+A configuration file's ``family`` (``dense`` where it names none) is the
+module ``families/<family>.py``, which gives the model's ``Model`` (read
+from the file's ``model`` block), its weights, its plain reference, the
+port's configuration fields it has to match and its work counts
+(``FAMILY``).  The file's top-level keys are the source's ``config.json``
+as it is run; ``test_ecobench_schema`` holds the two to each other through
+the family's ``SOURCE_KEYS``.  ``Model`` below is the dense family's.
+Nothing here imports the port.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
-import pathlib
+from types import ModuleType
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]      # ecobench/
+from ecobench.harness import files
+
+# what a family module gives (families/dense.py is the worked example)
+FAMILY = ("Model", "SOURCE_KEYS", "draw", "port_params", "port_fields",
+          "logits_at", "prefill_flops", "decode_flops")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +47,18 @@ class Model:
 
 
 def load_config(name: str) -> dict:
-    return json.loads((ROOT / "configs" / f"{name}.json").read_text())
+    return files.read_json("configs", name)
 
 
-def model_of(conf: dict) -> Model:
-    return Model(**conf["model"])
+def family_of(conf: dict) -> ModuleType:
+    """The family module of a configuration file."""
+    name = conf.get("family", "dense")
+    fam = files.module("families", name)
+    missing = [k for k in FAMILY if not hasattr(fam, k)]
+    if missing:
+        raise AttributeError(f"families/{name}.py lacks {', '.join(missing)}")
+    return fam
+
+
+def model_of(conf: dict):
+    return family_of(conf).Model(**conf["model"])

@@ -5,10 +5,13 @@ A served run given a ``Tracer`` on a wall clock gets, from
 ``wait`` tuple a sleep of the loop's clock and one ``refuse`` tuple a
 request queued on arrival, and, while ``torch.profiler`` records, the
 ``record_function`` ranges ``repro_torch.run.<kind>`` and
-``repro_torch.wait.<cause>`` in the trace.  The readers here take the
-tuples (or that trace's events) and return a share in %, or None where
-there is nothing to read: a run without the program's spans, as from a
-program that has none.
+``repro_torch.wait.<cause>`` in the trace.  ``bench.run_cell`` gives the
+traced run's window a ``Tracer`` and keeps its tuples on ``Run.events``,
+its counters on ``Run.meta``, and the ranges in the trace's reduction
+(``Run.trace``, ``trace.reduce``).  The readers here take the tuples (or
+that reduction) and return a share in %, or None where there is nothing
+to read: a run without the program's spans, as from a program that has
+none.
 
   ``slot_wait_share``       seconds the loop slept to modeled slot ends
                             (``wait`` with cause ``slot``) over the window;
@@ -23,9 +26,7 @@ from __future__ import annotations
 
 import bisect
 import collections
-from typing import Dict, List, Optional
-
-from ecobench.harness.trace import DEVICE_CATS, _union
+from typing import Dict, Optional
 
 DECODE_RANGE = "repro_torch.run.decode"
 
@@ -58,25 +59,21 @@ def decode_host_share(events) -> Optional[float]:
     return 100.0 * sum(r[7] for r in runs) / ran
 
 
-def idle_in_decode_share(trace_events: List[dict]) -> Optional[float]:
+def idle_in_decode_share(trace: Optional[dict]) -> Optional[float]:
     """Device idle (no kernel, copy or set) inside the decode ranges, over
-    the ``ecobench.window`` span; each range is cut to the window."""
-    win = [e for e in trace_events if e.get("name") == "ecobench.window"
-           and e.get("cat") == "user_annotation"]
-    ranges = [e for e in trace_events if e.get("name") == DECODE_RANGE
-              and e.get("cat") == "user_annotation" and e.get("ph") == "X"]
-    if not win or not ranges:
+    the profiled sub-window, from its reduction (``trace.reduce``); each
+    range is cut to the sub-window."""
+    if not trace or not trace["window_s"]:
         return None
-    w0 = float(win[0]["ts"])
-    w1 = w0 + float(win[0]["dur"])
-    busy = _union((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                  for e in trace_events
-                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    ranges = trace["ranges"].get(DECODE_RANGE)
+    if not ranges:
+        return None
+    w = trace["window_s"]
+    busy = trace["busy"]
     ends = [b1 for _, b1 in busy]
     idle = 0.0
-    for e in ranges:
-        s = max(float(e["ts"]), w0)
-        t = min(float(e["ts"]) + float(e["dur"]), w1)
+    for r0, r1 in ranges:
+        s, t = max(r0, 0.0), min(r1, w)
         if t <= s:
             continue
         idle += t - s
@@ -84,7 +81,7 @@ def idle_in_decode_share(trace_events: List[dict]) -> Optional[float]:
         while i < len(busy) and busy[i][0] < t:
             idle -= min(t, busy[i][1]) - max(s, busy[i][0])
             i += 1
-    return 100.0 * idle / (w1 - w0)
+    return 100.0 * idle / w
 
 
 def refusals(events) -> Dict[str, int]:

@@ -16,7 +16,7 @@ import dataclasses
 import gc
 from typing import Dict, List
 
-from ecobench.harness.model import Model
+from ecobench.harness.model import family_of
 from ecobench.harness.traffic import Arrival
 
 
@@ -51,23 +51,15 @@ class EngineRecorder:
                 self.log.last_token[r.rid] = now
 
 
-def port_config(conf: dict, m: Model):
+def port_config(conf: dict, m):
     """The port's configuration for this file, cut to ``m.layers``, after
-    checking that its widths are the file's."""
+    checking that its fields are the ones the file's family gives."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ATTN
     cfg = get_config(conf["port_config"])
     # the cut in depth; tests at a tiny size cut the widths too
     cfg = dataclasses.replace(cfg, num_layers=m.layers,
                               **conf.get("port_overrides", {}))
-    want = {"d_model": m.d_model, "num_heads": m.heads,
-            "num_kv_heads": m.kv_heads, "head_dim": m.head_dim,
-            "d_ff": m.d_ff, "vocab_size": m.vocab, "qkv_bias": m.qkv_bias,
-            "rope": "half" if m.rope_dims * 2 == m.head_dim else "full",
-            "rope_theta": m.rope_theta, "norm_eps": m.norm_eps,
-            "block_pattern": (ATTN,), "num_experts": 0, "qk_norm": False,
-            "tie_embeddings": False, "logit_soft_cap": 0.0,
-            "is_encoder": False, "sliding_window": 0}
+    want = family_of(conf).port_fields(m)
     got = {k: getattr(cfg, k) for k in want}
     if got != want:
         diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
@@ -87,7 +79,7 @@ def to_requests(arrivals: List[Arrival]):
     return out
 
 
-def build(conf: dict, m: Model, mix: dict, weights_fn, device: str,
+def build(conf: dict, m, mix: dict, weights_fn, device: str,
           clock, log: Log, dtype):
     """The PaDG server of the cell, with the benchmark's weights.
 
@@ -98,7 +90,6 @@ def build(conf: dict, m: Model, mix: dict, weights_fn, device: str,
     from repro_torch.core.slo import SLO
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.padg_server import PaDGServer
-    from ecobench.harness.weights import port_params
 
     eng_conf = conf["engine"]
     cfg = port_config(conf, m)
@@ -116,7 +107,7 @@ def build(conf: dict, m: Model, mix: dict, weights_fn, device: str,
     if device != "cpu":
         torch.cuda.empty_cache()
     w = weights_fn()
-    params = port_params(w, m)
+    params = family_of(conf).port_params(w, m)
     for eng in engines:
         eng.params = params
         eng.recorder = EngineRecorder(eng, clock, log)

@@ -1,7 +1,9 @@
 """Arithmetic over one run's record, shared by the metric readers in
 ``ecobench/metrics/``.  A record (``bench.Run``) holds each request of the
 window on the loop's timeline, the engines' step times, the clock's
-sleeps and, in the traced run, the trace's reduction."""
+sleeps, the model's family (its work counts) and, in the traced run, the
+kernel files' calls, the trace's reduction and the program's own spans
+and counters."""
 from __future__ import annotations
 
 import math
@@ -63,12 +65,13 @@ def output_tokens(run) -> int:
 
 
 def prefill_flops(run) -> float:
-    return sum(work.prefill_flops(run.model, T) for T, _ in run.prefills)
+    f = run.family.prefill_flops
+    return sum(f(run.model, T) for T, _ in run.prefills)
 
 
 def decode_flops(run) -> float:
-    return sum(work.decode_flops(run.model, b, c)
-               for b, c, _ in run.decodes)
+    f = run.family.decode_flops
+    return sum(f(run.model, b, c) for b, c, _ in run.decodes)
 
 
 def share_of_peak(run, flops: float, seconds: float) -> Optional[float]:
@@ -96,4 +99,4 @@ def kernel_roofline(run, name: str) -> Optional[float]:
     t = run.trace
     if not t:
         return None
-    return roofline(t["calls"].get(name, []), t["kernel_s"].get(name))
+    return roofline(run.calls.get(name, []), t["kernel_s"].get(name))

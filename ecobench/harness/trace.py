@@ -1,6 +1,6 @@
 """The traced run: spans from the benchmark's side, a profiled sub-window,
 and the trace's reduction to device busy time, kernel time by call site,
-and idle gaps by what the host was doing.
+idle gaps by what the host was doing, and the program's own ranges.
 
 Spans (``torch.profiler.record_function``), installed in the traced run
 only:
@@ -8,11 +8,11 @@ only:
                                  last ``1 - TRACE_FROM`` share);
   ``ecobench.sleep``             the loop inside ``sleep_until``;
   ``ecobench.prefill`` / ``ecobench.decode``   an engine's prefill, step;
-  ``ecobench.kernel.<name>``     one call of the port's kernel entry
-                                 ``<name>`` (a shim over
-                                 ``repro_torch.models.layers``' names),
-                                 which also records the call's operations
-                                 and bytes from its shapes.
+  ``ecobench.kernel.<name>``     one call that the kernel file
+                                 ``kernels/<name>.py`` counts, of the
+                                 ``repro_torch.models.layers`` entry it
+                                 names, with the call's operations and
+                                 bytes from its shapes.
 A kernel launched inside a ``ecobench.kernel.<name>`` span is that call's
 (the launch's correlation id ties the device kernel to the host's launch
 inside the span), whatever the kernel is called.
@@ -25,33 +25,56 @@ import contextlib
 import json
 from typing import Dict, List, Optional
 
-from ecobench.harness import work
+import numpy as np
+
+from ecobench.harness import files, work
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-SHIMS = {"flash_prefill": "flash_prefill_op",
-         "decode_attention": "decode_attention_op"}
+PROGRAM = "repro_torch."         # the program's own ranges, kept by name
+
+
+class Step:
+    """The decode step under way, as a kernel file's ``work`` sees it: each
+    slot's cached tokens (the engine's host ``lengths``) at its start."""
+
+    def __init__(self):
+        self.lengths = None
+        self._rows: Dict[int, int] = {}
+
+    def begin(self, lengths) -> None:
+        self.lengths = lengths.copy()
+        self._rows.clear()
+
+    def valid_rows(self, S: int) -> int:
+        """K/V rows the step reads in caches of ``S`` rows: min(length +
+        1, S) over the slots (0 outside a decode step)."""
+        if self.lengths is None:
+            return 0
+        if S not in self._rows:
+            self._rows[S] = int(np.minimum(self.lengths + 1, S).sum())
+        return self._rows[S]
 
 
 class Shims:
-    """The kernel entries' shims and the engine methods' spans."""
+    """Every kernel file's shim and the engine methods' spans."""
 
     def __init__(self):
-        self.calls: Dict[str, List[tuple]] = {k: [] for k in SHIMS}
+        self.kernels = files.modules("kernels")
+        self.calls: Dict[str, List[tuple]] = {k: [] for k in self.kernels}
         self.active = False          # record work only inside the sub-window
-        self.valid_rows = 0          # K/V rows of the current decode step
-        self._orig = {}
+        self.step = Step()
+        self._orig: List[tuple] = []     # (attr, function), as installed
         self._layers = None
 
-    def install(self, engines, max_seq_len: int) -> None:
-        import numpy as np
+    def install(self, engines) -> None:
         from torch.profiler import record_function
         import repro_torch.models.layers as layers
         self._layers = layers
-        for name, attr in SHIMS.items():
-            self._orig[attr] = getattr(layers, attr)
-        layers.flash_prefill_op = self._flash_prefill
-        layers.decode_attention_op = self._decode_attention
+        for name, kern in self.kernels.items():
+            fn = getattr(layers, kern.ATTR)
+            self._orig.append((kern.ATTR, fn))
+            setattr(layers, kern.ATTR, self._shim(name, kern, fn))
         for eng in engines:
             prefill, step = eng.prefill, eng.decode_step
 
@@ -60,51 +83,44 @@ class Shims:
                     return _f(req)
 
             def dec(_f=step, _e=eng):
-                self.valid_rows = int(np.minimum(_e.lengths + 1,
-                                                 max_seq_len).sum())
+                self.step.begin(_e.lengths)
                 with record_function("ecobench.decode"):
                     return _f()
             eng.prefill, eng.decode_step = pre, dec
 
     def uninstall(self) -> None:
         if self._layers is not None:
-            for attr, fn in self._orig.items():
+            for attr, fn in reversed(self._orig):
                 setattr(self._layers, attr, fn)
+            self._orig.clear()
             self._layers = None
 
-    def _flash_prefill(self, q, k, v, **kw):
-        fn = self._orig["flash_prefill_op"]
-        if not self.active or kw.get("window", 0):
-            return fn(q, k, v, **kw)
+    def _shim(self, name: str, kern, fn):
         from torch.profiler import record_function
-        B, T, Hq, D = q.shape
-        S, Hkv = k.shape[1], k.shape[2]
-        with record_function("ecobench.kernel.flash_prefill"):
-            out = fn(q, k, v, **kw)
-        self.calls["flash_prefill"].append(work.flash_prefill_work(
-            B, T, S, Hq, Hkv, D, q.element_size(), kw.get("q_offset", 0)))
-        return out
+        span = "ecobench.kernel." + name
+        calls = self.calls[name]
 
-    def _decode_attention(self, q, k_cache, v_cache, lengths):
-        fn = self._orig["decode_attention_op"]
-        if not self.active:
-            return fn(q, k_cache, v_cache, lengths)
-        from torch.profiler import record_function
-        B, Hq, D = q.shape
-        Hkv = k_cache.shape[2]
-        with record_function("ecobench.kernel.decode_attention"):
-            out = fn(q, k_cache, v_cache, lengths)
-        self.calls["decode_attention"].append(work.decode_attention_work(
-            B, Hq, Hkv, D, self.valid_rows, q.element_size()))
-        return out
+        def shim(*args, **kw):
+            if not self.active:
+                return fn(*args, **kw)
+            w = kern.work(args, kw, self.step)
+            if w is None:
+                return fn(*args, **kw)
+            with record_function(span):
+                out = fn(*args, **kw)
+            calls.append(w)
+            return out
+        return shim
 
 
 class SubWindow:
-    """Profiles the window from ``t_start`` on, switched on from the clock;
-    ``end`` (after the window has closed: the profiler's stop and export
-    take seconds) switches it off."""
+    """Counts the kernel files' calls from ``t_start`` on, switched on from
+    the clock, and profiles that part into ``trace_path`` (None: no
+    profiler, as on the CPU); ``end`` (after the window has closed: the
+    profiler's stop and export take seconds) switches it off."""
 
-    def __init__(self, t_start: float, shims: Shims, trace_path: str):
+    def __init__(self, t_start: float, shims: Shims,
+                 trace_path: Optional[str]):
         self.t_start = t_start
         self.shims = shims
         self.path = trace_path
@@ -117,23 +133,26 @@ class SubWindow:
             self.begin()
 
     def begin(self) -> None:
-        from torch.profiler import ProfilerActivity, profile, record_function
-        self._prof = profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA])
-        self._prof.start()
-        self._span = record_function("ecobench.window")
-        self._span.__enter__()
+        if self.path is not None:
+            from torch.profiler import (ProfilerActivity, profile,
+                                        record_function)
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.start()
+            self._span = record_function("ecobench.window")
+            self._span.__enter__()
         self.shims.active = True
         self.state = "on"
 
     def end(self) -> None:
-        import torch
         self.shims.active = False
-        torch.cuda.synchronize()
-        self._span.__exit__(None, None, None)
-        self._prof.stop()
-        self._prof.export_chrome_trace(self.path)
-        self._prof = None
+        if self._prof is not None:
+            import torch
+            torch.cuda.synchronize()
+            self._span.__exit__(None, None, None)
+            self._prof.stop()
+            self._prof.export_chrome_trace(self.path)
+            self._prof = None
         self.state = "done"
 
     def sleep_span(self):
@@ -171,7 +190,10 @@ def reduce(events: List[dict], top: int = 10) -> dict:
     device time of the kernels launched inside each
     ``ecobench.kernel.<name>`` span, the device operations that took most
     time, and idle gaps summed by what the host was doing at their middle
-    (the outermost ``ecobench.*`` span and the innermost host op)."""
+    (the outermost ``ecobench.*`` span and the innermost host op).  For
+    readers of the program's own ranges, in seconds from the sub-window's
+    start: the busy stretches (``busy``) and every ``repro_torch.*``
+    range by name (``ranges``; ``harness/program.py``)."""
     win = [e for e in events if e.get("name") == "ecobench.window"
            and e.get("cat") == "user_annotation"]
     if not win:
@@ -183,6 +205,7 @@ def reduce(events: List[dict], top: int = 10) -> dict:
     by_op = collections.Counter()
     launch_ts = {}
     spans = collections.defaultdict(list)
+    ranges = collections.defaultdict(list)
     host = []
     for e in events:
         cat = e.get("cat")
@@ -198,6 +221,9 @@ def reduce(events: List[dict], top: int = 10) -> dict:
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
                 launch_ts[corr] = ts
+        elif cat == "user_annotation" and e["name"].startswith(PROGRAM):
+            ranges[e["name"]].append(((ts - w0) * 1e-6,
+                                      (ts + dur - w0) * 1e-6))
         if e.get("tid") == tid and cat in ("user_annotation", "cpu_op"):
             name = e["name"]
             if cat == "user_annotation" and name.startswith(
@@ -251,7 +277,9 @@ def reduce(events: List[dict], top: int = 10) -> dict:
     return {"window_s": (w1 - w0) * 1e-6, "busy_s": busy_s,
             "kernel_s": kernel_s,
             "device_ops": [[n, v] for n, v in by_op.most_common(top)],
-            "idle_gaps": [[n, v] for n, v in idle.most_common(top)]}
+            "idle_gaps": [[n, v] for n, v in idle.most_common(top)],
+            "busy": [((s - w0) * 1e-6, (t - w0) * 1e-6) for s, t in busy],
+            "ranges": dict(ranges)}
 
 
 def read(path: str) -> dict:

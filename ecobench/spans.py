@@ -3,7 +3,7 @@
     python3 ecobench/spans.py --workload <cell> --seeds 1,2 --seconds 51 \
         --trace 1 [--spans 1]
 
-Each run is ``run_cell``'s, at the cell's rate, with a ``Tracer`` given to
+Each run is ``run_cell``'s, at the cell's rate, with its own ``Tracer`` on
 the window's ``serve`` (``repro_torch.serving.spans``: the loop's ``run``,
 ``wait`` and ``refuse`` tuples) and, with ``--trace 1``, the window's last
 15% profiled with the program's ``record_function`` ranges in the trace.
@@ -35,50 +35,14 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
     """One run of ``name``; ``kw`` goes to ``run_cell`` (CPU tests: a
     ``shrink``, ``device``, ``drain``)."""
     from ecobench.harness import bench, program, stats
-    from ecobench.harness import trace as trace_mod
-    from repro_torch.obs.events import Tracer
-
-    tracer = Tracer() if spans else None
-    got = {}
-
-    def attach(server):
-        # the window's serve is the one given a horizon (not the warm-up)
-        serve = server.serve
-
-        def traced(requests, **skw):
-            if "horizon" not in skw or tracer is None:
-                return serve(requests, **skw)
-            try:
-                return serve(requests, tracer=tracer, **skw)
-            finally:
-                # attach_tracer's clock reads the loop, which holds the
-                # engines: let them go with the server
-                tracer.clock = None
-        server.serve = traced
-
-    read = trace_mod.read
-
-    def read_too(path):
-        # run_cell reduces the profiled chrome trace, then deletes it:
-        # read the program's decode ranges from it on the way
-        with open(path) as f:
-            data = json.load(f)
-        got["idle_in_decode_share"] = program.idle_in_decode_share(
-            data["traceEvents"] if isinstance(data, dict) else data)
-        return read(path)
 
     if rate is None:
         rate = bench.cell_spec(name)["cell"]["rate"]
-    trace_mod.read = read_too
-    try:
-        out = bench.run_cell(
-            name, seed, seconds, trace, rate=rate, fault=attach,
-            t_start=time.perf_counter() if t_start is None else t_start,
-            log=lambda s: print(s, file=sys.stderr), **kw)
-    finally:
-        trace_mod.read = read
+    out = bench.run_cell(
+        name, seed, seconds, trace, rate=rate, spans=spans,
+        t_start=time.perf_counter() if t_start is None else t_start,
+        log=lambda s: print(s, file=sys.stderr), **kw)
     r = out["run"]
-    ev = tracer.events if tracer is not None else []
     row = {"workload": name, "seed": seed, "trace": int(trace),
            "spans": int(spans), "correct": out["correct"],
            "output_tokens_s": stats.output_tokens(r) / r.window_s,
@@ -86,8 +50,9 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
            "loop_sleep_share": 100.0 * r.slept_s / r.window_s,
            "queue_wait_p90_s": stats.nearest_rank(stats.queue_waits(r), 90),
            "device_idle_share": stats.idle_share(r)}
-    if tracer is None:
+    if not spans:
         return row
+    ev = r.events
     waits = sum(w[2] for w in ev if w[0] == "wait")
     # the loop submits an arrival at its own time, after the slot it was
     # running when the request fell due
@@ -97,7 +62,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
         slot_wait_share=program.slot_wait_share(ev, r.window_s),
         queued_arrival_share=program.queued_arrival_share(ev),
         decode_host_share=program.decode_host_share(ev),
-        idle_in_decode_share=got.get("idle_in_decode_share"),
+        idle_in_decode_share=program.idle_in_decode_share(r.trace),
         refusals=program.refusals(ev),
         decode_over_modeled=program.decode_over_modeled(ev),
         arrival_late_p90_s=stats.nearest_rank(late, 90),

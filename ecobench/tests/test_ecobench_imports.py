@@ -13,11 +13,14 @@ from ecobench_testlib import REPO
 
 ECO = REPO / "ecobench"
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
-# the yardstick: none of these may import the program
+# the yardstick: none of these may import the program (a kernel file's
+# ``work`` counts from shapes; ``harness/trace.py`` wraps the program)
 REFERENCE_SIDE = ["harness/reference.py", "harness/model.py",
                   "harness/weights.py", "harness/work.py",
                   "harness/traffic.py", "harness/judge.py",
-                  "harness/stats.py"]
+                  "harness/stats.py", "harness/files.py"] + sorted(
+    str(p.relative_to(ECO)) for d in ("families", "kernels")
+    for p in (ECO / d).glob("*.py"))
 
 
 def _imports(path: pathlib.Path):

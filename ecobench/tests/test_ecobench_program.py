@@ -1,10 +1,11 @@
 """The program's own spans as the benchmark reads them: a traced run at a
 CPU size through ``spans.py``, and the readers of ``harness/program.py``
-on hand-made tuples and a hand-made chrome trace (µs)."""
+on hand-made tuples and a hand-made chrome trace (µs) through its
+reduction."""
 import pytest
 
 from ecobench_testlib import tiny
-from ecobench.harness import program
+from ecobench.harness import program, trace
 from test_ecobench_trace import X
 
 
@@ -37,9 +38,9 @@ def test_no_spans_read_nothing():
     assert program.queued_arrival_share([("arrive", 0.0, 1, "d", None)]) \
         is None
     assert program.decode_host_share([]) is None
-    assert program.idle_in_decode_share([X("ecobench.window",
-                                           "user_annotation", 0, 10)]) \
-        is None
+    assert program.idle_in_decode_share(trace.reduce(
+        [X("ecobench.window", "user_annotation", 0, 10)])) is None
+    assert program.idle_in_decode_share(None) is None
     assert program.refusals([]) == {}
     assert program.decode_over_modeled([]) is None
 
@@ -86,4 +87,5 @@ def test_idle_in_decode_share_from_a_trace():
     ]
     # idle in 1000-1300: 1150-1250 (100); in 1600-1900: 1600-1700 and
     # 1750-1850 (200); over the 1000 µs window
-    assert program.idle_in_decode_share(events) == pytest.approx(30.0)
+    assert program.idle_in_decode_share(trace.reduce(events)) == \
+        pytest.approx(30.0)

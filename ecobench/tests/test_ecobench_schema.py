@@ -7,6 +7,7 @@ import pytest
 
 from ecobench_testlib import REPO, cpu_run, tiny
 from ecobench.harness import bench
+from ecobench.harness.model import family_of
 
 B = json.loads((REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -78,16 +79,11 @@ def test_config_file_as_run(c):
     assert sorted(conf["reduced"]) == sorted(entry["reduced"])
     assert set(conf["published"]) == set(conf["reduced"])
     m = conf["model"]
-    keys = {"qwen2-72b": dict(layers="num_hidden_layers",
-                              d_model="hidden_size",
-                              heads="num_attention_heads",
-                              kv_heads="num_key_value_heads",
-                              d_ff="intermediate_size", vocab="vocab_size",
-                              rope_theta="rope_theta",
-                              norm_eps="rms_norm_eps")}[c]
-    for k, hf in keys.items():
+    for k, hf in family_of(conf).SOURCE_KEYS.items():
         assert m[k] == conf[hf], k
-    assert m["head_dim"] * m["heads"] == m["d_model"]
+    if "head_dim" in m and "head_dim" not in conf:
+        # a source without head_dim splits the width among the heads
+        assert m["head_dim"] * m["heads"] == m["d_model"]
     assert conf["engine"]["dtype"] == conf["torch_dtype"]
 
 
